@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases all]
 
-Drives ``fast_neural_style_transfer_tpu_torch`` only (no JAX): builds the
-CUDA kernels from ``csrc/`` with nvcc, holds each kernel against its plain
-PyTorch version at the shapes of the stylizer's main path, stylizes with the
-in-repo trained checkpoint against the port's own CPU path, serves
-concurrent HTTP requests and runs the inference CLI with the kernel-launch
-counters reset just before, then times the kernel, its plain version and
-the library op. Every phase prints one JSON line; any failure exits
-non-zero. The last line is ``{"ok": true, "device": {...}}``.
+Drives ``fast_neural_style_transfer_tpu_torch`` only (no JAX). It builds
+the CUDA kernels from ``csrc/`` with nvcc (both sources at once), and holds
+each kernel against its plain PyTorch version at the shapes of the main
+paths. Then it drives the two main paths, each with the kernel-launch
+counters set to 0 just before and read just after:
+- serving (slice 1): the in-repo trained checkpoint against the port's own
+  CPU path, concurrent HTTP requests and the inference CLI;
+- training (slice 2): the training CLI for 10 steps at batch 20, 256x256,
+  full width, on synthetic images, then one step on the card against the
+  port's CPU path.
+Last it times the kernels, their plain versions and the library ops, and
+the training step. Every phase prints one JSON line; any failure exits
+non-zero. The line before the last lists the kernels; the last line is
+``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the build
+always runs), for iterating; the kernels line needs all phases.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 IN_FLOPS_PER_ELEMENT = 8  # stats (3) + normalize/affine (2) + ReLU, rounded up
 
-# the IN sites of one 256x256 forward: (H, W, C, relu, sites per forward)
+# the IN sites of one 256x256 forward: (H, W, C, relu, sites per forward);
+# a training step runs the backward of each once
 SITES = [
     ("norm1", 128, 128, 64, True, 1),
     ("norm2+in1", 64, 64, 256, True, 6),
@@ -110,17 +118,25 @@ def phase_device() -> dict:
     return info
 
 
+SOURCES = ("instance_norm", "conv_same_bwd")
+
+
 def phase_build() -> None:
-    from fast_neural_style_transfer_tpu_torch.ops import _build, cuda_norm
+    """nvcc on every source at once, then bind each library."""
+    from fast_neural_style_transfer_tpu_torch.ops import _build, cuda_conv, cuda_norm
 
     t0 = time.perf_counter()
-    cuda_norm._kernel()  # builds csrc/instance_norm.cu and binds it
+    _build.load_all(SOURCES)
+    cuda_norm._kernels()
+    cuda_conv._kernel()
     seconds = time.perf_counter() - t0
-    info = _build.build_info["instance_norm"]
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if re.search(r"registers|spill|Compiling entry", ln)]
-    emit("build", source="fast_neural_style_transfer_tpu_torch/csrc/instance_norm.cu",
-         nvcc_seconds=info["seconds"], total_seconds=seconds, ptxas=ptxas)
+    for name in SOURCES:
+        info = _build.build_info[name]
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if re.search(r"registers|spill|Compiling entry|smem", ln)]
+        emit("build", source=f"fast_neural_style_transfer_tpu_torch/csrc/{name}.cu",
+             nvcc_seconds=info["seconds"], ptxas=ptxas)
+    emit("build_total", seconds=seconds)
 
 
 def phase_kernel_vs_plain(seed: int) -> float:
@@ -176,6 +192,155 @@ def phase_kernel_vs_plain(seed: int) -> float:
                     if not ok:
                         fail(f"kernel disagrees with plain at {[n, h, w, c]} "
                              f"{dtype} onepass={onepass}")
+    return worst
+
+def in_bwd_scales(x, g, mean, inv, gamma, beta, relu):
+    """Sums of the absolute values of the terms the IN backward adds: a
+    sum taken in another order errs by at most (terms) * 2^-24 of it, so
+    these scale the tolerances. -> (per-element dx scale, per-(n, c) dgamma
+    scale, per-(n, c) dbeta scale)."""
+    import torch
+
+    col = lambda t: t[:, :, None, None]
+    xh = (x.float() - col(mean)) * col(inv)
+    gf = g.float()
+    if relu:
+        gf = torch.where(xh * gamma[None, :, None, None] + beta[None, :, None, None] > 0,
+                         gf, torch.zeros((), device=gf.device))
+    a = gf.abs().mean(dim=(2, 3))
+    b = (gf * xh).abs().mean(dim=(2, 3))
+    dx_scale = (gamma[None, :, None, None] * col(inv)).abs() * (gf.abs() + col(a) + xh.abs() * col(b))
+    return dx_scale, (gf * xh).abs().sum(dim=(2, 3)), gf.abs().sum(dim=(2, 3))
+
+
+def over_tol(err, tol) -> float:
+    """max of err / tol (<= 1 passes)."""
+    return (err / tol.clamp_min(1e-30)).max().item()
+
+
+def phase_in_bwd_vs_plain(seed: int) -> float:
+    """IN backward kernel against its plain version (the same formula in
+    f32 on the upcast inputs), with (mean, inv) from the forward kernel: the
+    three site shapes with ReLU on and off, B=1 and B=20, f32 and bf16.
+    Tolerances: |ddx| <= 1e-4 * S + r|dx| with S the per-element sum of
+    absolute terms (in_bwd_scales; sums of up to ~350 f32 terms in a row
+    err by <= 350 * 2^-24 = 2e-5 of S: a thread adds at most ~300 of them
+    before the partials merge), r = 0 in f32 and 2^-7 in bf16 (dx
+    rounded to bf16 errs by half an ulp, up to 2^-8 |dx|; one ulp leaves
+    room for the f32 differences ahead of the rounding); |ddgamma| and
+    |ddbeta| <= 1e-4 of their sums of absolute terms. The ReLU masks are bitwise equal (the kernel
+    rounds each operation of xhat * gamma + beta on its own)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_bwd,
+        instance_norm_bwd_reference,
+        instance_norm_fwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    worst = 0.0
+    shapes = sorted({(h, w, c) for _, h, w, c, _, _ in SITES})
+    for h, w, c in shapes:
+        for n in (1, 20):
+            base = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
+            gbase = torch.randn((n, c, h, w), generator=gen, device="cuda")
+            gamma = torch.randn(c, generator=gen, device="cuda")
+            beta = torch.randn(c, generator=gen, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                x = base.to(dtype).contiguous(memory_format=torch.channels_last)
+                g = gbase.to(dtype).contiguous(memory_format=torch.channels_last)
+                with torch.inference_mode():
+                    _, mean, inv = instance_norm_fwd(x, gamma, beta)
+                for relu in (False, True):
+                    with torch.inference_mode():
+                        dx, dgn, dbn = instance_norm_bwd(x, g, mean, inv, gamma, beta,
+                                                         relu=relu)
+                        torch.cuda.synchronize()
+                        dx_r, dgn_r, dbn_r = instance_norm_bwd_reference(
+                            x.float(), g.float(), mean, inv, gamma, beta, relu=relu)
+                        sx, sg, sb = in_bwd_scales(x, g, mean, inv, gamma, beta, relu)
+                    r = 0.0 if dtype == torch.float32 else 2.0 ** -7
+                    ddx = (dx.float() - dx_r).abs()
+                    dx_over = over_tol(ddx, 1e-4 * sx + r * dx_r.abs())
+                    dg_over = over_tol((dgn - dgn_r).abs(), 1e-4 * sg)
+                    db_over = over_tol((dbn - dbn_r).abs(), 1e-4 * sb)
+                    max_abs = ddx.max().item()
+                    worst = max(worst, max_abs)
+                    ok = max(dx_over, dg_over, db_over) <= 1
+                    emit("in_bwd_vs_plain", shape=[n, h, w, c], relu=relu,
+                         dtype=str(dtype).replace("torch.", ""), dx_max_abs_err=max_abs,
+                         dx_max=dx_r.abs().max().item(), dx_err_over_tol=dx_over,
+                         dgamma_max_abs_err=(dgn - dgn_r).abs().max().item(),
+                         dgamma_err_over_tol=dg_over,
+                         dbeta_max_abs_err=(dbn - dbn_r).abs().max().item(),
+                         dbeta_err_over_tol=db_over, ok=ok)
+                    if not ok:
+                        fail(f"IN backward kernel disagrees with plain at "
+                             f"{[n, h, w, c]} {dtype} relu={relu}")
+    return worst
+
+
+def phase_conv_bwd_vs_plain(seed: int) -> float:
+    """conv backward kernel (dx-only and full) against its plain version
+    (shifted sums in f32 on the upcast inputs): VGG conv1_1 (64 -> 3, k3)
+    at 256x256 with B=1 and B=20, and 200x300 with B=2 (ragged tiles on
+    both edges, outside the TPU kernel's gate), f32 and bf16. Tolerances:
+    each output is a sum (dx: 576 terms a pixel; dw, db: N*H*W terms an
+    entry); a sum in another order errs by at most (terms) * 2^-24 of its
+    sum of absolute terms S, in practice by ~sqrt(terms) times less, so
+    |d| <= 1e-4 * S, plus 2^-7 |dx| in bf16 (one ulp: dx rounded to
+    bf16 errs by up to 2^-8 |dx|)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import (
+        conv2d_same_bwd,
+        conv2d_same_bwd_reference,
+        conv2d_same_dx,
+        conv2d_same_dx_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    worst = 0.0
+    w32 = torch.randn((64, 3, 3, 3), generator=gen, device="cuda") * 0.1
+    for n, h, w in ((1, 256, 256), (20, 256, 256), (2, 200, 300)):
+        gbase = torch.randn((n, 64, h, w), generator=gen, device="cuda")
+        xbase = torch.randn((n, 3, h, w), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            g = gbase.to(dtype).contiguous(memory_format=torch.channels_last)
+            x = xbase.to(dtype).contiguous(memory_format=torch.channels_last)
+            wt = w32.to(dtype)
+            with torch.inference_mode():
+                dx_r, dw_r, db_r = conv2d_same_bwd_reference(g.float(), x.float(), wt.float())
+                _, sw, sb = conv2d_same_bwd_reference(g.float().abs(), x.float().abs(),
+                                                      wt.float().abs())
+                sx = conv2d_same_dx_reference(g.float().abs(), wt.float().abs())
+            r = 0.0 if dtype == torch.float32 else 2.0 ** -7
+            for mode in ("dx", "full"):
+                with torch.inference_mode():
+                    if mode == "dx":
+                        dx = conv2d_same_dx(g, wt)
+                    else:
+                        dx, dw, db = conv2d_same_bwd(g, x, wt)
+                    torch.cuda.synchronize()
+                ddx = (dx.float() - dx_r).abs()
+                fields = {"dx_max_abs_err": ddx.max().item(),
+                          "dx_max": dx_r.abs().max().item(),
+                          "dx_err_over_tol": over_tol(ddx, 1e-4 * sx + r * dx_r.abs())}
+                if mode == "full":
+                    fields.update(
+                        dw_max_abs_err=(dw - dw_r).abs().max().item(),
+                        dw_err_over_tol=over_tol((dw - dw_r).abs(), 1e-4 * sw),
+                        db_max_abs_err=(db - db_r).abs().max().item(),
+                        db_err_over_tol=over_tol((db - db_r).abs(), 1e-4 * sb))
+                worst = max(worst, fields["dx_max_abs_err"])
+                ok = (dx.shape == x.shape and dx.dtype == dtype
+                      and max(v for k, v in fields.items() if k.endswith("over_tol")) <= 1)
+                emit("conv_bwd_vs_plain", shape=[n, h, w], c_in=3, c_out=64, k=3,
+                     dtype=str(dtype).replace("torch.", ""), mode=mode, ok=ok, **fields)
+                if not ok:
+                    fail(f"conv backward kernel disagrees with plain at {[n, h, w]} "
+                         f"{dtype} {mode}")
     return worst
 
 
@@ -310,6 +475,389 @@ def phase_serving() -> dict:
     return result
 
 
+TRAIN_STEPS = 10
+TRAIN_BATCH = 20  # the training CLI's default
+
+
+def phase_training(seed: int) -> dict:
+    """The training main path: the port's training CLI on the card for
+    TRAIN_STEPS steps at batch 20, 256x256, f32 (the CLI's defaults), full
+    width, the seeded random VGG (no ImageNet weights exist here), on 40
+    synthetic JPEGs and a synthetic style image. Launch counters are set to
+    0 just before and read just after: 14 IN forwards and 14 IN backwards
+    and one conv1_1 dx per step. Every logged loss must be finite with no
+    skipped step, a checkpoint and style_transfer_final.npz must be
+    written, and the port's Stylizer must stylize an image on the card with
+    that .npz."""
+    import torch
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import begin_training
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import (
+        conv2d_same_bwd,
+        conv2d_same_dx,
+    )
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_bwd,
+        instance_norm_fwd,
+    )
+
+    counters = {"instance_norm_fwd": instance_norm_fwd,
+                "instance_norm_bwd": instance_norm_bwd,
+                "conv2d_same_dx": conv2d_same_dx, "conv2d_same_bwd": conv2d_same_bwd}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        for i in range(40):
+            img = smooth_image(240 + 16 * (i % 4), 256 + 24 * (i % 3), seed=1000 + i)
+            Image.fromarray(img).save(os.path.join(data, f"{i:03d}.jpg"), quality=92)
+        style = os.path.join(tmp, "style.jpg")
+        Image.fromarray(smooth_image(320, 320, seed=999)).save(style, quality=95)
+        out = os.path.join(tmp, "out")
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        final = begin_training.main([
+            "--dataset_dir", data, "--style_image", style, "--output_dir", out,
+            "--total_steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_BATCH),
+            "--training_monitor_content_image", "", "--seed", str(seed)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        checkpoints = sorted(os.listdir(os.path.join(out, "checkpoints")))
+        sty = Stylizer.from_checkpoint(final)
+        img = smooth_image(256, 256, seed=77)
+        y = sty.stylize_u8(img)
+        finite = all(np.isfinite(r[k]) for r in records
+                     for k in ("loss", "content_loss", "style_loss", "tv_loss", "grad_norm"))
+    expected = {"instance_norm_fwd": NUM_IN_SITES * TRAIN_STEPS,
+                "instance_norm_bwd": NUM_IN_SITES * TRAIN_STEPS,
+                "conv2d_same_dx": TRAIN_STEPS, "conv2d_same_bwd": 0}
+    ok = bool(finite and records and all(r["skipped_nonfinite"] == 0 for r in records)
+          and records[-1]["step"] == TRAIN_STEPS
+          and any(c.startswith("ckpt_") for c in checkpoints)
+          and os.path.basename(final) == "style_transfer_final.npz"
+          and y.shape == img.shape and y.dtype == np.uint8
+          and launches == expected)
+    emit("training", ok=ok, steps=TRAIN_STEPS, batch=TRAIN_BATCH, size=[256, 256],
+         precision="f32", seconds=seconds, metrics=records, checkpoints=checkpoints,
+         launches=launches, expected_launches=expected,
+         stylized_shape=list(y.shape), stylized_mean=float(y.mean()))
+    if not ok:
+        fail("training phase")
+    return {"launches": launches}
+
+
+def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2):
+    """One f32 step without dropout from seeded params, VGG and batch ->
+    (loss, grads, grad_norm, params before, params after, state.step),
+    all on the CPU."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+    from fast_neural_style_transfer_tpu_torch.losses import (
+        LossTaps,
+        style_targets_from_features,
+    )
+    from fast_neural_style_transfer_tpu_torch.models import TransformerNet
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+    from fast_neural_style_transfer_tpu_torch.train.schedule import LossWeightSchedule
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+    from fast_neural_style_transfer_tpu_torch.train.step import (
+        exact_f32,
+        loss_fn,
+        make_train_step,
+    )
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+
+    prec = Precision.f32()
+    exact_f32(torch.device(device), prec)
+    torch.manual_seed(seed)
+    net = TransformerNet().to(device, memory_format=torch.channels_last)
+    vgg = make_vgg(random_params(seed), device)
+    taps = LossTaps()
+    style = u8_to_network(torch.from_numpy(smooth_image(size, size, seed=5))[None]).to(device)
+    u8 = torch.from_numpy(np.stack([smooth_image(size, size, seed=10 + i)
+                                    for i in range(batch)])).to(device)
+    with torch.no_grad():
+        grams = style_targets_from_features(vgg(style, taps.style_taps, precision=prec))
+    cpu = lambda ts: [t.detach().float().cpu().clone() for t in ts]
+    params = list(net.parameters())
+    before = cpu(params)
+    total, _ = loss_fn(net, vgg, u8, grams, LossWeightSchedule()(0), taps=taps,
+                       precision=prec, dropout=False)
+    grads = torch.autograd.grad(total, params)
+    state = create_train_state(net)
+    metrics = make_train_step(dropout=False)(state, vgg, u8, grams)
+    return (float(metrics["loss"]), cpu(grads), float(metrics["grad_norm"]), before,
+            cpu(net.parameters()), state.step)
+
+
+def phase_train_parity(seed: int) -> None:
+    """One f32 step (128x128, B=2, no dropout) on the card against the
+    port's CPU path from the same seeded params, VGG and batch. Tolerances:
+    loss and gradient global norm relative 1e-4, every gradient element
+    within 1e-3 of the largest gradient (f32 sums in other orders through
+    ~30 layers). Updated params: Adam's first update is lr * u(g), u(g) =
+    g / (|g| + 1e-8), with g the clipped gradient plus 1e-5 * param; the
+    clip divides by the global norm (~2e5 here), which puts part of the
+    elements within a few hundred 1e-8 of zero, where u swings with the
+    last bits of g (du/dg = 1e-8 / (|g| + 1e-8)^2). So every element within
+    2 lr (the most two updates can differ), and every element whose
+    effective gradient is at least 1e-4 on the CPU (where du/dg <= 1)
+    within 1e-3 lr."""
+    lr = 1e-3
+    card = _one_train_step("cuda", seed)
+    cpu = _one_train_step("cpu", seed)
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    gmax = max(g.abs().max().item() for g in cpu[1])
+    grad_err = max((a - b).abs().max().item() for a, b in zip(card[1], cpu[1])) / gmax
+    norm_rel = abs(card[2] - cpu[2]) / cpu[2]
+    dp = [(a - b).abs() / lr for a, b in zip(card[4], cpu[4])]
+    numel = sum(d.numel() for d in dp)
+    off = [d > 1e-3 for d in dp]
+    frac_off = sum(o.sum().item() for o in off) / numel
+    # the CPU side's effective gradient where an element is off by > 1e-3 lr
+    scale = min(1.0, 1.0 / cpu[2])
+    g_eff = [(g * scale + 1e-5 * p).abs() for g, p in zip(cpu[1], cpu[3])]
+    g_eff_off = max((ge[o].max().item() for ge, o in zip(g_eff, off) if o.any()),
+                    default=0.0)
+    dp_max = max(d.max().item() for d in dp)
+    ok = (loss_rel <= 1e-4 and norm_rel <= 1e-4 and grad_err <= 1e-3
+          and dp_max <= 2 and g_eff_off < 1e-4 and card[5] == cpu[5] == 1)
+    emit("train_parity", ok=ok, size=[128, 128], batch=2, precision="f32",
+         loss_card=card[0], loss_cpu=cpu[0], loss_rel_err=loss_rel,
+         grad_norm_card=card[2], grad_norm_cpu=cpu[2], grad_norm_rel_err=norm_rel,
+         grad_max_abs_err_over_max_grad=grad_err, param_max_abs_err_over_lr=dp_max,
+         param_mean_abs_err_over_lr=sum(d.sum().item() for d in dp) / numel,
+         param_frac_off_over_1e_3_lr=frac_off,
+         largest_effective_grad_where_off=g_eff_off, steps=[card[5], cpu[5]])
+    if not ok:
+        fail("card-vs-CPU train step parity")
+
+
+IN_BWD_FLOPS_PER_ELEMENT = 16  # the TPU kernel's cost estimate
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense
+
+
+def bound(bytes_moved: float, flops: float, dtype: str) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of bytes over HBM
+    and operations over the peak rate of their type."""
+    b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def train_kernel_times(seed: int) -> dict:
+    """Per training step at B=20, 256x256, in bf16 and f32: device time
+    (CUDA-graph replay) of the IN forward and backward kernels over the 14
+    sites and of the conv1_1 dx kernel, their plain versions and the library
+    calls (F.instance_norm(+F.relu); its autograd backward, as the graph
+    time of forward + backward less that of the forward; cuDNN
+    backward-data torch.nn.grad.conv2d_input), beside the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import (
+        conv2d_same_dx,
+        conv2d_same_dx_reference,
+    )
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_bwd,
+        instance_norm_bwd_reference,
+        instance_norm_fwd,
+        instance_norm_fwd_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    n = TRAIN_BATCH
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        fwd = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        for name, h, w, c, relu, count in SITES:
+            x = (torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5)
+            x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+            g = torch.randn((n, c, h, w), generator=gen, device="cuda").to(dtype)
+            g = g.contiguous(memory_format=torch.channels_last)
+            gamma = torch.randn(c, generator=gen, device="cuda")
+            beta = torch.randn(c, generator=gen, device="cuda")
+            with torch.no_grad():
+                _, mean, inv = instance_norm_fwd(x, gamma, beta)
+
+                def library_fwd():
+                    y = F.instance_norm(x, weight=gamma, bias=beta, eps=1e-5)
+                    return F.relu(y) if relu else y
+
+                site_fwd = {
+                    "ms": graph_ms(lambda: instance_norm_fwd(x, gamma, beta, relu=relu)),
+                    "plain_ms": graph_ms(lambda: instance_norm_fwd_reference(
+                        x, gamma, beta, relu=relu)),
+                    "library_ms": graph_ms(library_fwd),
+                    "bound_ms": bound(2 * x.numel() * x.element_size(),
+                                      IN_FLOPS_PER_ELEMENT * x.numel(), dname)[0],
+                }
+            for k in fwd:
+                fwd[k] += count * site_fwd[k]
+            xr = x.detach().requires_grad_()
+            gr = gamma.detach().requires_grad_()
+            br = beta.detach().requires_grad_()
+
+            def library_fwd():
+                y = F.instance_norm(xr, weight=gr, bias=br, eps=1e-5)
+                return F.relu(y) if relu else y
+
+            lib_fwd_bwd = graph_ms(lambda: torch.autograd.grad(
+                library_fwd(), (xr, gr, br), g))
+            site = {
+                "ms": graph_ms(lambda: instance_norm_bwd(x, g, mean, inv, gamma, beta,
+                                                         relu=relu)),
+                "plain_ms": graph_ms(lambda: instance_norm_bwd_reference(
+                    x, g, mean, inv, gamma, beta, relu=relu)),
+                "library_ms": lib_fwd_bwd - graph_ms(library_fwd),
+            }
+            site["bound_ms"], by = bound(3 * x.numel() * x.element_size(),
+                                         IN_BWD_FLOPS_PER_ELEMENT * x.numel(), dname)
+            emit("train_times_in_bwd_site", site=name, shape=[n, h, w, c], dtype=dname,
+                 relu=relu, sites_per_step=count, bound_by=by,
+                 library_fwd_bwd_ms=lib_fwd_bwd,
+                 library_op="autograd of F.instance_norm" + ("+F.relu" if relu else ""),
+                 **site)
+            for k in tot:
+                tot[k] += count * site[k]
+            del xr, gr, br
+        tot["bound_by"] = fwd["bound_by"] = "bytes"
+        emit("train_times_in_fwd", dtype=dname, batch=n, per="step (14 sites)", **fwd,
+             library_op="F.instance_norm(+F.relu)", bound_share=fwd["bound_ms"] / fwd["ms"])
+        emit("train_times_in_bwd", dtype=dname, batch=n, per="step (14 sites)", **tot,
+             bound_share=tot["bound_ms"] / tot["ms"])
+        out[("in_fwd", dname)] = fwd
+        out[("in_bwd", dname)] = tot
+
+        g = torch.randn((n, 64, 256, 256), generator=gen, device="cuda").to(dtype)
+        g = g.contiguous(memory_format=torch.channels_last)
+        wt = (torch.randn((64, 3, 3, 3), generator=gen, device="cuda") * 0.1).to(dtype)
+        conv = {
+            "ms": graph_ms(lambda: conv2d_same_dx(g, wt)),
+            "plain_ms": graph_ms(lambda: conv2d_same_dx_reference(g, wt)),
+            "library_ms": graph_ms(lambda: torch.nn.grad.conv2d_input(
+                (n, 3, 256, 256), wt, g, padding=1)),
+        }
+        dx_bytes = n * 3 * 256 * 256 * g.element_size()
+        conv["bound_ms"], conv["bound_by"] = bound(
+            g.numel() * g.element_size() + dx_bytes, 2 * 27 * 64 * n * 256 * 256, dname)
+        emit("train_times_conv_dx", dtype=dname, shape=[n, 256, 256], c_in=3, c_out=64,
+             k=3, per="step (1 launch)", library_op="torch.nn.grad.conv2d_input (cuDNN)",
+             **conv, bound_share=conv["bound_ms"] / conv["ms"])
+        out[("conv_dx", dname)] = conv
+    return out
+
+
+def count_gradient_copies(fn) -> dict:
+    """Run ``fn`` (one training step) with the backward of each kernel's
+    autograd Function watched: per Function, how many upstream gradients
+    arrived outside channels_last (the wrapper copies them) or in another
+    dtype than the saved input (cast)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import Conv2dSameSmallCinFn
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import InstanceNormFn
+
+    counts, originals = {}, {}
+    for cls in (InstanceNormFn, Conv2dSameSmallCinFn):
+        originals[cls] = orig = cls.backward
+        c = counts[cls.__name__] = {"calls": 0, "not_channels_last": 0, "cast": 0}
+
+        def watched(ctx, gy, _orig=orig, _c=c):
+            _c["calls"] += 1
+            _c["not_channels_last"] += int(
+                not gy.is_contiguous(memory_format=torch.channels_last))
+            _c["cast"] += int(gy.dtype != ctx.saved_tensors[0].dtype)
+            return _orig(ctx, gy)
+
+        cls.backward = staticmethod(watched)
+    try:
+        fn()
+    finally:
+        for cls, orig in originals.items():
+            cls.backward = staticmethod(orig)
+    return counts
+
+
+def phase_train_times(seed: int) -> dict:
+    """Training step p50 at B=20, 256x256, bf16 and f32 (CUDA events
+    around each step, which ends in the non-finite guard's sync, after 3
+    warm-up steps; the host clock beside them), the layout
+    copies and casts ahead of the kernels' backward (count_gradient_copies),
+    a torch.profiler breakdown of one bf16 step by kernel and by aten op, and
+    the kernels' per-step times (train_kernel_times)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+    from fast_neural_style_transfer_tpu_torch.losses import (
+        LossTaps,
+        style_targets_from_features,
+    )
+    from fast_neural_style_transfer_tpu_torch.models import TransformerNet
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32, make_train_step
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+
+    u8 = torch.from_numpy(np.stack([smooth_image(256, 256, seed=2000 + i)
+                                    for i in range(TRAIN_BATCH)])).cuda()
+    style = u8_to_network(torch.from_numpy(smooth_image(256, 256, seed=5))[None]).cuda()
+    result = {}
+    for precision in ("bf16", "f32"):
+        prec = canonical_compute_dtype(precision)
+        exact_f32(torch.device("cuda"), prec)
+        torch.manual_seed(seed)
+        net = TransformerNet().cuda().to(memory_format=torch.channels_last)
+        vgg = make_vgg(random_params(seed), "cuda")
+        taps = LossTaps()
+        with torch.no_grad():
+            grams = style_targets_from_features(vgg(style, taps.style_taps, precision=prec))
+        state = create_train_state(net)
+        step = make_train_step(precision=prec)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for _ in range(3):
+            step(state, vgg, u8, grams, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        samples, host = [], []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            m = step(state, vgg, u8, grams, gen)
+            end.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            samples.append(start.elapsed_time(end))
+        p50 = float(np.median(samples))
+        emit("train_step_time", precision=precision, batch=TRAIN_BATCH, size=[256, 256],
+             p50_ms=p50, min_ms=float(np.min(samples)), max_ms=float(np.max(samples)),
+             host_p50_ms=float(np.median(host)), images_per_s=TRAIN_BATCH / p50 * 1e3,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             loss=float(m["loss"]))
+        result[precision] = p50
+        emit("train_gradient_copies", precision=precision,
+             **count_gradient_copies(lambda: step(state, vgg, u8, grams, gen)))
+        if precision == "bf16":
+            emit("train_profile", precision=precision, batch=TRAIN_BATCH,
+                 **profile_calls(lambda: step(state, vgg, u8, grams, gen), reps=2, top=16))
+        del net, vgg, state, step
+        torch.cuda.empty_cache()
+    result["kernels"] = train_kernel_times(seed)
+    return result
+
+
 def graph_ms(fn, reps: int = 20) -> float:
     """Device time per call: ``reps`` calls captured in one CUDA graph and
     replayed, so host-side launch cost is out of the measurement."""
@@ -407,13 +955,15 @@ def phase_times(seed: int) -> dict:
         emit("stylize_latency", batch=n, size=[256, 256], precision="bf16",
              p50_ms=latency[n], min_ms=float(np.min(samples)),
              images_per_s=n / latency[n] * 1e3)
-        emit("stylize_profile", batch=n, **profile_forward(sty, x))
+        emit("stylize_profile", batch=n,
+             **profile_calls(lambda: sty.raw_forward_u8(x), reps=5))
     return {"per_forward": per_forward, "latency": latency}
 
 
-def profile_forward(sty, x, reps: int = 5) -> dict:
-    """Device busy share over ``reps`` u8 forwards, and device time by
-    kernel name (top 8), from torch.profiler."""
+def profile_calls(fn, reps: int = 5, top: int = 8) -> dict:
+    """Device busy share over ``reps`` calls of ``fn``, and device time by
+    kernel name (the ``top`` largest, per call, with launches per call),
+    from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -421,7 +971,7 @@ def profile_forward(sty, x, reps: int = 5) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            sty.raw_forward_u8(x)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages()
@@ -429,20 +979,38 @@ def profile_forward(sty, x, reps: int = 5) -> dict:
     self_us = lambda e: getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(self_us(e) for e in device) / 1e3
-    top = sorted(device, key=self_us, reverse=True)[:8]
+    ranked = sorted(device, key=self_us, reverse=True)[:top]
+    # the aten ops that launched the device time (self: their own kernels)
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")
+           and self_us(e) > 0]
+    ops = sorted(ops, key=self_us, reverse=True)[:top]
     return {
-        "wall_ms_per_forward": wall_ms / reps,
-        "device_ms_per_forward": busy_ms / reps,
+        "wall_ms_per_call": wall_ms / reps,
+        "device_ms_per_call": busy_ms / reps,
         "device_busy_share": busy_ms / wall_ms if busy_ms else "not measured",
-        "top_kernels_ms_per_forward": [
-            [e.key[:80], self_us(e) / 1e3 / reps, e.count // reps] for e in top],
+        "top_kernels_ms_per_call": [
+            [e.key[:80], self_us(e) / 1e3 / reps, e.count / reps] for e in ranked],
+        "top_aten_ops_device_ms_per_call": [
+            [e.key, self_us(e) / 1e3 / reps, e.count / reps] for e in ops],
     }
+
+
+PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
+          "times", "train_times")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="all",
+                    help=f"comma-separated subset of {','.join(PHASES)} (the build "
+                         "always runs); 'all' also prints the kernels line")
     args = ap.parse_args()
+    phases = PHASES if args.phases == "all" else tuple(args.phases.split(","))
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
 
     import torch
 
@@ -458,25 +1026,60 @@ def main() -> int:
     t0 = time.perf_counter()
     dev = phase_device()
     phase_build()
-    max_abs_err = phase_kernel_vs_plain(args.seed)
-    phase_trained_weights()
-    served = phase_serving()
-    times = phase_times(args.seed)
-    b8 = times["per_forward"][8]
-    kernels = [{
-        "name": "instance_norm_fwd",
-        "route": "cuda",
-        "source": "fast_neural_style_transfer_tpu_torch/csrc/instance_norm.cu",
-        "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:61",
-        "launches": served["launches"],
-        "max_abs_err": max_abs_err,
-        # times: the 14 sites of one 256x256 bf16 forward at B=8, summed
-        "ms": b8["ms"], "plain_ms": b8["plain_ms"],
-        "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
-        "library_ms": b8["library_ms"],
-    }]
-    emit("done", seconds=time.perf_counter() - t0)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    err = {}
+    if "kernels" in phases:
+        err["in_fwd"] = phase_kernel_vs_plain(args.seed)
+        err["in_bwd"] = phase_in_bwd_vs_plain(args.seed)
+        err["conv"] = phase_conv_bwd_vs_plain(args.seed)
+    if "trained_weights" in phases:
+        phase_trained_weights()
+    served = phase_serving() if "serving" in phases else None
+    trained = phase_training(args.seed) if "training" in phases else None
+    if "train_parity" in phases:
+        phase_train_parity(args.seed)
+    times = phase_times(args.seed) if "times" in phases else None
+    ttimes = phase_train_times(args.seed) if "train_times" in phases else None
+    emit("done", seconds=time.perf_counter() - t0, phases=list(phases))
+    if phases == PHASES:
+        b8 = times["per_forward"][8]
+        in_bwd = ttimes["kernels"][("in_bwd", "float32")]
+        conv = ttimes["kernels"][("conv_dx", "float32")]
+        src = "fast_neural_style_transfer_tpu_torch/csrc/"
+        kernels = [{
+            "name": "instance_norm_fwd",
+            "route": "cuda",
+            "source": src + "instance_norm.cu",
+            "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:61",
+            "launches": served["launches"],
+            "max_abs_err": err["in_fwd"],
+            # the serving path: the 14 sites of one 256x256 bf16 forward at B=8
+            "ms": b8["ms"], "plain_ms": b8["plain_ms"],
+            "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
+            "library_ms": b8["library_ms"],
+        }, {
+            "name": "instance_norm_bwd",
+            "route": "cuda",
+            "source": src + "instance_norm.cu",
+            "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:115",
+            "launches": trained["launches"]["instance_norm_bwd"],
+            "max_abs_err": err["in_bwd"],
+            # the training path: the 14 sites of one f32 step at B=20, 256x256
+            "ms": in_bwd["ms"], "plain_ms": in_bwd["plain_ms"],
+            "bound_ms": in_bwd["bound_ms"], "bound_by": in_bwd["bound_by"],
+            "library_ms": in_bwd["library_ms"],
+        }, {
+            "name": "conv2d_same_bwd",
+            "route": "cuda",
+            "source": src + "conv_same_bwd.cu",
+            "replaces": "fast_neural_style_transfer_tpu/ops/pallas_conv.py:87",
+            "launches": trained["launches"]["conv2d_same_dx"],
+            "max_abs_err": err["conv"],
+            # the training path: VGG conv1_1 dx of one f32 step at B=20, 256x256
+            "ms": conv["ms"], "plain_ms": conv["plain_ms"],
+            "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+            "library_ms": conv["library_ms"],
+        }]
+        print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}), flush=True)
     return 0

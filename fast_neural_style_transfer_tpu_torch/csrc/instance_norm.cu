@@ -1,5 +1,5 @@
-// Instance-norm forward with the affine and an optional ReLU, for Hopper
-// (sm_90a).
+// Instance-norm forward and backward with the affine and an optional ReLU,
+// for Hopper (sm_90a).
 //
 // Replaces the TPU kernel fast_neural_style_transfer_tpu/ops/pallas_norm.py::
 // _in_fwd_kernel (launched by _pallas_in_forward). For each (sample n, channel c)
@@ -33,6 +33,33 @@
 //      writes the residuals, and each block writes y for its own chunk.
 // The chunk count per (sample, channel tile) is capped (the wrapper picks
 // it), so the partials that every apply block re-reads stay a few KB.
+//
+// Backward (fnst_instance_norm_bwd). Replaces the TPU kernel
+// fast_neural_style_transfer_tpu/ops/pallas_norm.py::_in_bwd_kernel
+// (launched by _pallas_in_backward, VJP _fused_in_bwd). From x, the upstream
+// gradient g (already in x's dtype), the forward's (mean, inv) residuals and
+// the affine (gamma, beta):
+//   xhat = (x - mean) * inv;  with ReLU, g <- g * [xhat * gamma + beta > 0]
+//   dx   = gamma * inv * (g - sum(g) / HW - xhat * sum(g * xhat) / HW)
+//   per-sample dgamma = sum(g * xhat), dbeta = sum(g)  ((N, C) f32; the
+//   wrapper sums them over N).
+// The ReLU mask is rebuilt from x in f32 with every operation rounded on its
+// own (__fsub_rn, __fmul_rn, __fadd_rn: no FMA contraction), so it equals the
+// plain PyTorch version's mask bit for bit on the same inputs. y is never
+// saved: where the forward rounded y to bf16 next to 0, the mask may differ
+// from relu(y) > 0, as it does in the TPU kernel.
+// Bound: bytes. Read x and g once, write dx once: 3 * 2 B (bf16) per element,
+// 15,728,640 IN elements per 256x256 image, so 1.89 GB and 0.56 ms at B=20
+// bf16 over 3.35 TB/s (f32 doubles it). The two reductions force a second
+// read of x and g, which launch 2 makes (from L2 where the slab fits).
+// Design: the forward's chunked two-launch layout.
+//   1. in_bwd_partial: a block owns (sample, pixel chunk, tile of <= 32
+//      channels); each thread sums the gated g and g * xhat over its pixels
+//      in f32, the block adds its 8 pixel lanes and writes one partial pair
+//      per (n, chunk, c) to an f32 workspace (2, N, chunks, C).
+//   2. in_bwd_apply: every block adds its channels' chunk partials, the
+//      first chunk's block writes the per-sample dgamma / dbeta, and each
+//      block writes dx for its own chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -209,6 +236,147 @@ cudaError_t launch(const void* x, const float* gamma, const float* beta,
   return cudaGetLastError();
 }
 
+// xhat and the ReLU-gated gradient of one element, each operation rounded
+// on its own so the mask matches the plain version's exactly.
+__device__ __forceinline__ void gate(float xv, float gv, float m, float iv,
+                                     float ga, float be, int relu,
+                                     float& xh, float& gg) {
+  xh = __fmul_rn(__fsub_rn(xv, m), iv);
+  gg = (relu && !(__fadd_rn(__fmul_rn(xh, ga), be) > 0.f)) ? 0.f : gv;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileC * kLanes)
+    in_bwd_partial(const T* __restrict__ x, const T* __restrict__ g,
+                   const float* __restrict__ mean,
+                   const float* __restrict__ inv,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float* __restrict__ work,
+                   int n, int hw, int c, int chunk, int chunks, int relu) {
+  const int cx = threadIdx.x;
+  const int ly = threadIdx.y;
+  const int ch = blockIdx.y * kTileC + cx;
+  const int s = blockIdx.z;
+  const int p0 = blockIdx.x * chunk;
+  const int p1 = min(p0 + chunk, hw);
+
+  float sg = 0.f, sgx = 0.f;
+  if (ch < c) {
+    const float m = mean[(size_t)s * c + ch];
+    const float iv = inv[(size_t)s * c + ch];
+    const float ga = gamma[ch];
+    const float be = beta[ch];
+    const size_t base = (size_t)s * hw * c + ch;
+#pragma unroll 4
+    for (int p = p0 + ly; p < p1; p += kLanes) {
+      const size_t i = base + (size_t)p * c;
+      float xh, gg;
+      gate(to_f32(x[i]), to_f32(g[i]), m, iv, ga, be, relu, xh, gg);
+      sg += gg;
+      sgx += gg * xh;
+    }
+  }
+
+  __shared__ float sh[2][kLanes][kTileC];
+  sh[0][ly][cx] = sg;
+  sh[1][ly][cx] = sgx;
+  __syncthreads();
+  if (ly != 0 || ch >= c) return;
+  for (int l = 1; l < kLanes; ++l) {
+    sg += sh[0][l][cx];
+    sgx += sh[1][l][cx];
+  }
+  const size_t plane = (size_t)n * chunks * c;
+  const size_t slot = ((size_t)s * chunks + blockIdx.x) * c + ch;
+  work[slot] = sg;
+  work[plane + slot] = sgx;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileC * kLanes)
+    in_bwd_apply(const T* __restrict__ x, const T* __restrict__ g,
+                 const float* __restrict__ mean, const float* __restrict__ inv,
+                 const float* __restrict__ gamma,
+                 const float* __restrict__ beta,
+                 const float* __restrict__ work, T* __restrict__ dx,
+                 float* __restrict__ dgamma, float* __restrict__ dbeta, int n,
+                 int hw, int c, int chunk, int chunks, int relu) {
+  const int cx = threadIdx.x;
+  const int ly = threadIdx.y;
+  const int ch = blockIdx.y * kTileC + cx;
+  const int s = blockIdx.z;
+
+  // each pixel lane adds every kLanes-th chunk partial, then lane 0 the lanes
+  float sg = 0.f, sgx = 0.f;
+  if (ch < c) {
+    const size_t plane = (size_t)n * chunks * c;
+    for (int j = ly; j < chunks; j += kLanes) {
+      const size_t slot = ((size_t)s * chunks + j) * c + ch;
+      sg += work[slot];
+      sgx += work[plane + slot];
+    }
+  }
+  __shared__ float sh[2][kLanes][kTileC];
+  __shared__ float s_a[kTileC];
+  __shared__ float s_b[kTileC];
+  sh[0][ly][cx] = sg;
+  sh[1][ly][cx] = sgx;
+  __syncthreads();
+  if (ly == 0 && ch < c) {
+    for (int l = 1; l < kLanes; ++l) {
+      sg += sh[0][l][cx];
+      sgx += sh[1][l][cx];
+    }
+    const float fhw = (float)hw;
+    s_a[cx] = sg / fhw;
+    s_b[cx] = sgx / fhw;
+    if (blockIdx.x == 0) {
+      dgamma[(size_t)s * c + ch] = sgx;
+      dbeta[(size_t)s * c + ch] = sg;
+    }
+  }
+  __syncthreads();
+  if (ch >= c) return;
+
+  const float m = mean[(size_t)s * c + ch];
+  const float iv = inv[(size_t)s * c + ch];
+  const float ga = gamma[ch];
+  const float be = beta[ch];
+  const float scale = ga * iv;
+  const float a = s_a[cx];
+  const float b = s_b[cx];
+  const int p0 = blockIdx.x * chunk;
+  const int p1 = min(p0 + chunk, hw);
+  const size_t base = (size_t)s * hw * c + ch;
+#pragma unroll 4
+  for (int p = p0 + ly; p < p1; p += kLanes) {
+    const size_t i = base + (size_t)p * c;
+    float xh, gg;
+    gate(to_f32(x[i]), to_f32(g[i]), m, iv, ga, be, relu, xh, gg);
+    dx[i] = from_f32<T>(scale * (gg - a - xh * b));
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* g, const float* mean,
+                       const float* inv, const float* gamma,
+                       const float* beta, void* dx, float* dgamma,
+                       float* dbeta, float* work, int n, int hw, int c,
+                       int chunk, int chunks, int relu, cudaStream_t stream) {
+  const dim3 block(kTileC, kLanes);
+  const dim3 grid(chunks, (c + kTileC - 1) / kTileC, n);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  in_bwd_partial<T><<<grid, block, 0, stream>>>(
+      xt, gt, mean, inv, gamma, beta, work, n, hw, c, chunk, chunks, relu);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  in_bwd_apply<T><<<grid, block, 0, stream>>>(
+      xt, gt, mean, inv, gamma, beta, work, static_cast<T*>(dx), dgamma,
+      dbeta, n, hw, c, chunk, chunks, relu);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: (n, hw, c) NHWC, f32 or bf16 (is_bf16). gamma, beta: (c,) f32.
@@ -237,4 +405,32 @@ extern "C" int fnst_instance_norm_fwd(const void* x, const void* gamma,
                                        chunks, eps, relu, st)
                  : launch<float, false>(x, g, b, y, m, iv, w, n, hw, c, chunk,
                                         chunks, eps, relu, st);
+}
+
+// x, g, dx: (n, hw, c) NHWC in one dtype, f32 or bf16 (is_bf16). mean, inv:
+// (n, c) f32 residuals of the forward. gamma, beta: (c,) f32. dgamma, dbeta:
+// (n, c) f32 out, per sample. work: (2, n, chunks, c) f32 scratch.
+// chunks = ceil(hw / chunk). Launches on ``stream``; returns the CUDA error
+// code of the launches (0 on success). Allocates nothing.
+extern "C" int fnst_instance_norm_bwd(const void* x, const void* g,
+                                      const void* mean, const void* inv,
+                                      const void* gamma, const void* beta,
+                                      void* dx, void* dgamma, void* dbeta,
+                                      void* work, int n, int hw, int c,
+                                      int chunk, int chunks, int relu,
+                                      int is_bf16, void* stream) {
+  const float* m = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(inv);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  float* dg = static_cast<float*>(dgamma);
+  float* db = static_cast<float*>(dbeta);
+  float* w = static_cast<float*>(work);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return launch_bwd<__nv_bfloat16>(x, g, m, iv, ga, be, dx, dg, db, w, n,
+                                     hw, c, chunk, chunks, relu, st);
+  }
+  return launch_bwd<float>(x, g, m, iv, ga, be, dx, dg, db, w, n, hw, c,
+                           chunk, chunks, relu, st);
 }

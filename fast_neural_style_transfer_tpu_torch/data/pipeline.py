@@ -1,0 +1,154 @@
+"""Host input pipeline: shuffle, batch, decode on threads, ship uint8 to the
+card with one batch prefetched (the JAX package's ``data/pipeline.py``,
+single process).
+
+Ordering is the JAX pipeline's: epoch e visits ``np.random.default_rng(seed
++ e).permutation(len(dataset))`` in batches, dropping the short tail
+(``drop_last``) or filling it by wrapping around the permutation. The same
+directory and seed give the same uint8 batches as there.
+
+Batches travel as raw uint8 (4x fewer bytes than float32); the train step
+normalizes on the device. On the card each batch is copied from pinned host
+memory with ``non_blocking=True`` on a side stream by the producer thread,
+one batch ahead of the consumer, which waits on the copy's event before
+using the batch.
+
+``pad_to_multiple`` > 0 pads the batch up to that multiple by repeating its
+last image; ``batch_mask`` (1 for real rows, 0 for padding) lets the step
+mask the padding out of every loss exactly (``--pad_batch``).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional, Union
+
+import numpy as np
+import torch
+
+from fast_neural_style_transfer_tpu_torch.data.dataset import ImageFolderDataset
+
+_SENTINEL = object()
+
+
+class InputPipeline:
+    def __init__(
+        self,
+        dataset: ImageFolderDataset,
+        batch_size: int,
+        *,
+        seed: int = 0,
+        num_workers: int = 8,
+        drop_last: bool = True,
+        pad_to_multiple: int = 0,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        if drop_last and len(dataset) < batch_size:
+            raise ValueError(
+                f"dataset has {len(dataset)} images but the batch is "
+                f"{batch_size}; with drop_last=True every epoch would be "
+                "empty. Lower --batch_size or pass drop_last=False "
+                "(wrap-around fill).")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.num_workers = num_workers
+        self.drop_last = drop_last
+        self.device = torch.device(device)
+        self.pad_to_multiple = int(pad_to_multiple)
+        self.padded_size = batch_size
+        self.batch_mask: Optional[np.ndarray] = None
+        if self.pad_to_multiple > 0:
+            padded = -(-batch_size // self.pad_to_multiple) * self.pad_to_multiple
+            if padded != batch_size:
+                self.padded_size = padded
+                self.batch_mask = np.zeros(padded, np.float32)
+                self.batch_mask[:batch_size] = 1.0
+
+    # -- host-side batch assembly ------------------------------------------
+
+    def _epoch_indices(self, epoch: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed + epoch)
+        idx = rng.permutation(len(self.dataset))
+        bs = self.batch_size
+        if self.drop_last:
+            idx = idx[: (len(idx) // bs) * bs]
+        else:
+            pad = -len(idx) % bs
+            if pad:
+                idx = np.resize(idx, len(idx) + pad)
+        return idx.reshape(-1, bs)
+
+    def _make_batch(self, pool: ThreadPoolExecutor, batch_idx: np.ndarray) -> np.ndarray:
+        u8 = np.stack(list(pool.map(self.dataset.__getitem__, batch_idx)))
+        if self.padded_size != self.batch_size:
+            extra = np.repeat(u8[-1:], self.padded_size - self.batch_size, axis=0)
+            u8 = np.concatenate([u8, extra], axis=0)
+        return u8
+
+    def host_batches(self, num_epochs: Optional[int] = None) -> Iterator[np.ndarray]:
+        """uint8 (B, H, W, 3) numpy batches, epoch-shuffled."""
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            epoch = 0
+            while num_epochs is None or epoch < num_epochs:
+                for batch_idx in self._epoch_indices(epoch):
+                    yield self._make_batch(pool, batch_idx)
+                epoch += 1
+
+    # -- device prefetch ----------------------------------------------------
+
+    def device_batches(self, num_epochs: Optional[int] = None) -> Iterator[torch.Tensor]:
+        """uint8 batches on ``device``, one batch ahead."""
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        q: "queue.Queue" = queue.Queue(maxsize=1)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def to_device(hb: np.ndarray):
+            t = torch.from_numpy(hb)
+            if not cuda:
+                return t.to(self.device), None
+            with torch.cuda.stream(copy_stream):
+                dev = t.pin_memory().to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(copy_stream)
+            return dev, ready
+
+        def producer():
+            try:
+                for hb in self.host_batches(num_epochs):
+                    if stop.is_set() or not put(to_device(hb)):
+                        return
+                put(_SENTINEL)
+            except BaseException as e:  # surface worker failures to the consumer
+                put(e)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _SENTINEL:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                batch, ready = item
+                if ready is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(ready)
+                    batch.record_stream(stream)
+                yield batch
+        finally:
+            stop.set()
+            t.join(timeout=30)

@@ -12,7 +12,11 @@ reference ``.pth`` loads with ``load_state_dict(strict=True)``:
               final_conv.conv   ReflectConv 32->3 k9 s1, no activation
 
 ``forward`` takes and returns NHWC, like the JAX package's
-``TransformerNet.apply``. Inside, ``permute(0, 3, 1, 2)`` of a contiguous
+``TransformerNet.apply``. In training mode (``net.train()``) each res block
+drops whole channels per sample with rate 0.1 (``Dropout2d``), the masks
+drawn from the ``generator`` passed to ``forward``; ``dropout=False`` turns
+that off while keeping every other semantic, as the JAX step's
+``dropout=False`` does for parity runs. Inside, ``permute(0, 3, 1, 2)`` of a contiguous
 NHWC tensor is an NCHW tensor in ``torch.channels_last`` memory format at no
 cost, and every activation stays channels_last: cuDNN runs NHWC and the
 instance-norm kernel sees the physical NHWC layout. Parameters stay float32;
@@ -23,6 +27,8 @@ statistics method are not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -85,10 +91,14 @@ class ResidualBlock(nn.Module):
         self.in1 = InstanceNorm(c)
         self.conv2 = ConvLayer(c, c, 3)
         self.in2 = InstanceNorm(c)
-        self.dropout = nn.Dropout2d(DROPOUT_RATE)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.dropout(self.in1(self.conv1(x), relu=True))
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: an (N, C, 1, 1) bool Dropout2d mask, or None."""
+        y = self.in1(self.conv1(x), relu=True)
+        if keep is not None:
+            y = torch.where(keep, y / (1.0 - DROPOUT_RATE),
+                            torch.zeros((), dtype=y.dtype, device=y.device)).to(y.dtype)
         return x + self.in2(self.conv2(y))
 
 
@@ -112,16 +122,26 @@ class TransformerNet(nn.Module):
         self.final_conv = ConvLayer(32, 3, 9)
 
     def forward(self, x: torch.Tensor,
-                precision: Precision = Precision.f32()) -> torch.Tensor:
+                precision: Precision = Precision.f32(), *,
+                generator: Optional[torch.Generator] = None,
+                dropout: bool = True) -> torch.Tensor:
         """NHWC in, NHWC out (same dtype). H and W must be multiples of 4
-        for an exact round trip."""
+        for an exact round trip. Dropout runs in training mode with
+        ``dropout``, its masks drawn from ``generator`` (None: the default
+        generator of x's device)."""
         in_dtype = x.dtype
         h = x.permute(0, 3, 1, 2).to(precision.compute_dtype)
         h = h.contiguous(memory_format=torch.channels_last)
         h = self.norm1(self.conv1(h), relu=True)
         h = self.norm2(self.conv2(h), relu=True)
+        drop = self.training and dropout
         for block in self.res_blocks:
-            h = block(h)
+            keep = None
+            if drop:
+                u = torch.rand((h.shape[0], h.shape[1], 1, 1), generator=generator,
+                               device=h.device)
+                keep = u < 1.0 - DROPOUT_RATE
+            h = block(h, keep)
         h = self.norm3(self.up1(h), relu=True)
         h = self.norm4(self.up2(h), relu=True)
         out = self.final_conv(h)

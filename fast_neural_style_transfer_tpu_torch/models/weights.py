@@ -12,7 +12,9 @@ that tree of numpy arrays onto the state_dict:
     gamma/beta -> weight/bias         (norm1..4, res in1/in2)
 
 Its ``.npz`` files store the same tree flat, under keys such as
-``res_blocks/0/conv1/w``.
+``res_blocks/0/conv1/w``; ``save_params_npz`` writes a state_dict in that
+layout (the training loop's final artifact), which this module's
+``load_checkpoint`` and the JAX package's ``Stylizer.load_params`` both read.
 """
 
 from __future__ import annotations
@@ -78,6 +80,26 @@ def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
         sd[prefix + ".weight"] = torch.from_numpy(np.array(node["gamma"], np.float32))
         sd[prefix + ".bias"] = torch.from_numpy(np.array(node["beta"], np.float32))
     return sd
+
+
+def save_params_npz(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
+    """Reference-layout state_dict -> the JAX package's flat ``.npz``
+    (``train/checkpoint.py::save_params_npz`` keys): OIHW -> HWIO for
+    Conv2d, IOHW -> HWIO for ConvTranspose2d, weight/bias -> gamma/beta."""
+    def arr(key):
+        return state_dict[key].detach().cpu().float().numpy()
+
+    flat: Dict[str, np.ndarray] = {}
+    for path_, prefix, transpose in _CONV_MAP:
+        key = "/".join(str(k) for k in path_)
+        perm = (2, 3, 0, 1) if transpose else (2, 3, 1, 0)
+        flat[f"{key}/w"] = np.ascontiguousarray(arr(prefix + ".weight").transpose(perm))
+        flat[f"{key}/b"] = arr(prefix + ".bias")
+    for path_, prefix in _NORM_MAP:
+        key = "/".join(str(k) for k in path_)
+        flat[f"{key}/gamma"] = arr(prefix + ".weight")
+        flat[f"{key}/beta"] = arr(prefix + ".bias")
+    np.savez(path, **flat)
 
 
 def _tree_from_npz(path: str) -> Dict[str, Any]:

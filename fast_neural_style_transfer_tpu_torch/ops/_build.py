@@ -4,6 +4,8 @@ Each ``csrc/*.cu`` file exports plain ``extern "C"`` functions, so the
 shared library needs no PyTorch headers and builds in seconds. The library
 goes to ``build/kernels/`` at the repository root, named by a hash of the
 sources and flags, and is built on first use. A failed build raises.
+Different sources build in parallel when loaded from several threads
+(``load_all``); one source is built once per process.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ import os
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -24,7 +27,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[str, threading.Lock] = {}  # one per source
 _libs: Dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": float, "log": str (nvcc's -Xptxas -v report)}
 build_info: Dict[str, dict] = {}
@@ -68,8 +72,16 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one CDLL per process."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Load several sources, their nvcc runs started together."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -1,11 +1,18 @@
-"""Convolutions of the stylizer, in the direct form.
+"""Convolutions and pooling of the stylizer and of VGG, in the direct form.
 
 Tensors are (N, C, H, W) in ``torch.channels_last`` memory format, weights
 in PyTorch's layouts (Conv2d OIHW, ConvTranspose2d IOHW). XLA lowered these
 ops for the JAX package, so here they go to cuDNN (or the CPU's convs):
 
 - ``reflect_conv2d``: ReflectionPad2d(k // 2) + valid Conv2d;
-- ``conv_transpose2d``: ConvTranspose2d(stride, padding, output_padding).
+- ``conv_transpose2d``: ConvTranspose2d(stride, padding, output_padding);
+- ``conv2d_same``: zero-padded Conv2d(padding=k // 2), VGG's convs. With
+  ``small_cin_kernel`` its backward is the hand-written kernel of
+  ``ops/cuda_conv.py`` (VGG conv1_1); otherwise cuDNN's;
+- ``max_pool2d``: 2x2 / 2 VALID max pool with PyTorch's gradient, which
+  routes a window's gradient to its first maximum. XLA's select-and-scatter
+  may pick another of tied maxima; on VGG's pools ties sit at post-ReLU
+  zeros, whose gradient the ReLU below zeroes either way.
 
 The JAX package's s2d, same_delta and subpixel lowerings are XLA
 reformulations of the same math and have no counterpart here.
@@ -17,6 +24,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import Conv2dSameSmallCinFn
 
 
 def reflect_pad_hw(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -56,3 +65,26 @@ def conv_transpose2d(
     bias = None if bias is None else bias.to(x.dtype)
     return F.conv_transpose2d(x, weight.to(x.dtype), bias, stride=stride,
                               padding=padding, output_padding=output_padding)
+
+
+def conv2d_same(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    *,
+    small_cin_kernel: bool = False,
+) -> torch.Tensor:
+    """Stride-1 conv with PyTorch ``padding=k//2`` (JAX ``conv2d_same``).
+    Weight and bias are cast to x's dtype. ``small_cin_kernel``: when x
+    needs a gradient, take it from the hand-written backward kernel
+    (odd k, k*k*C_in <= 128; on a CUDA tensor outside that gate it raises)."""
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if small_cin_kernel and torch.is_grad_enabled() and x.requires_grad:
+        return Conv2dSameSmallCinFn.apply(x, w, b)
+    return F.conv2d(x, w, b, padding=weight.shape[-1] // 2)
+
+
+def max_pool2d(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 VALID max pool (VGG's pools), keeping channels_last."""
+    return F.max_pool2d(x, kernel_size=2, stride=2)

@@ -5,8 +5,10 @@ channel) mean and *biased* variance over the spatial dims, eps=1e-5, then
 the learned scale and shift. Statistics are always float32.
 
 Tensors are (N, C, H, W), kept in ``torch.channels_last`` memory format by
-the model. ``instance_norm`` runs the hand-written kernel for a CUDA tensor
-and its plain PyTorch version for a CPU tensor (``ops/cuda_norm.py``).
+the model. ``instance_norm`` runs the hand-written kernels for a CUDA tensor
+and their plain PyTorch versions for a CPU tensor (``ops/cuda_norm.py``):
+under autograd through ``InstanceNormFn`` (forward kernel, backward kernel),
+otherwise (``no_grad``, ``inference_mode``) as one forward call.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Tuple
 import torch
 
 from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+    InstanceNormFn,
     _moments,
     instance_norm_fwd,
 )
@@ -56,6 +59,9 @@ def instance_norm(
     relu: bool = False,
 ) -> torch.Tensor:
     """Instance norm + affine (+ReLU) with "stable" statistics, the JAX
-    package's ``method="auto"``."""
+    package's ``method="auto"``; differentiable in x, gamma and beta."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or gamma.requires_grad or beta.requires_grad):
+        return InstanceNormFn.apply(x, gamma, beta, eps, relu)
     y, _, _ = instance_norm_fwd(x, gamma, beta, eps=eps, relu=relu)
     return y

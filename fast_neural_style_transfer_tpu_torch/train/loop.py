@@ -1,0 +1,274 @@
+"""The training loop (the JAX package's ``train/loop.py``), single-style, on
+one device.
+
+The reference's cadences are kept: log every ``log_every`` steps, a monitor
+sample every ``monitor_every``, a checkpoint every ``checkpoint_every``, the
+final ``style_transfer_final.npz`` at the end. The style image's Gram
+targets are computed once. SIGTERM (installed on the main thread only)
+finishes the step in flight, then the ``finally`` block flushes the metrics
+and leaves a restorable checkpoint. A resumed run continues from the
+latest checkpoint's label.
+
+Not ported yet, each raising with its ROADMAP row: several style images
+(row 10), ``spatial > 1`` (row 15), a reference training ``.pth`` for a
+full resume (row 6). Loss-curve PNGs wait for row 16. ``profile_start`` /
+``profile_stop`` trace those steps with ``torch.profiler`` into
+``<output_dir>/profile``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import threading
+import time
+from typing import Optional, Tuple, Union
+
+import torch
+
+from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
+from fast_neural_style_transfer_tpu_torch.data import ImageFolderDataset, InputPipeline
+from fast_neural_style_transfer_tpu_torch.losses import LossTaps, style_targets_from_features
+from fast_neural_style_transfer_tpu_torch.models.transformer import TransformerNet
+from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
+from fast_neural_style_transfer_tpu_torch.models.weights import load_checkpoint, save_params_npz
+from fast_neural_style_transfer_tpu_torch.train.checkpoint import CheckpointManager
+from fast_neural_style_transfer_tpu_torch.train.schedule import LossWeightSchedule
+from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+from fast_neural_style_transfer_tpu_torch.train.step import (
+    exact_f32,
+    make_eval_forward,
+    make_train_step,
+)
+from fast_neural_style_transfer_tpu_torch.utils.image_io import load_image, save_image
+from fast_neural_style_transfer_tpu_torch.utils.logging import MetricLogger
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The JAX package's ``TrainConfig`` fields, plus ``device`` (None: the
+    card)."""
+
+    style_image: Union[str, Tuple[str, ...]]
+    dataset_dir: str
+    output_dir: str = "training_output"
+    vgg_weights: Optional[str] = None
+    monitor_image: Optional[str] = None
+
+    total_steps: int = 80_000
+    num_epochs: Optional[int] = None
+    batch_size: int = 20
+    lr: float = 1e-3
+    image_size: Tuple[int, int] = (256, 256)
+
+    content_weight: float = 1000.0
+    style_weight: float = 1.0
+    tv_weight: float = 10.0
+    weight_decay_every: int = 10_000
+    grad_accum: int = 1
+    pad_batch: bool = False
+    remat: bool = False
+    in_stats: str = "stable"
+
+    content_tap: str = "relu4_2"
+    style_taps: Tuple[str, ...] = ("relu1_2", "relu2_2", "relu3_3")
+    style_tap_weights: Tuple[float, ...] = (0.25, 0.3, 0.45)
+
+    precision: str = "f32"
+    seed: int = 0
+    num_workers: int = 8
+    spatial: int = 1
+
+    log_every: int = 100
+    monitor_every: int = 1000
+    checkpoint_every: int = 5000
+    resume: bool = True
+    max_checkpoints: int = 3
+    init_checkpoint: Optional[str] = None
+
+    profile_start: int = 0
+    profile_stop: int = 0
+
+    device: Optional[str] = None
+
+
+def _is_reference_training_checkpoint(path: str) -> bool:
+    if not path.endswith((".pth", ".bin")):
+        return False
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return isinstance(obj, dict) and "optimizer_state_dict" in obj
+
+
+def _check_config(cfg: TrainConfig) -> None:
+    if cfg.image_size[0] % 4 or cfg.image_size[1] % 4:
+        raise ValueError(
+            f"image_size {cfg.image_size} must be a multiple of 4 in both "
+            "dims (stylizer downsamples 4x and upsamples back)")
+    if cfg.in_stats != "stable":
+        raise NotImplementedError(
+            f"in_stats={cfg.in_stats!r}: only 'stable' statistics train on the "
+            "port (the IN kernel's one-pass mode is not wired into training)")
+    if cfg.spatial > 1:
+        raise NotImplementedError(
+            "spatial > 1: spatial sharding is not yet ported (ROADMAP row 15)")
+    if not isinstance(cfg.style_image, str) and len(cfg.style_image) > 1:
+        raise NotImplementedError(
+            "several style images (multi-style conditional IN) are not yet "
+            "ported (ROADMAP row 10)")
+
+
+def train_style_transfer(cfg: TrainConfig) -> str:
+    """Run training; returns the path of the final params artifact."""
+    _check_config(cfg)
+    style_path = cfg.style_image if isinstance(cfg.style_image, str) else cfg.style_image[0]
+    device = resolve_device(cfg.device)
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    prec = canonical_compute_dtype(cfg.precision)
+    exact_f32(device, prec)
+    taps = LossTaps(style_taps=tuple(cfg.style_taps),
+                    style_weights=tuple(cfg.style_tap_weights),
+                    content_tap=cfg.content_tap)
+    print(f"device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+          + f"; batch {cfg.batch_size}; precision {cfg.precision}", flush=True)
+
+    # frozen VGG19 and the style targets, once
+    vgg = make_vgg(resolve_params(cfg.vgg_weights, seed=cfg.seed), device)
+    style = torch.from_numpy(load_image(style_path, cfg.image_size)).to(device)
+    with torch.no_grad():
+        style_grams = [g.detach() for g in style_targets_from_features(
+            vgg(style, taps.style_taps, precision=prec))]
+
+    torch.manual_seed(cfg.seed)  # PyTorch-default init of the stylizer
+    net = TransformerNet()
+    if cfg.init_checkpoint:
+        if _is_reference_training_checkpoint(cfg.init_checkpoint):
+            raise NotImplementedError(
+                "full resume from a reference training .pth (optimizer state) "
+                "is not yet ported (ROADMAP row 6); pass the bare weights to "
+                "warm-start instead")
+        net.load_state_dict(load_checkpoint(cfg.init_checkpoint), strict=True)
+        print(f"warm-started params from {cfg.init_checkpoint}", flush=True)
+    net = net.to(device, memory_format=torch.channels_last)
+    state = create_train_state(net, cfg.lr, cfg.total_steps, grad_accum=cfg.grad_accum)
+
+    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
+                             max_to_keep=cfg.max_checkpoints)
+    resume_label = None
+    if cfg.resume and ckpt.latest_step() is not None:
+        resume_label = ckpt.latest_step()
+        state.load_state_dict(ckpt.restore(resume_label))
+        print(f"resumed from checkpoint {resume_label} (optimizer step "
+              f"{state.step})", flush=True)
+
+    train_step = make_train_step(
+        taps=taps,
+        weight_schedule=LossWeightSchedule(
+            content=cfg.content_weight, style=cfg.style_weight,
+            tv=cfg.tv_weight, decay_every=cfg.weight_decay_every),
+        precision=prec, lr=cfg.lr, total_steps=cfg.total_steps,
+        grad_accum=cfg.grad_accum, remat=cfg.remat)
+    eval_forward = make_eval_forward(precision=prec)
+
+    dataset = ImageFolderDataset(cfg.dataset_dir, cfg.image_size, seed=cfg.seed)
+    pipeline = InputPipeline(dataset, cfg.batch_size, seed=cfg.seed,
+                             num_workers=cfg.num_workers,
+                             pad_to_multiple=8 if cfg.pad_batch else 0, device=device)
+    batch_mask = None
+    if pipeline.batch_mask is not None:
+        batch_mask = torch.from_numpy(pipeline.batch_mask).to(device)
+        print(f"pad_batch: batch {cfg.batch_size} -> {pipeline.padded_size} "
+              "(loss-masked padding; gradients are the real batch's)", flush=True)
+
+    monitor_img = None
+    if cfg.monitor_image:
+        if os.path.exists(cfg.monitor_image):
+            monitor_img = torch.from_numpy(load_image(cfg.monitor_image, cfg.image_size)).to(device)
+        else:
+            print(f"monitor image {cfg.monitor_image} not found; skipping "
+                  "monitor sampling", flush=True)
+
+    logger = MetricLogger(os.path.join(cfg.output_dir, "metrics.jsonl"),
+                          print_every=cfg.log_every)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    start_step = state.step if resume_label is None else resume_label
+    t_start = time.perf_counter()
+
+    stop_requested = threading.Event()
+    handler_installed = False
+    prev_handler = None
+    if threading.current_thread() is threading.main_thread():
+        def _on_sigterm(signum, frame):
+            print("SIGTERM received: checkpointing and stopping", flush=True)
+            stop_requested.set()
+
+        prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        handler_installed = True
+
+    profiler = None
+    step = start_step
+    try:
+        for batch in pipeline.device_batches(cfg.num_epochs):
+            if step >= cfg.total_steps or stop_requested.is_set():
+                break
+            if cfg.profile_stop > cfg.profile_start:
+                if step == cfg.profile_start and profiler is None:
+                    profiler = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        *([torch.profiler.ProfilerActivity.CUDA]
+                          if device.type == "cuda" else [])])
+                    profiler.start()
+                elif step == cfg.profile_stop and profiler is not None:
+                    _stop_profiler(profiler, cfg.output_dir)
+                    profiler = None
+            metrics = train_step(state, vgg, batch, style_grams, generator,
+                                 batch_mask=batch_mask)
+            step += 1
+            logger.update(metrics)
+            if logger.should_log(step):
+                logger.flush(step)
+            if monitor_img is not None and step % cfg.monitor_every == 0:
+                out = eval_forward(state.net, monitor_img)
+                path = os.path.join(cfg.output_dir, f"sample_step_{step}.jpg")
+                save_image(out.float().cpu().numpy(), path)
+                print(f"saved monitor sample {path}", flush=True)
+            if step % cfg.checkpoint_every == 0:
+                ckpt.save(step, state.state_dict())
+                print(f"checkpoint saved at step {step}", flush=True)
+    finally:
+        # each cleanup step is isolated, so a failure in one (a device
+        # fault surfacing in the metrics fetch) neither masks the original
+        # exception nor skips the checkpoint behind it
+        def _cleanup(what, fn):
+            try:
+                fn()
+            except Exception as e:
+                print(f"cleanup: {what} failed: {e!r}", flush=True)
+
+        if profiler is not None:
+            _cleanup("profiler stop", lambda: _stop_profiler(profiler, cfg.output_dir))
+        if logger.pending:
+            _cleanup("metrics flush", lambda: logger.flush(step))
+        if step > start_step and ckpt.latest_step() != step:
+            _cleanup("final checkpoint", lambda: ckpt.save(step, state.state_dict()))
+        _cleanup("logger close", logger.close)
+        if handler_installed:
+            signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
+
+    wall = time.perf_counter() - t_start
+    done = step - start_step
+    if done:
+        print(f"trained {done} steps in {wall:.1f}s ({done / wall:.2f} steps/s)",
+              flush=True)
+    final_path = os.path.join(cfg.output_dir, "style_transfer_final.npz")
+    save_params_npz(state.net.state_dict(), final_path)
+    print(f"final params saved to {final_path}", flush=True)
+    return final_path
+
+
+def _stop_profiler(profiler, output_dir: str) -> None:
+    profiler.stop()
+    os.makedirs(os.path.join(output_dir, "profile"), exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(output_dir, "profile", "trace.json"))

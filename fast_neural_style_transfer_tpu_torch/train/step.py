@@ -1,0 +1,172 @@
+"""One training step: stylizer forward, two VGG passes, the losses, the
+gradients and the update (the JAX package's ``train/step.py``).
+
+Semantics kept from the JAX step:
+- the stylized image is clamped to [-3, 3] before the losses;
+- the content branch's VGG runs under ``no_grad``;
+- the loss weights and the logged LR come from the applied-update count
+  ``state.step // grad_accum``;
+- a non-finite loss skips the update entirely: no gradient is accumulated,
+  ``optimizer.step()`` is not called, and ``state.step`` holds. The check
+  reads the loss on the host, one sync per step (the JAX step selects on the
+  device instead);
+- metrics ``loss``, ``content_loss``, ``style_loss``, ``tv_loss``,
+  ``grad_norm``, ``lr``, ``skipped_nonfinite``.
+
+On the card the stylizer's 14 instance norms run the IN forward and
+backward kernels and VGG conv1_1's input gradient the conv backward kernel.
+In float32, TF32 is turned off for convolutions and matmuls
+(``torch.backends.cudnn.allow_tf32``, ``torch.backends.cuda.matmul.
+allow_tf32``, process-wide), so f32 means f32.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+from fast_neural_style_transfer_tpu_torch.losses import (
+    LossTaps,
+    content_loss,
+    style_loss,
+    total_variation_loss,
+)
+from fast_neural_style_transfer_tpu_torch.train.schedule import (
+    LossWeightSchedule,
+    cosine_lr_schedule,
+)
+from fast_neural_style_transfer_tpu_torch.train.state import TrainState, global_norm
+from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+
+ACTIVATION_CLAMP = 3.0
+
+
+def exact_f32(device: torch.device, precision: Precision) -> None:
+    """Turn TF32 off on the card when the compute dtype is float32."""
+    if device.type == "cuda" and precision.compute_dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def normalize_u8_batch(batch: torch.Tensor) -> torch.Tensor:
+    """uint8 NHWC -> network-space float32 on the batch's device; float
+    input passes through."""
+    if batch.dtype != torch.uint8:
+        return batch
+    return u8_to_network(batch)
+
+
+def loss_fn(
+    net: torch.nn.Module,
+    vgg: torch.nn.Module,
+    batch: torch.Tensor,
+    style_grams: Sequence[torch.Tensor],
+    weights: Tuple[float, float, float],
+    *,
+    taps: LossTaps,
+    precision: Precision,
+    generator: Optional[torch.Generator] = None,
+    dropout: bool = True,
+    remat: bool = False,
+    batch_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weighted perceptual loss of one batch -> (total, metrics).
+
+    ``remat``: recompute the stylizer and the stylized-branch VGG in the
+    backward (``torch.utils.checkpoint``) instead of keeping their
+    activations; the dropout generator is rewound for the recomputation, so
+    both passes draw the same masks."""
+    cw, sw, tw = weights
+    batch = normalize_u8_batch(batch)
+    if batch_mask is not None and tuple(batch_mask.shape) != (batch.shape[0],):
+        raise ValueError(
+            f"batch_mask shape {tuple(batch_mask.shape)} != ({batch.shape[0]},)")
+    tap_names = taps.all_taps
+    gen_state = generator.get_state() if (remat and generator is not None) else None
+
+    def net_fwd(b):
+        if gen_state is not None:
+            generator.set_state(gen_state)
+        out = net(b, precision, generator=generator, dropout=dropout)
+        return torch.clamp(out, -ACTIVATION_CLAMP, ACTIVATION_CLAMP)
+
+    def vgg_fwd(s):
+        return tuple(vgg(s, tap_names, precision=precision))
+
+    if remat:
+        stylized = checkpoint(net_fwd, batch, use_reentrant=False)
+    else:
+        stylized = net_fwd(batch)
+    with torch.no_grad():
+        content_feats = vgg(batch, tap_names, precision=precision)
+    if remat:
+        stylized_feats = checkpoint(vgg_fwd, stylized, use_reentrant=False)
+    else:
+        stylized_feats = vgg_fwd(stylized)
+
+    s_feats, c_feat_stylized = taps.split(stylized_feats)
+    _, c_feat_target = taps.split(content_feats)
+    c_loss = cw * content_loss(c_feat_stylized, c_feat_target, batch_mask=batch_mask)
+    s_loss = sw * style_loss(s_feats, style_grams, taps.style_weights,
+                             batch_mask=batch_mask)
+    t_loss = tw * total_variation_loss(stylized, batch_mask=batch_mask)
+    total = c_loss + s_loss + t_loss
+    metrics = {"loss": total.detach(), "content_loss": c_loss.detach(),
+               "style_loss": s_loss.detach(), "tv_loss": t_loss.detach()}
+    return total, metrics
+
+
+def make_train_step(
+    *,
+    taps: LossTaps = LossTaps(),
+    weight_schedule: LossWeightSchedule = LossWeightSchedule(),
+    precision: Precision = Precision.f32(),
+    lr: float = 1e-3,
+    total_steps: int = 80_000,
+    grad_accum: int = 1,
+    remat: bool = False,
+    dropout: bool = True,
+) -> Callable:
+    """Build ``step(state, vgg, batch, style_grams, generator=None,
+    batch_mask=None) -> metrics``, which updates ``state`` in place.
+    ``lr``, ``total_steps`` and ``grad_accum`` give the logged LR; they must
+    be the optimizer's."""
+    lr_schedule = cosine_lr_schedule(lr, max(total_steps // grad_accum, 1))
+
+    def step_fn(state: TrainState, vgg, batch: torch.Tensor, style_grams,
+                generator: Optional[torch.Generator] = None,
+                batch_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        exact_f32(batch.device, precision)
+        applied_step = state.step // grad_accum
+        state.net.train()
+        params = list(state.net.parameters())
+        total, metrics = loss_fn(
+            state.net, vgg, batch, style_grams, weight_schedule(applied_step),
+            taps=taps, precision=precision, generator=generator,
+            dropout=dropout, remat=remat, batch_mask=batch_mask)
+        grads = torch.autograd.grad(total, params)
+        finite = bool(torch.isfinite(total))
+        if finite:
+            state.optimizer.update(grads)
+            state.step += 1
+        dev = total.device
+        metrics["grad_norm"] = global_norm(grads)
+        metrics["lr"] = torch.tensor(lr_schedule(applied_step), device=dev)
+        metrics["skipped_nonfinite"] = torch.tensor(0.0 if finite else 1.0, device=dev)
+        return metrics
+
+    return step_fn
+
+
+def make_eval_forward(*, precision: Precision = Precision.f32()) -> Callable:
+    """``fwd(net, x)``: the stylizer without dropout and without gradients
+    (monitor samples)."""
+
+    def fwd(net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return net(x, precision, dropout=False)
+
+    return fwd

@@ -1,4 +1,4 @@
-"""The port's ops against the JAX package's on the CPU.
+"""The port's ops, and their gradients, against the JAX package's on the CPU.
 
 Inputs come from a numpy seed and reach both sides as numpy arrays. The
 port's tensors are (N, C, H, W) in channels_last memory format; the JAX
@@ -7,6 +7,7 @@ arithmetic on at most a few hundred elements per reduction; convs compare
 at 1e-4 since XLA and PyTorch sum k*k*C_in products in other orders.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,14 +15,21 @@ import torch
 
 from fast_neural_style_transfer_tpu.core import shapes as jshapes
 from fast_neural_style_transfer_tpu.ops import conv as jconv
+from fast_neural_style_transfer_tpu.ops import gram as jgram
 from fast_neural_style_transfer_tpu.ops import norm as jnorm
-from fast_neural_style_transfer_tpu.ops.pallas_norm import _pallas_in_forward
+from fast_neural_style_transfer_tpu.ops import pallas_conv
+from fast_neural_style_transfer_tpu.ops.pallas_norm import (
+    _pallas_in_backward,
+    _pallas_in_forward,
+    fused_instance_norm,
+)
 from fast_neural_style_transfer_tpu.utils import color as jcolor
 from fast_neural_style_transfer_tpu.utils import image_io as jio
 from fast_neural_style_transfer_tpu.utils.ssim import ssim as jax_ssim
 from fast_neural_style_transfer_tpu_torch.core import shapes as tshapes
 from fast_neural_style_transfer_tpu_torch.ops import conv as tconv
-from fast_neural_style_transfer_tpu_torch.ops import cuda_norm, norm as tnorm
+from fast_neural_style_transfer_tpu_torch.ops import cuda_conv, cuda_norm, norm as tnorm
+from fast_neural_style_transfer_tpu_torch.ops.gram import gram_matrix
 from fast_neural_style_transfer_tpu_torch.utils import color as tcolor
 from fast_neural_style_transfer_tpu_torch.utils import image_io as tio
 from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim as torch_ssim
@@ -284,3 +292,295 @@ def test_kernel_chunking_at_site_shapes(n, hwc):
     assert 1 <= chunks <= 64 and chunk >= 256
     assert (chunks - 1) * chunk < hw <= chunks * chunk
     assert n * chunks * -(-c // 32) >= 64  # enough blocks for the card
+
+
+# -- slice 2: gradients ---------------------------------------------------------
+#
+# IN backward: the plain version runs the TPU kernel's formula, so on the
+# TPU kernel's own residuals it matches _pallas_in_backward (interpret mode)
+# to 1e-5 in f32. Through InstanceNormFn the residuals are the port's
+# two-pass statistics against the TPU kernel's one-pass ones, which differ
+# in the last bits of inv: 1e-4. bf16: dx differs by at most one bf16 ulp
+# (2^-7 relative) plus 1e-2 absolute at |dx| ~ 1, the rounding of dx and of
+# the f32 terms ahead of it.
+
+_IN_SHAPES = [(2, 8, 8, 32), (2, 4, 6, 256)]
+
+
+def _grad_inputs(shape, dtype, seed):
+    x, gamma, beta = _in_inputs(shape, seed=seed)
+    gy = np.random.default_rng(seed + 100).standard_normal(shape).astype(np.float32)
+    if dtype == "bfloat16":  # both sides see the same bf16 values
+        x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+        gy = np.asarray(jnp.asarray(gy).astype(jnp.bfloat16).astype(jnp.float32))
+    return x, gy, gamma, beta
+
+
+def _tol(dtype, f32_atol):
+    return (dict(rtol=0, atol=f32_atol) if dtype == "float32"
+            else dict(rtol=2.0 ** -7, atol=1e-2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", _IN_SHAPES)
+def test_in_bwd_plain_matches_pallas_kernel_interpret(shape, relu, dtype):
+    x, gy, gamma, beta = _grad_inputs(shape, dtype, seed=11)
+    jdt = getattr(jnp, dtype)
+    xj, gj = jnp.asarray(x).astype(jdt), jnp.asarray(gy).astype(jdt)
+    _, mean, inv = _pallas_in_forward(xj, jnp.asarray(gamma), jnp.asarray(beta),
+                                      eps=1e-5, relu=relu, interpret=True)
+    dx_j, dgn_j, dbn_j = _pallas_in_backward(xj, gj, mean, inv, jnp.asarray(gamma),
+                                             jnp.asarray(beta), relu=relu,
+                                             interpret=True)
+    tdt = getattr(torch, dtype)
+    dx_t, dgn_t, dbn_t = cuda_norm.instance_norm_bwd(
+        to_nchw(x, tdt), to_nchw(gy, tdt), torch.from_numpy(np.array(mean)[:, 0]),
+        torch.from_numpy(np.array(inv)[:, 0]), torch.from_numpy(gamma),
+        torch.from_numpy(beta), relu=relu)
+    assert dx_t.dtype == tdt and dx_t.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(to_nhwc(dx_t), np.asarray(dx_j, np.float32),
+                               **_tol(dtype, 1e-5))
+    np.testing.assert_allclose(dgn_t.numpy(), np.asarray(dgn_j)[:, 0], rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(dbn_t.numpy(), np.asarray(dbn_j)[:, 0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", _IN_SHAPES)
+def test_instance_norm_backward_on_cpu_matches_jax_vjp(shape, relu, dtype):
+    """A CPU backward through ``instance_norm`` (InstanceNormFn, no card)
+    against jax.vjp of the fused Pallas IN in interpret mode."""
+    x, gy, gamma, beta = _grad_inputs(shape, dtype, seed=12)
+    jdt = getattr(jnp, dtype)
+    y_j, vjp = jax.vjp(
+        lambda a, g_, b_: fused_instance_norm(a, g_, b_, 1e-5, relu, True),
+        jnp.asarray(x).astype(jdt), jnp.asarray(gamma), jnp.asarray(beta))
+    dx_j, dg_j, db_j = vjp(jnp.asarray(gy).astype(jdt))
+    tdt = getattr(torch, dtype)
+    xt = to_nchw(x, tdt).requires_grad_()
+    gt = torch.from_numpy(gamma).requires_grad_()
+    bt = torch.from_numpy(beta).requires_grad_()
+    before = cuda_norm.instance_norm_bwd.launches
+    y_t = tnorm.instance_norm(xt, gt, bt, relu=relu)
+    dx_t, dg_t, db_t = torch.autograd.grad(y_t, (xt, gt, bt), to_nchw(gy, tdt))
+    assert cuda_norm.instance_norm_bwd.launches == before  # the CPU takes the plain path
+    assert dx_t.dtype == tdt and dg_t.dtype == torch.float32
+    np.testing.assert_allclose(to_nhwc(y_t.detach()), np.asarray(y_j, np.float32),
+                               **_tol(dtype, 1e-4))
+    np.testing.assert_allclose(to_nhwc(dx_t), np.asarray(dx_j, np.float32),
+                               **_tol(dtype, 1e-4))
+    np.testing.assert_allclose(dg_t.numpy(), np.asarray(dg_j), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(db_t.numpy(), np.asarray(db_j), rtol=1e-4, atol=1e-3)
+
+
+def test_instance_norm_without_grad_makes_one_forward_call():
+    """Under no_grad / inference_mode (the serving path) instance_norm is
+    the plain forward call, not the autograd Function."""
+    x, gamma, beta = _in_inputs((1, 4, 4, 8))
+    xt = to_nchw(x).requires_grad_()
+    with torch.no_grad():
+        y = tnorm.instance_norm(xt, torch.from_numpy(gamma), torch.from_numpy(beta))
+    assert y.grad_fn is None
+    y = tnorm.instance_norm(xt, torch.from_numpy(gamma), torch.from_numpy(beta))
+    assert type(y.grad_fn).__name__ == "InstanceNormFnBackward"
+
+
+# conv backward: (1, 32, 128, 8) with a 3x3x3x8 W is inside the TPU
+# kernel's gate; sums of 27 (dx: 9 taps x 8 channels = 72) or up to 4,096
+# (dw) f32 products in other orders: 1e-4 relative to the largest output.
+
+
+def _conv_inputs(n, h, w, ci, co, k, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((n, h, w, co)).astype(np.float32)
+    x = rng.standard_normal((n, h, w, ci)).astype(np.float32)
+    wt = (rng.standard_normal((k, k, ci, co)) * 0.2).astype(np.float32)  # HWIO
+    b = rng.standard_normal(co).astype(np.float32)
+    return g, x, wt, b
+
+
+def _oihw(w_hwio: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
+
+
+def _close(got: np.ndarray, want: np.ndarray, rel: float = 1e-4):
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * np.abs(want).max())
+
+
+def test_conv_bwd_plain_matches_pallas_kernel_interpret():
+    g, x, w, _ = _conv_inputs(1, 32, 128, 3, 8, 3, seed=13)
+    assert pallas_conv.supported(g.shape, w.shape)
+    dx_j, dw_j, db_j = pallas_conv.conv2d_same_bwd(
+        jnp.asarray(g), jnp.asarray(x), jnp.asarray(w), interpret=True)
+    dx_t, dw_t, db_t = cuda_conv.conv2d_same_bwd(to_nchw(g), to_nchw(x), _oihw(w))
+    assert dx_t.is_contiguous(memory_format=torch.channels_last)
+    assert dw_t.dtype == torch.float32 and dw_t.shape == (8, 3, 3, 3)
+    _close(to_nhwc(dx_t), np.asarray(dx_j))
+    _close(dw_t.numpy().transpose(2, 3, 1, 0), np.asarray(dw_j))
+    _close(db_t.numpy(), np.asarray(db_j))
+    dxo_j = pallas_conv.conv2d_same_dx(jnp.asarray(g), jnp.asarray(w), interpret=True)
+    _close(to_nhwc(cuda_conv.conv2d_same_dx(to_nchw(g), _oihw(w))), np.asarray(dxo_j))
+
+
+@pytest.mark.parametrize("need_w", [False, True])
+def test_conv2d_same_small_cin_grad_matches_jax_vjp(need_w):
+    """An odd shape the TPU kernel's gate refuses (13x21): the port's
+    Function (cuDNN forward; dx-only or full backward, plain on the CPU)
+    against jax.vjp of conv2d_same."""
+    g, x, w, b = _conv_inputs(2, 13, 21, 3, 8, 3, seed=14)
+    assert not pallas_conv.supported(g.shape, w.shape)
+    y_j, vjp = jax.vjp(lambda a, w_, b_: jconv.conv2d_same(a, w_, b_),
+                       jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    dx_j, dw_j, db_j = vjp(jnp.asarray(g))
+    xt = to_nchw(x).requires_grad_()
+    wt = _oihw(w).requires_grad_(need_w)
+    bt = torch.from_numpy(b).requires_grad_(need_w)
+    before = (cuda_conv.conv2d_same_dx.launches, cuda_conv.conv2d_same_bwd.launches)
+    y_t = tconv.conv2d_same(xt, wt, bt, small_cin_kernel=True)
+    assert type(y_t.grad_fn).__name__ == "Conv2dSameSmallCinFnBackward"
+    _close(to_nhwc(y_t.detach()), np.asarray(y_j))
+    grads = torch.autograd.grad(y_t, (xt, wt, bt) if need_w else (xt,), to_nchw(g))
+    assert (cuda_conv.conv2d_same_dx.launches,
+            cuda_conv.conv2d_same_bwd.launches) == before  # plain on the CPU
+    _close(to_nhwc(grads[0]), np.asarray(dx_j))
+    if need_w:
+        _close(grads[1].numpy().transpose(2, 3, 1, 0), np.asarray(dw_j))
+        _close(grads[2].numpy(), np.asarray(db_j))
+
+
+def test_conv2d_same_matches_jax_forward():
+    _, x, w, b = _conv_inputs(2, 9, 11, 16, 24, 3, seed=15)
+    want = jconv.conv2d_same(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    got = tconv.conv2d_same(to_nchw(x), _oihw(w), torch.from_numpy(b))
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_max_pool_grad_after_relu_matches_jax():
+    """PyTorch routes a 2x2 window's gradient to its first maximum, XLA's
+    select-and-scatter maybe to another; after a ReLU the tied maxima are
+    zeros whose gradient the ReLU zeroes, so dx agrees (odd sizes drop the
+    last row and column, as VALID pooling does)."""
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((2, 9, 11, 8)).astype(np.float32) - 0.8  # many zeros
+    gy = rng.standard_normal((2, 4, 5, 8)).astype(np.float32)
+    f = lambda a: jconv.max_pool2d(jax.nn.relu(a))
+    y_j, vjp = jax.vjp(f, jnp.asarray(x))
+    (dx_j,) = vjp(jnp.asarray(gy))
+    xt = to_nchw(x).requires_grad_()
+    y_t = tconv.max_pool2d(torch.relu(xt))
+    (dx_t,) = torch.autograd.grad(y_t, xt, to_nchw(gy))
+    np.testing.assert_array_equal(to_nhwc(y_t.detach()), np.asarray(y_j))
+    np.testing.assert_array_equal(to_nhwc(dx_t), np.asarray(dx_j))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gram_matrix_matches_jax(dtype):
+    """f32 accumulation on both sides: a bf16 feature map gives an f32
+    Gram (sums over 63 products in other orders: 1e-5 relative)."""
+    f = np.random.default_rng(17).standard_normal((2, 7, 9, 16)).astype(np.float32)
+    fj = jnp.asarray(f).astype(getattr(jnp, dtype))
+    want = jgram.gram_matrix(fj)
+    got = gram_matrix(torch.from_numpy(np.array(fj.astype(jnp.float32))).to(
+        getattr(torch, dtype)))
+    assert got.dtype == torch.float32 and got.shape == (2, 16, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
+# The conv kernel's staging and indexing, emulated in numpy step by step
+# (tiles of 8 x 32 pixels, chunks of 32 output channels staged with a halo
+# into [row][channel][column] buffers, groups of 4 input channels, the
+# persistent grid of the full mode and its per-block dw/db rows), against
+# the plain version: same products, another order of f32 sums (1e-4).
+
+def _emulate_conv_kernel(g, x, w, full, max_blocks):
+    """g (n, h, w, co), x (n, h, w, ci) numpy f32, w (co, ci, k, k)."""
+    n, h, wd, co = g.shape
+    ci, k = w.shape[1], w.shape[-1]
+    p, kk, ci4 = k // 2, k * k, 4 * -(-ci // 4)
+    th, tw, oc_chunk = cuda_conv._TILE_H, cuda_conv._TILE_W, 32
+    rh, cw = th + 2 * p, tw + 2 * p
+    gs_stride = cw | 1
+    wpk = cuda_conv._pack(torch.from_numpy(w)).numpy()  # (co, kk, ci4)
+    tiles_h, tiles_w = -(-h // th), -(-wd // tw)
+    tiles = n * tiles_h * tiles_w
+    blocks = min(tiles, max_blocks) if full else tiles
+    entries = (kk * ci + 1) * co
+    work = np.zeros((blocks, entries), np.float32)
+    dx = np.zeros((n, h, wd, ci), np.float32)
+    ty, tx = np.meshgrid(np.arange(th), np.arange(tw), indexing="ij")
+
+    def stage(src, nb, h0, w0, chans):
+        buf = np.zeros((rh, chans.size, gs_stride), np.float32)
+        for row in range(rh):
+            for col in range(cw):
+                gh, gw = h0 - p + row, w0 - p + col
+                if 0 <= gh < h and 0 <= gw < wd:
+                    buf[row, :, col] = src[nb, gh, gw, chans]
+        return buf
+
+    for b in range(blocks):
+        for tile in range(b, tiles, blocks):
+            nb, rem = divmod(tile, tiles_h * tiles_w)
+            h0, w0 = (rem // tiles_w) * th, (rem % tiles_w) * tw
+            xs = stage(x, nb, h0, w0, np.arange(ci)) if full else None
+            for grp in range(ci4 // 4):
+                acc = np.zeros((th, tw, 4), np.float32)
+                for o0 in range(0, co, oc_chunk):
+                    occ = min(oc_chunk, co - o0)
+                    gs = stage(g, nb, h0, w0, np.arange(o0, o0 + occ))
+                    ws = wpk[o0:o0 + occ]
+                    for oc in range(occ):
+                        for u in range(k):
+                            for v in range(k):
+                                gv = gs[ty + 2 * p - u, oc, tx + 2 * p - v]
+                                acc += gv[..., None] * ws[oc, u * k + v, 4 * grp:4 * grp + 4]
+                    if full and grp == 0:
+                        ginner = gs[p:p + th, :, p:p + tw]  # (th, occ, tw)
+                        for r in range(kk * ci + 1):
+                            if r < kk * ci:
+                                uv, i = divmod(r, ci)
+                                u, v = divmod(uv, k)
+                                xv = xs[u:u + th, i, v:v + tw]  # (th, tw)
+                                s = np.einsum("yx,yox->o", xv, ginner)
+                            else:
+                                s = ginner.sum(axis=(0, 2))
+                            work[b, r * co + o0:r * co + o0 + occ] += s
+                hh, ww = h0 + ty, w0 + tx
+                keep = (hh < h) & (ww < wd)
+                for j in range(4):
+                    if 4 * grp + j < ci:
+                        dx[nb, hh[keep], ww[keep], 4 * grp + j] = acc[..., j][keep]
+    if not full:
+        return dx
+    dwb = work.sum(axis=0)
+    dw = dwb[:kk * ci * co].reshape(k, k, ci, co).transpose(3, 2, 0, 1)
+    return dx, dw, dwb[kk * ci * co:]
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,k", [
+    (1, 10, 40, 3, 8, 3),    # ragged tiles on both edges
+    (2, 9, 33, 1, 40, 5),    # two output-channel chunks, the second short
+    (1, 8, 32, 5, 6, 1),     # two input-channel groups, k = 1
+])
+def test_conv_kernel_tiling_emulation_matches_plain(n, h, w, ci, co, k):
+    g, x, _, _ = _conv_inputs(n, h, w, ci, co, k, seed=18)
+    wt = (np.random.default_rng(19).standard_normal((co, ci, k, k)) * 0.2).astype(np.float32)
+    dx_r, dw_r, db_r = cuda_conv.conv2d_same_bwd_reference(
+        to_nchw(g), to_nchw(x), torch.from_numpy(wt))
+    dx_e = _emulate_conv_kernel(g, x, wt, full=False, max_blocks=0)
+    _close(dx_e, to_nhwc(dx_r))
+    dx_f, dw_f, db_f = _emulate_conv_kernel(g, x, wt, full=True, max_blocks=3)
+    _close(dx_f, to_nhwc(dx_r))
+    _close(dw_f, dw_r.numpy())
+    _close(db_f, db_r.numpy())
+
+
+def test_conv_kernel_gate():
+    assert cuda_conv.supported(3, 3) and cuda_conv.supported(9, 1)
+    assert cuda_conv.supported(1, 128) and cuda_conv.supported(11, 1)
+    assert not cuda_conv.supported(2, 3)  # even k
+    assert not cuda_conv.supported(3, 15)  # 135 > 128
+    assert not cuda_conv.supported(13, 1)
+    assert not cuda_conv.supported(3, 3, stride=2)

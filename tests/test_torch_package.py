@@ -5,8 +5,8 @@
   port's own name starts with the JAX package's).
 - Entry points run on the card unless asked for the CPU: with no card they
   raise instead of carrying on quietly.
-- The ``gpu``-marked test holds the kernel against its plain version on the
-  card; it decides inside the test whether a card exists.
+- The ``gpu``-marked tests hold each kernel against its plain version on
+  the card; they decide inside the test whether a card exists.
 """
 
 import ast
@@ -20,7 +20,7 @@ import fast_neural_style_transfer_tpu_torch as port
 from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
 from fast_neural_style_transfer_tpu_torch.infer import Stylizer
 from fast_neural_style_transfer_tpu_torch.models import TransformerNet
-from fast_neural_style_transfer_tpu_torch.ops import cuda_norm
+from fast_neural_style_transfer_tpu_torch.ops import cuda_conv, cuda_norm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_DIR = pathlib.Path(port.__file__).resolve().parent
@@ -70,15 +70,24 @@ def test_no_card_raises(monkeypatch):
 def test_wrapper_refuses_other_devices():
     x = torch.zeros((1, 8, 4, 4), device="meta")
     g = torch.ones(8, device="meta")
+    m = torch.zeros((1, 8), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_norm.instance_norm_fwd(x, g, g)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_norm.instance_norm_bwd(x, x, m, m, g, g)
+    w = torch.zeros((8, 3, 3, 3), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_conv.conv2d_same_dx(x, w)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_conv.conv2d_same_bwd(x, torch.zeros((1, 3, 4, 4), device="meta"), w)
 
 
 def test_package_data_ships_kernel_sources():
     text = (ROOT / "pyproject.toml").read_text()
     assert "fast_neural_style_transfer_tpu_torch*" in text
     assert "csrc/*.cu" in text
-    assert (PORT_DIR / "csrc" / "instance_norm.cu").is_file()
+    for src in ("instance_norm.cu", "conv_same_bwd.cu"):
+        assert (PORT_DIR / "csrc" / src).is_file()
 
 
 # (N, H, W, C, relu): the IN sites of a 256^2 forward, at B=1
@@ -114,3 +123,65 @@ def test_kernel_matches_plain_on_card(dtype, onepass):
         torch.testing.assert_close(mean, mean_r, rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(inv, inv_r, rtol=1e-3 if onepass else 1e-4,
                                    atol=0)
+
+
+# (N, H, W, C): the IN sites of a training step at B=2
+_BWD_SITES = [(2, 128, 128, 64), (2, 64, 64, 256), (2, 256, 256, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+def test_in_bwd_kernel_matches_plain_on_card(dtype, relu):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    for n, h, w, c in _BWD_SITES:
+        mk = lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+        x = (mk((n, c, h, w)) * 2 + 0.5).to(dt).contiguous(memory_format=torch.channels_last)
+        g = mk((n, c, h, w)).to(dt).contiguous(memory_format=torch.channels_last)
+        gamma, beta = mk(c), mk(c)
+        with torch.inference_mode():
+            _, mean, inv = cuda_norm.instance_norm_fwd(x, gamma, beta)
+            dx, dgn, dbn = cuda_norm.instance_norm_bwd(x, g, mean, inv, gamma, beta,
+                                                       relu=relu)
+            torch.cuda.synchronize()
+            dx_r, dgn_r, dbn_r = cuda_norm.instance_norm_bwd_reference(
+                x.float(), g.float(), mean, inv, gamma, beta, relu=relu)
+        # f32: reductions in another order; bf16: one rounding of dx
+        tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+            dict(rtol=1 / 128, atol=1e-2)
+        torch.testing.assert_close(dx.float(), dx_r, **tol)
+        scale = float(dgn_r.abs().max()) + float(dbn_r.abs().max())
+        torch.testing.assert_close(dgn, dgn_r, rtol=1e-4, atol=1e-4 * scale)
+        torch.testing.assert_close(dbn, dbn_r, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", [(256, 256), (200, 300)])
+def test_conv_bwd_kernel_matches_plain_on_card(dtype, hw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(2)
+    mk = lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+    g = mk((2, 64, *hw)).to(dt).contiguous(memory_format=torch.channels_last)
+    x = mk((2, 3, *hw)).to(dt).contiguous(memory_format=torch.channels_last)
+    w = (mk((64, 3, 3, 3)) * 0.1).to(dt)
+    with torch.inference_mode():
+        dx_only = cuda_conv.conv2d_same_dx(g, w)
+        dx, dw, db = cuda_conv.conv2d_same_bwd(g, x, w)
+        torch.cuda.synchronize()
+        dx_r, dw_r, db_r = cuda_conv.conv2d_same_bwd_reference(g.float(), x.float(),
+                                                               w.float())
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=1 / 128, atol=2e-2)
+    torch.testing.assert_close(dx_only.float(), dx_r, **tol)
+    torch.testing.assert_close(dx.float(), dx_r, **tol)
+    # dw, db: sums over N*H*W products in another order
+    torch.testing.assert_close(dw, dw_r, rtol=1e-4, atol=1e-4 * float(dw_r.abs().max()))
+    torch.testing.assert_close(db, db_r, rtol=1e-4, atol=1e-4 * float(db_r.abs().max()))
+    with pytest.raises(ValueError, match="gate"):
+        cuda_conv.conv2d_same_dx(g, mk((64, 16, 3, 3)).to(dt))
