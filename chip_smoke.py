@@ -6,18 +6,22 @@
 Drives ``fast_neural_style_transfer_tpu_torch`` only (no JAX). It builds
 the CUDA kernels from ``csrc/`` with nvcc (both sources at once), and holds
 each kernel against its plain PyTorch version at the shapes of the main
-paths. Then it drives the two main paths, each with the kernel-launch
-counters set to 0 just before and read just after:
+paths (the IN forward's two kernels each where its planner routes: the
+one-launch kernel at every 256x256 site, the two-launch kernel at a slab
+larger than the card holds at once). Then it drives the two main paths,
+each with the kernel-launch counters (the IN forward's also by route) set
+to 0 just before and read just after:
 - serving (slice 1): the in-repo trained checkpoint against the port's own
   CPU path, concurrent HTTP requests and the inference CLI;
 - training (slice 2): the training CLI for 10 steps at batch 20, 256x256,
   full width, on synthetic images, then one step on the card against the
   port's CPU path.
-Last it times the kernels, their plain versions and the library ops, and
-the training step. Every phase prints one JSON line; any failure exits
-non-zero. The line before the last lists the kernels; the last line is
-``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the build
-always runs), for iterating; the kernels line needs all phases.
+Last it times the kernels, their plain versions and the library ops, the
+training step, and the IN forward at three chunk budgets. Every phase
+prints one JSON line; any failure exits non-zero. The line before the
+last lists the kernels; the last line is ``{"ok": true, "device":
+{...}}``. ``--phases`` runs a subset (the build always runs), for
+iterating; the kernels line needs all phases.
 """
 
 from __future__ import annotations
@@ -139,60 +143,91 @@ def phase_build() -> None:
     emit("build_total", seconds=seconds)
 
 
+# a slab larger than the card holds at once: the two-launch kernel's shape
+LARGE_SLAB = (2, 1024, 1024, 32, True)
+# the forward kernel every IN site of the 256^2 paths takes
+SITE_ROUTE = "one_launch"
+
+
+def bits(t):
+    """t's bits as integers, for bit-for-bit comparisons."""
+    import torch
+
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
 def phase_kernel_vs_plain(seed: int) -> float:
-    """Every site shape at B=1 and B=8, f32 and bf16, both statistics
-    modes, against the plain version run in f32 on the upcast input.
+    """Every site shape at B=1, B=8 and B=20, and the large slab LARGE_SLAB,
+    f32 and bf16, both statistics modes, against the plain version run in
+    f32 on the upcast input. Each case states the planner's route, chunk
+    bytes, chunks per sample (G), blocks and the card's measured capacity;
+    it fails if a 256^2 site takes the two-launch route, or if a second call
+    differs from the first in any bit of y, mean or inv.
     Tolerances: f32 |dy| <= 1e-4 + 1e-4|y| (the same formula, sums over up
     to 65,536 elements taken in another order); bf16 |dy| <= 1e-4 +
     2^-7|y| (rounding y to bf16 errs by half an ulp, up to 2^-8|y|; one
     ulp leaves room for the f32 differences ahead of the rounding).
-    Statistics: |dmean| <= 1e-5 + 1e-4|mean|; inv relative 1e-4 (Welford)
+    Statistics: |dmean| <= 1e-5 + 1e-4|mean|; inv relative 1e-4 (stable)
     or 1e-3 (one-pass, E[x^2] - mean^2 cancels)."""
     import torch
 
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        fwd_plan,
         instance_norm_fwd,
         instance_norm_fwd_reference,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
-    shapes = {(h, w, c, relu) for _, h, w, c, relu, _ in SITES}
-    for h, w, c, relu in sorted(shapes):
-        for n in (1, 8):
-            base = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
-            gamma = torch.randn(c, generator=gen, device="cuda")
-            beta = torch.randn(c, generator=gen, device="cuda")
-            for dtype in (torch.float32, torch.bfloat16):
-                x = base.to(dtype).contiguous(memory_format=torch.channels_last)
-                for onepass in (False, True):
-                    with torch.inference_mode():
-                        y, mean, inv = instance_norm_fwd(
-                            x, gamma, beta, relu=relu, onepass=onepass)
-                        torch.cuda.synchronize()
-                        y_r, mean_r, inv_r = instance_norm_fwd_reference(
-                            x.float(), gamma, beta, relu=relu, onepass=onepass)
-                    rtol_y = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-                    dy = (y.float() - y_r).abs()
-                    y_over = (dy / (1e-4 + rtol_y * y_r.abs())).max().item()
-                    m_over = ((mean - mean_r).abs()
-                              / (1e-5 + 1e-4 * mean_r.abs())).max().item()
-                    inv_rel = ((inv - inv_r).abs() / inv_r).max().item()
-                    inv_tol = 1e-3 if onepass else 1e-4
-                    max_abs = dy.max().item()
-                    worst = max(worst, max_abs)
-                    ok = y_over <= 1 and m_over <= 1 and inv_rel <= inv_tol
-                    emit("kernel_vs_plain", shape=[n, h, w, c], relu=relu,
-                         dtype=str(dtype).replace("torch.", ""), onepass=onepass,
-                         y_max_abs_err=max_abs,
-                         y_max_rel_err=(dy / y_r.abs().clamp_min(1.0)).max().item(),
-                         y_rtol=rtol_y, y_atol=1e-4, y_err_over_tol=y_over,
-                         mean_err_over_tol=m_over, inv_max_rel_err=inv_rel,
-                         inv_rtol=inv_tol, ok=ok)
-                    if not ok:
-                        fail(f"kernel disagrees with plain at {[n, h, w, c]} "
-                             f"{dtype} onepass={onepass}")
+    shapes = sorted({(h, w, c, relu) for _, h, w, c, relu, _ in SITES})
+    cases = [(n, *s, False) for s in shapes for n in (1, 8, 20)]
+    cases.append((*LARGE_SLAB, True))
+    for n, h, w, c, relu, large in cases:
+        base = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
+        gamma = torch.randn(c, generator=gen, device="cuda")
+        beta = torch.randn(c, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = base.to(dtype).contiguous(memory_format=torch.channels_last)
+            for onepass in (False, True):
+                plan = fwd_plan(x, onepass=onepass)
+                with torch.inference_mode():
+                    y, mean, inv = instance_norm_fwd(
+                        x, gamma, beta, relu=relu, onepass=onepass)
+                    again = instance_norm_fwd(x, gamma, beta, relu=relu, onepass=onepass)
+                    torch.cuda.synchronize()
+                    y_r, mean_r, inv_r = instance_norm_fwd_reference(
+                        x.float(), gamma, beta, relu=relu, onepass=onepass)
+                repeatable = all(torch.equal(bits(a), bits(b))
+                                 for a, b in zip((y, mean, inv), again))
+                rtol_y = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+                dy = (y.float() - y_r).abs()
+                y_over = (dy / (1e-4 + rtol_y * y_r.abs())).max().item()
+                m_over = ((mean - mean_r).abs()
+                          / (1e-5 + 1e-4 * mean_r.abs())).max().item()
+                inv_rel = ((inv - inv_r).abs() / inv_r).max().item()
+                inv_tol = 1e-3 if onepass else 1e-4
+                max_abs = dy.max().item()
+                worst = max(worst, max_abs)
+                route_ok = large or plan.route == SITE_ROUTE
+                ok = (y_over <= 1 and m_over <= 1 and inv_rel <= inv_tol
+                      and repeatable and route_ok)
+                emit("kernel_vs_plain", shape=[n, h, w, c], relu=relu,
+                     dtype=str(dtype).replace("torch.", ""), onepass=onepass,
+                     route=plan.route, chunk_pixels=plan.chunk,
+                     chunk_bytes=plan.chunk_bytes, chunks_per_sample=plan.chunks,
+                     blocks=plan.blocks, smem_bytes=plan.smem_bytes,
+                     capacity=plan.capacity, y_max_abs_err=max_abs,
+                     y_max_rel_err=(dy / y_r.abs().clamp_min(1.0)).max().item(),
+                     y_rtol=rtol_y, y_atol=1e-4, y_err_over_tol=y_over,
+                     mean_err_over_tol=m_over, inv_max_rel_err=inv_rel,
+                     inv_rtol=inv_tol, bitwise_repeatable=repeatable, ok=ok)
+                if not ok:
+                    fail(f"kernel disagrees with plain, repeats with other bits or "
+                         f"takes the wrong route at {[n, h, w, c]} {dtype} "
+                         f"onepass={onepass} ({plan.route})")
+                del y, mean, inv, again, y_r, mean_r, inv_r
     return worst
+
 
 def in_bwd_scales(x, g, mean, inv, gamma, beta, relu):
     """Sums of the absolute values of the terms the IN backward adds: a
@@ -344,6 +379,15 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
     return worst
 
 
+def reset_fwd_counts() -> None:
+    """Set the IN forward's launch counts, in all and by route, to 0."""
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
+
+    instance_norm_fwd.launches = 0
+    instance_norm_fwd.launches_by_route = dict.fromkeys(
+        instance_norm_fwd.launches_by_route, 0)
+
+
 def phase_trained_weights() -> None:
     """Trained .pth on the card (f32, bf16) against the port's CPU f32 path:
     f32 max |du8| <= 1; bf16 SSIM >= 0.98; 14 kernel launches per forward."""
@@ -429,7 +473,7 @@ def phase_serving() -> dict:
                 "connect_p50_ms": float(np.median([r[4] for r in replies])),
                 "server_p50_ms_so_far": server_p50}
 
-    instance_norm_fwd.launches = 0
+    reset_fwd_counts()
     try:
         bursts, burst_info = [], []
         for _ in range(2):
@@ -454,6 +498,7 @@ def phase_serving() -> dict:
         srv.shutdown()
         thread.join(timeout=30)
     launches = instance_norm_fwd.launches
+    by_route = dict(instance_norm_fwd.launches_by_route)
     forwards = stats["batches"] + 1  # server batches + the CLI's one forward
     result = {
         "http_status": sorted({r[0] for r in burst + seq}),
@@ -463,12 +508,13 @@ def phase_serving() -> dict:
         "mean_batch_occupancy": stats["mean_batch_occupancy"],
         "batches": stats["batches"], "healthz_device": health["device"],
         "cli_output_size": list(cli_size), "launches": launches,
-        "expected_launches": NUM_IN_SITES * forwards,
+        "launches_by_route": by_route, "expected_launches": NUM_IN_SITES * forwards,
     }
     ok = (all(r[0] == 200 and r[1] == (256, 256) for r in burst + seq)
           and stats["mean_batch_occupancy"] > 1
           and health["device"] == torch.cuda.get_device_name(0)
-          and cli_size == (320, 240) and launches == NUM_IN_SITES * forwards)
+          and cli_size == (320, 240) and launches == NUM_IN_SITES * forwards
+          and by_route[SITE_ROUTE] == launches)
     emit("serving", ok=ok, **result)
     if not ok or launches == 0:
         fail("serving phase")
@@ -518,6 +564,7 @@ def phase_training(seed: int) -> dict:
         out = os.path.join(tmp, "out")
         for fn in counters.values():
             fn.launches = 0
+        reset_fwd_counts()
         t0 = time.perf_counter()
         final = begin_training.main([
             "--dataset_dir", data, "--style_image", style, "--output_dir", out,
@@ -526,6 +573,7 @@ def phase_training(seed: int) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
+        by_route = dict(instance_norm_fwd.launches_by_route)
         with open(os.path.join(out, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         checkpoints = sorted(os.listdir(os.path.join(out, "checkpoints")))
@@ -542,10 +590,12 @@ def phase_training(seed: int) -> dict:
           and any(c.startswith("ckpt_") for c in checkpoints)
           and os.path.basename(final) == "style_transfer_final.npz"
           and y.shape == img.shape and y.dtype == np.uint8
-          and launches == expected)
+          and launches == expected
+          and by_route[SITE_ROUTE] == launches["instance_norm_fwd"])
     emit("training", ok=ok, steps=TRAIN_STEPS, batch=TRAIN_BATCH, size=[256, 256],
          precision="f32", seconds=seconds, metrics=records, checkpoints=checkpoints,
-         launches=launches, expected_launches=expected,
+         launches=launches, instance_norm_fwd_launches_by_route=by_route,
+         expected_launches=expected,
          stylized_shape=list(y.shape), stylized_mean=float(y.mean()))
     if not ok:
         fail("training phase")
@@ -654,8 +704,10 @@ def bound(bytes_moved: float, flops: float, dtype: str) -> tuple:
 
 def train_kernel_times(seed: int) -> dict:
     """Per training step at B=20, 256x256, in bf16 and f32: device time
-    (CUDA-graph replay) of the IN forward and backward kernels over the 14
-    sites and of the conv1_1 dx kernel, their plain versions and the library
+    (CUDA-graph replay) of the IN forward (the kernel its planner picks, and
+    the two-launch kernel at the same shapes: ``two_launch_ms``) and
+    backward kernels over the 14 sites and of the conv1_1 dx kernel, their
+    plain versions and the library
     calls (F.instance_norm(+F.relu); its autograd backward, as the graph
     time of forward + backward less that of the forward; cuDNN
     backward-data torch.nn.grad.conv2d_input), beside the bounds."""
@@ -667,6 +719,8 @@ def train_kernel_times(seed: int) -> dict:
         conv2d_same_dx_reference,
     )
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        _launch_fwd,
+        fwd_plan,
         instance_norm_bwd,
         instance_norm_bwd_reference,
         instance_norm_fwd,
@@ -679,7 +733,8 @@ def train_kernel_times(seed: int) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
-        fwd = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        fwd = dict.fromkeys(("ms", "two_launch_ms", "plain_ms", "library_ms", "bound_ms"),
+                            0.0)
         for name, h, w, c, relu, count in SITES:
             x = (torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5)
             x = x.to(dtype).contiguous(memory_format=torch.channels_last)
@@ -694,8 +749,11 @@ def train_kernel_times(seed: int) -> dict:
                     y = F.instance_norm(x, weight=gamma, bias=beta, eps=1e-5)
                     return F.relu(y) if relu else y
 
+                two = fwd_plan(x, one_launch=False)
                 site_fwd = {
                     "ms": graph_ms(lambda: instance_norm_fwd(x, gamma, beta, relu=relu)),
+                    "two_launch_ms": graph_ms(lambda: _launch_fwd(
+                        x, gamma, beta, two, eps=1e-5, relu=relu, onepass=False)),
                     "plain_ms": graph_ms(lambda: instance_norm_fwd_reference(
                         x, gamma, beta, relu=relu)),
                     "library_ms": graph_ms(library_fwd),
@@ -732,7 +790,8 @@ def train_kernel_times(seed: int) -> dict:
                 tot[k] += count * site[k]
             del xr, gr, br
         tot["bound_by"] = fwd["bound_by"] = "bytes"
-        emit("train_times_in_fwd", dtype=dname, batch=n, per="step (14 sites)", **fwd,
+        emit("train_times_in_fwd", dtype=dname, batch=n, per="step (14 sites)",
+             route=fwd_plan(x).route, **fwd,
              library_op="F.instance_norm(+F.relu)", bound_share=fwd["bound_ms"] / fwd["ms"])
         emit("train_times_in_bwd", dtype=dname, batch=n, per="step (14 sites)", **tot,
              bound_share=tot["bound_ms"] / tot["ms"])
@@ -858,6 +917,51 @@ def phase_train_times(seed: int) -> dict:
     return result
 
 
+IN_FWD_BUDGETS_KB = (64, 80, 96)
+
+
+def phase_in_fwd_budgets(seed: int) -> dict:
+    """The one-launch IN forward at chunk budgets of 64, 80 and 96 KB
+    (ops/cuda_norm.py::_FWD_CHUNK_BYTES; the port's is 80): device time
+    (CUDA-graph replay) per 256x256 forward at B=1 and B=8 in bf16 and per
+    training step at B=20 in bf16 and f32, each site shape weighted by its
+    sites (ReLU on)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops import cuda_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    weights = {}
+    for _, h, w, c, _, count in SITES:
+        weights[(h, w, c)] = weights.get((h, w, c), 0) + count
+    keep = cuda_norm._FWD_CHUNK_BYTES
+    result = {}
+    try:
+        for n, dtype in ((1, torch.bfloat16), (8, torch.bfloat16),
+                         (TRAIN_BATCH, torch.bfloat16), (TRAIN_BATCH, torch.float32)):
+            per_budget = dict.fromkeys(IN_FWD_BUDGETS_KB, 0.0)
+            chunks = {kb: [] for kb in IN_FWD_BUDGETS_KB}
+            for (h, w, c), count in weights.items():
+                x = (torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5)
+                x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+                g = torch.randn(c, generator=gen, device="cuda")
+                b = torch.randn(c, generator=gen, device="cuda")
+                for kb in IN_FWD_BUDGETS_KB:
+                    cuda_norm._FWD_CHUNK_BYTES = kb * 1024
+                    plan = cuda_norm.fwd_plan(x)
+                    per_budget[kb] += count * graph_ms(lambda: cuda_norm._launch_fwd(
+                        x, g, b, plan, eps=1e-5, relu=True, onepass=False))
+                    chunks[kb].append(plan.chunks)
+            dname = str(dtype).replace("torch.", "")
+            emit("in_fwd_budgets", batch=n, dtype=dname,
+                 per="forward" if n < TRAIN_BATCH else "step", port_kb=keep // 1024,
+                 ms_by_budget_kb=per_budget, chunks_per_sample_by_budget_kb=chunks)
+            result[(n, dname)] = per_budget
+    finally:
+        cuda_norm._FWD_CHUNK_BYTES = keep
+    return result
+
+
 def graph_ms(fn, reps: int = 20) -> float:
     """Device time per call: ``reps`` calls captured in one CUDA graph and
     replayed, so host-side launch cost is out of the measurement."""
@@ -877,8 +981,9 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 
 def phase_times(seed: int) -> dict:
-    """bf16 per-site times at B=1 and B=8 for the kernel, its plain version
-    and F.instance_norm (+ F.relu at ReLU sites): device time from CUDA
+    """bf16 per-site times at B=1 and B=8 for the kernel (and the two-launch
+    kernel at the same shapes, ``two_launch_ms``), its plain version and
+    F.instance_norm (+ F.relu at ReLU sites): device time from CUDA
     graph replay (``*ms``) and the eager call loop between CUDA events
     (``eager_*ms``, which includes the host's launch cost), each beside the
     bytes bound. Then the u8 -> u8 forward p50 at 256^2 and, from
@@ -888,14 +993,16 @@ def phase_times(seed: int) -> dict:
 
     from fast_neural_style_transfer_tpu_torch.infer import Stylizer
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        _launch_fwd,
+        fwd_plan,
         instance_norm_fwd,
         instance_norm_fwd_reference,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     per_forward = {}
-    keys = ("ms", "plain_ms", "library_ms", "eager_ms", "eager_plain_ms",
-            "eager_library_ms", "bound_ms")
+    keys = ("ms", "two_launch_ms", "plain_ms", "library_ms", "eager_ms",
+            "eager_plain_ms", "eager_library_ms", "bound_ms")
     with torch.inference_mode():
         for n in (1, 8):
             tot = dict.fromkeys(keys, 0.0)
@@ -916,8 +1023,12 @@ def phase_times(seed: int) -> dict:
                     y = F.instance_norm(x, weight=g, bias=b, eps=1e-5)
                     return F.relu(y) if relu else y
 
+                two = fwd_plan(x, one_launch=False)
                 site = {
-                    "ms": graph_ms(kernel), "plain_ms": graph_ms(plain),
+                    "ms": graph_ms(kernel),
+                    "two_launch_ms": graph_ms(lambda: _launch_fwd(
+                        x, g, b, two, eps=1e-5, relu=relu, onepass=False)),
+                    "plain_ms": graph_ms(plain),
                     "library_ms": graph_ms(library),
                     "eager_ms": cuda_ms(kernel, iters=100),
                     "eager_plain_ms": cuda_ms(plain, iters=20),
@@ -926,7 +1037,7 @@ def phase_times(seed: int) -> dict:
                 site["bound_ms"], by = in_bound_ms(x.numel(), x.element_size())
                 bound_by.add(by)
                 emit("times_site", site=name, shape=[n, h, w, c], dtype="bfloat16",
-                     relu=relu, **site, bound_by=by,
+                     relu=relu, route=fwd_plan(x).route, **site, bound_by=by,
                      library_op="F.instance_norm+F.relu" if relu else "F.instance_norm",
                      bound_share=site["bound_ms"] / site["ms"],
                      sites_per_forward=count)
@@ -997,7 +1108,7 @@ def profile_calls(fn, reps: int = 5, top: int = 8) -> dict:
 
 
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
-          "times", "train_times")
+          "times", "train_times", "in_fwd_budgets")
 
 
 def main() -> int:
@@ -1039,6 +1150,8 @@ def main() -> int:
         phase_train_parity(args.seed)
     times = phase_times(args.seed) if "times" in phases else None
     ttimes = phase_train_times(args.seed) if "train_times" in phases else None
+    if "in_fwd_budgets" in phases:
+        phase_in_fwd_budgets(args.seed)
     emit("done", seconds=time.perf_counter() - t0, phases=list(phases))
     if phases == PHASES:
         b8 = times["per_forward"][8]
@@ -1051,6 +1164,7 @@ def main() -> int:
             "source": src + "instance_norm.cu",
             "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:61",
             "launches": served["launches"],
+            "launches_by_route": served["launches_by_route"],
             "max_abs_err": err["in_fwd"],
             # the serving path: the 14 sites of one 256x256 bf16 forward at B=8
             "ms": b8["ms"], "plain_ms": b8["plain_ms"],

@@ -1,38 +1,86 @@
 // Instance-norm forward and backward with the affine and an optional ReLU,
 // for Hopper (sm_90a).
 //
-// Replaces the TPU kernel fast_neural_style_transfer_tpu/ops/pallas_norm.py::
-// _in_fwd_kernel (launched by _pallas_in_forward). For each (sample n, channel c)
-// of an NHWC activation x it computes the f32 mean and biased variance over
-// H*W, inv = rsqrt(var + eps), y = x * (inv * gamma) + (beta - mean * inv *
-// gamma), then an optional ReLU. y is written in x's dtype; mean and inv are
-// written as (N, C) f32 residuals.
+// Forward (fnst_instance_norm_fwd). Replaces the TPU kernel
+// fast_neural_style_transfer_tpu/ops/pallas_norm.py::_in_fwd_kernel
+// (launched by _pallas_in_forward). For each (sample n, channel c) of an
+// NHWC activation x it computes the f32 mean and biased variance over H*W,
+// inv = rsqrt(var + eps), y = x * (inv * gamma) + (beta - mean * inv *
+// gamma), then an optional ReLU. y is written in x's dtype; mean and inv
+// are written as (N, C) f32 residuals. The statistics are "stable" by
+// default, or one-pass on request: var = max(E[x^2] - mean^2, 0), the TPU
+// kernel's own arithmetic.
 //
 // Bound: bytes. The work is ~8 flops per element against 2 bytes (bf16) or
 // 4 bytes (f32) read and the same written, far below the card's ~295
 // flops/byte balance point, so the least time is (read x once + write y
 // once) over the 3.35 TB/s of HBM. One 256x256 stylizer forward has
 // 13 * 1,048,576 + 2,097,152 = 15,728,640 IN elements: 62.9 MB of bf16
-// traffic, 18.8 us at B=1 and 150 us at B=8 (f32 doubles both). At B=1
-// every slab (<= 8.4 MB) fits the 50 MB L2 and launch latency dominates.
+// traffic, 18.8 us at B=1 and 150 us at B=8 (f32 doubles both).
 //
-// Design. The TPU kernel ran one sequential grid step per (sample, channel
-// block) with the whole H*W slab in VMEM; at batch 1 that would put the
-// 256x256x32 decoder IN on a single block of the 132 SMs. Here H*W is split
-// across blocks and the statistics are reduced in two launches:
-//   1. in_stats_partial: a block owns (sample, pixel chunk, tile of <= 32
-//      channels). Neighbouring threads sit on neighbouring channels, so each
-//      warp reads one contiguous run of the NHWC row. Each thread accumulates
-//      f32 Welford (count, mean, M2) over its pixels (or sum, sum of squares
-//      in one-pass mode); the block merges its 8 pixel lanes with Chan's
-//      formula in shared memory and writes one partial per (n, chunk, c) to
-//      an f32 workspace the caller allocates.
-//   2. in_apply: every block of the same grid merges its channels' chunk
-//      partials into mean and var = M2 / HW (one-pass: max(E[x^2] - mean^2,
-//      0), exactly the TPU kernel's arithmetic), the first chunk's block
-//      writes the residuals, and each block writes y for its own chunk.
-// The chunk count per (sample, channel tile) is capped (the wrapper picks
-// it), so the partials that every apply block re-reads stay a few KB.
+// Layout. A block owns a chunk of whole pixel rows of one sample: P pixels
+// x all C channels, one contiguous byte range of NHWC x. It moves it in
+// packs of 16 bytes (4 f32 or 8 bf16 channels of one pixel) where C *
+// itemsize is a multiple of 16 and x is 16-byte aligned, else element by
+// element (VEC = 1). Thread t of the block's 256 takes channel pack
+// t % packs and pixel lane t / packs, so each warp moves one contiguous run
+// of the chunk; a pixel row of more than 256 packs is taken 256 packs at a
+// time. No element loop divides.
+//
+// Two kernels; the wrapper's planner (ops/cuda_norm.py::plan_fwd) picks one
+// by shape and states the rule.
+//
+// One-launch kernel (in_fwd_resident), for a slab whose chunks all fit on
+// the card at once (up to ~21 MB a sample on an H100): every IN site of the
+// 256x256 serving and training paths. x crosses HBM once. Each block:
+//   1. takes a ticket from a global counter (atomicAdd) and maps it to
+//      (sample s, chunk j) = (ticket / chunks, ticket % chunks), not to
+//      blockIdx: ticket order guarantees every lower ticket has started;
+//   2. copies its chunk (at most 80 KB, so two blocks share an SM) into
+//      dynamic shared memory with 16-byte cp.async, x's only read;
+//   3. from shared memory, per channel: the chunk mean, then the sum of
+//      squared deviations about it (one-pass: sum and sum of squares), the
+//      lanes folded in a fixed tree; writes them to the workspace;
+//   4. publishes them (__threadfence, atomicAdd on its sample's counter)
+//      and waits until all G blocks of the sample have (ld.acquire.gpu,
+//      __nanosleep back-off). Then it merges the chunk partials of its own
+//      slice of ceil(C / G) channels (merge_chunks, in a fixed order, so
+//      the result does not depend on arrival order and repeats bit for
+//      bit), writes their mean, inv and (scale, shift), publishes on a
+//      second counter and waits for all G slices (slice widths are
+//      rounded up to a power of two). One block merging all C channels
+//      would keep the others waiting while it reads G * C partials in a
+//      chain of L2 round trips; split, each block reads G * ceil(C / G)
+//      pairs at once;
+//   5. reads every channel's (scale, shift) and writes y from its shared
+//      copy with 16-byte stores.
+// Why it cannot deadlock: a block waits only on blocks of its own sample.
+// Tickets go out in order, one sample after another, so every sample but
+// the newest has all its blocks started; none waits before it publishes,
+// so each of its waits ends. Only the newest sample can have blocks that
+// have not started. Older blocks finish and free their slots, and the next
+// block to start takes the newest sample's next ticket; the newest
+// sample's chunks G fit on the card together, because the wrapper routes
+// here only where G <= capacity = blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the largest shared
+// memory, kSmemLimit) x SMs, asked of the card once per device
+// (fnst_instance_norm_fwd_capacity), and the launch refuses a larger G.
+// This assumes no other kernel holds SM slots forever meanwhile. The
+// counters (ticket, two per sample) are zeroed by cudaMemsetAsync on the
+// same stream just before the kernel, in the same C call; nothing persists
+// from one call to the next, so two streams never share counters, and a
+// CUDA graph can capture the call.
+//
+// Two-launch kernel (in_fwd_partial, then in_fwd_apply), for any slab:
+//   1. each thread sums d = v - K and d * d over its pixels, K the value
+//      of the chunk's first pixel (one-pass: v and v * v); the block folds
+//      its lanes and writes the chunk's (mean, M2) (one-pass: (sum, sum of
+//      squares)) per channel to the workspace, then publishes on its
+//      sample's counter; the sample's last block to publish merges all C
+//      channels into mean, inv and (scale, shift). Nobody waits.
+//   2. each block writes y for its chunk from a second read of x, with its
+//      sample's (scale, shift).
+// x crosses HBM twice where the slab does not fit the 50 MB L2.
 //
 // Backward (fnst_instance_norm_bwd). Replaces the TPU kernel
 // fast_neural_style_transfer_tpu/ops/pallas_norm.py::_in_bwd_kernel
@@ -52,7 +100,7 @@
 // 15,728,640 IN elements per 256x256 image, so 1.89 GB and 0.56 ms at B=20
 // bf16 over 3.35 TB/s (f32 doubles it). The two reductions force a second
 // read of x and g, which launch 2 makes (from L2 where the slab fits).
-// Design: the forward's chunked two-launch layout.
+// Design: two launches over chunks of H*W.
 //   1. in_bwd_partial: a block owns (sample, pixel chunk, tile of <= 32
 //      channels); each thread sums the gated g and g * xhat over its pixels
 //      in f32, the block adds its 8 pixel lanes and writes one partial pair
@@ -64,10 +112,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <type_traits>
+
 namespace {
 
-constexpr int kTileC = 32;  // channels per block: one warp spans a tile row
-constexpr int kLanes = 8;   // pixel lanes per block: 256 threads
+constexpr int kThreads = 256;  // forward: threads of a block
+constexpr int kTileC = 32;     // backward: channels per block
+constexpr int kLanes = 8;      // backward: pixel lanes per block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -85,155 +137,606 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Merge the moments (nb, ab, bb) into (na, aa, ba). One-pass: a and b are
-// the sum and the sum of squares. Welford: a is the mean and b is M2,
-// merged with Chan et al.'s formula.
-template <bool kOnePass>
-__device__ __forceinline__ void merge(float& na, float& aa, float& ba,
-                                      float nb, float ab, float bb) {
-  if (kOnePass) {
-    na += nb;
-    aa += ab;
-    ba += bb;
-    return;
-  }
-  if (nb == 0.f) return;
-  const float n = na + nb;
-  const float d = ab - aa;
-  const float f = nb / n;
-  aa += d * f;
-  ba += bb + d * d * na * f;
-  na = n;
+// One pack: VEC channels of one pixel, moved as one 16-byte access (VEC > 1)
+// or as one element (VEC == 1).
+template <typename T, int VEC>
+using Raw = typename std::conditional<VEC == 1, T, uint4>::type;
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_pack(const T* p, float (&f)[VEC]) {
+  static_assert(VEC == 1 || VEC * sizeof(T) == 16, "a pack is 16 bytes");
+  const Raw<T, VEC> r = *reinterpret_cast<const Raw<T, VEC>*>(p);
+  const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) f[i] = to_f32(e[i]);
 }
 
-template <typename T, bool kOnePass>
-__global__ void __launch_bounds__(kTileC * kLanes)
-    in_stats_partial(const T* __restrict__ x, float* __restrict__ work,
-                     int n, int hw, int c, int chunk, int chunks) {
-  const int cx = threadIdx.x;
-  const int ly = threadIdx.y;
-  const int ch = blockIdx.y * kTileC + cx;
-  const int s = blockIdx.z;
-  const int p0 = blockIdx.x * chunk;
-  const int p1 = min(p0 + chunk, hw);
+template <typename T, int VEC>
+__device__ __forceinline__ void store_pack(T* p, const float (&f)[VEC]) {
+  Raw<T, VEC> r;
+  T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) e[i] = from_f32<T>(f[i]);
+  *reinterpret_cast<Raw<T, VEC>*>(p) = r;
+}
 
-  float cnt = 0.f, a = 0.f, b = 0.f;
-  if (ch < c) {
-    const T* xs = x + (size_t)s * hw * c + ch;
-#pragma unroll 4
-    for (int p = p0 + ly; p < p1; p += kLanes) {
-      const float v = to_f32(xs[(size_t)p * c]);
-      cnt += 1.f;
-      if (kOnePass) {
-        a += v;
-        b += v * v;
+// The block over the channel packs [cv0, cv0 + packs) of a pixel row:
+// thread t takes pack cv0 + t % packs and pixel lane t / packs; threads
+// with lane >= lanes (when packs does not divide the block) sit out.
+struct Group {
+  int width;  // channels of the group: packs * VEC
+  int lanes;  // pixel lanes
+  int lane;   // this thread's lane
+  int ch;     // this thread's first channel
+};
+
+template <int VEC>
+__device__ __forceinline__ Group group(int c, int cv0) {
+  const int packs = min(c / VEC - cv0, kThreads);
+  Group g;
+  g.width = packs * VEC;
+  g.lanes = kThreads / packs;
+  g.lane = threadIdx.x / packs;
+  g.ch = (cv0 + threadIdx.x % packs) * VEC;
+  return g;
+}
+
+// Adds red[l * width + k] over the lanes l < lanes into red[k], for each
+// channel k < width of the group, by a fixed tree: lanes [half, lanes) onto
+// [0, lanes - half), half = ceil(lanes / 2), until one lane is left. The
+// same for `arrays` arrays `stride` floats apart. Begins and ends with a
+// barrier; the same order every call, so the sums repeat bit for bit.
+__device__ __forceinline__ void fold_lanes(float* red, int lanes, int width,
+                                           int arrays, int stride) {
+  while (lanes > 1) {
+    const int half = (lanes + 1) / 2;
+    const int m = (lanes - half) * width;
+    __syncthreads();
+    for (int a = 0; a < arrays; ++a) {
+      float* r = red + a * stride;
+      for (int i = threadIdx.x; i < m; i += kThreads) r[i] += r[i + half * width];
+    }
+    lanes = half;
+  }
+  __syncthreads();
+}
+
+// Sums each thread's values a[n][0..VEC) over the lanes of its slot into
+// red + n * kThreads * VEC, at [slot * VEC + i]: thread t holds VEC
+// channels of slot t % slots (slots <= 256) in lane t / slots; threads
+// past the last whole lane hold zeros. A fixed tree: where
+// slots is a power of two below 32, first inside each warp by xor shuffles,
+// the farthest lanes first, then the 8 warps' sums as fold_lanes; else
+// fold_lanes over all the lanes. Ends with a barrier. Every call adds in
+// the same order, so the sums repeat bit for bit.
+template <int VEC, int NA>
+__device__ __forceinline__ void lane_sum(float* red, float (&a)[NA][VEC],
+                                         int slots) {
+  const int width = slots * VEC;
+  int lanes = kThreads / slots;
+  int lane = threadIdx.x / slots;
+  const int slot = threadIdx.x % slots;
+  if (slots < 32 && (slots & (slots - 1)) == 0) {
+    for (int o = 16; o >= slots; o >>= 1) {
+#pragma unroll
+      for (int n = 0; n < NA; ++n) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          a[n][i] += __shfl_xor_sync(0xffffffffu, a[n][i], o);
+        }
+      }
+    }
+    lanes = kThreads / 32;
+    lane = threadIdx.x % 32 < slots ? threadIdx.x / 32 : -1;
+  }
+  if (lane >= 0) {
+#pragma unroll
+    for (int n = 0; n < NA; ++n) {
+      float* r = red + n * kThreads * VEC + lane * width + slot * VEC;
+      if constexpr (VEC % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < VEC; i += 4) {
+          *reinterpret_cast<float4*>(r + i) =
+              make_float4(a[n][i], a[n][i + 1], a[n][i + 2], a[n][i + 3]);
+        }
       } else {
-        const float d = v - a;
-        a += d / cnt;
-        b += d * (v - a);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) r[i] = a[n][i];
       }
     }
   }
-
-  __shared__ float sh[3][kLanes][kTileC];
-  sh[0][ly][cx] = cnt;
-  sh[1][ly][cx] = a;
-  sh[2][ly][cx] = b;
-  __syncthreads();
-  if (ly != 0 || ch >= c) return;
-  for (int l = 1; l < kLanes; ++l) {
-    merge<kOnePass>(cnt, a, b, sh[0][l][cx], sh[1][l][cx], sh[2][l][cx]);
-  }
-  const size_t plane = (size_t)n * chunks * c;
-  const size_t slot = ((size_t)s * chunks + blockIdx.x) * c + ch;
-  work[slot] = cnt;
-  work[plane + slot] = a;
-  work[2 * plane + slot] = b;
+  fold_lanes(red, lanes, width, NA, kThreads * VEC);
 }
 
-template <typename T, bool kOnePass>
-__global__ void __launch_bounds__(kTileC * kLanes)
-    in_apply(const T* __restrict__ x, const float* __restrict__ gamma,
-             const float* __restrict__ beta, const float* __restrict__ work,
-             T* __restrict__ y, float* __restrict__ mean_out,
-             float* __restrict__ inv_out, int n, int hw, int c, int chunk,
-             int chunks, float eps, int relu) {
-  const int cx = threadIdx.x;
-  const int ly = threadIdx.y;
-  const int ch = blockIdx.y * kTileC + cx;
-  const int s = blockIdx.z;
+// The one-launch block's largest dynamic shared memory: two blocks fit an
+// SM's 228 KB.
+constexpr int kSmemLimit = 112 * 1024;
+constexpr int kMaxDevices = 64;
 
-  // finalize: each pixel lane merges every kLanes-th chunk partial
-  float cnt = 0.f, a = 0.f, b = 0.f;
-  if (ch < c) {
-    const size_t plane = (size_t)n * chunks * c;
-    for (int j = ly; j < chunks; j += kLanes) {
-      const size_t slot = ((size_t)s * chunks + j) * c + ch;
-      merge<kOnePass>(cnt, a, b, work[slot], work[plane + slot],
-                      work[2 * plane + slot]);
-    }
-  }
-  __shared__ float sh[3][kLanes][kTileC];
-  __shared__ float s_scale[kTileC];
-  __shared__ float s_shift[kTileC];
-  sh[0][ly][cx] = cnt;
-  sh[1][ly][cx] = a;
-  sh[2][ly][cx] = b;
-  __syncthreads();
-  if (ly == 0 && ch < c) {
-    for (int l = 1; l < kLanes; ++l) {
-      merge<kOnePass>(cnt, a, b, sh[0][l][cx], sh[1][l][cx], sh[2][l][cx]);
-    }
-    const float fhw = (float)hw;
-    float mean, var;
-    if (kOnePass) {
-      mean = a / fhw;
-      var = fmaxf(b / fhw - mean * mean, 0.f);
-    } else {
-      mean = a;
-      var = b / fhw;
-    }
-    const float inv = rsqrtf(var + eps);
-    const float scale = inv * gamma[ch];
-    s_scale[cx] = scale;
-    s_shift[cx] = beta[ch] - mean * scale;
-    if (blockIdx.x == 0) {
-      mean_out[(size_t)s * c + ch] = mean;
-      inv_out[(size_t)s * c + ch] = inv;
-    }
-  }
-  __syncthreads();
-  if (ch >= c) return;
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
 
-  const float scale = s_scale[cx];
-  const float shift = s_shift[cx];
-  const int p0 = blockIdx.x * chunk;
-  const int p1 = min(p0 + chunk, hw);
-  const size_t base = (size_t)s * hw * c + ch;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+// Thread 0, after a barrier that follows the block's writes: adds one to
+// *count with release semantics, which orders those writes before it (the
+// barrier makes them the thread's own for the release), without waiting.
+__device__ __forceinline__ void publish(unsigned* count) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(count), "r"(1u)
+               : "memory");
+}
+
+// Thread 0: waits until *count reaches target (acquire loads, __nanosleep
+// back-off); then what every publisher wrote before publishing is visible
+// to the block after its next barrier.
+__device__ __forceinline__ void wait_count(const unsigned* count,
+                                           unsigned target) {
+  unsigned ns = 32;
+  while (ld_acquire(count) < target) {
+    __nanosleep(ns);
+    ns = ns < 256u ? 2 * ns : ns;
+  }
+}
+
+// Floats of the one-launch block's lane sums (merge_chunks needs 2 * kThreads).
+template <int VEC>
+__host__ __device__ constexpr int red_floats() {
+  return kThreads * (VEC > 2 ? VEC : 2);
+}
+
+// The one-launch block's dynamic shared memory: its chunk (rounded up to 16
+// bytes), the lane sums, and each channel's (scale, shift). ops/cuda_norm.py::
+// fwd_smem_bytes is the same formula.
+__host__ __device__ inline size_t chunk_smem_bytes(int chunk, int c,
+                                                   int itemsize) {
+  return ((size_t)chunk * c * itemsize + 15) / 16 * 16;
+}
+
+template <typename T, int VEC>
+size_t resident_smem(int chunk, int c) {
+  return chunk_smem_bytes(chunk, c, sizeof(T)) +
+         sizeof(float) * (red_floats<VEC>() + 2 * (size_t)c);
+}
+
+// Merges one sample's chunk partials part_s (chunks, 2, c) for the channels
+// [c0, c1) and writes their mean, inv, scale (ss_s[ch]) and shift
+// (ss_s[c + ch]). Thread t takes channel t % width of a group of at most
+// 256 and chunk lane t / width; a lane sums its chunks j = lane, lane +
+// lanes, ... in order, about K = chunk 0's mean (n_j d and M2_j + n_j d^2,
+// d = mean_j - K; one-pass: plain sums), kBatch chunks' loads in flight at
+// once, and the lanes fold in a fixed tree. red holds 2 * kThreads floats.
+template <bool kOnePass>
+__device__ __forceinline__ void merge_chunks(
+    const float* part_s, float* red, int c0, int c1, int c, int hw, int chunk,
+    int chunks, float eps, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float* mean_s, float* inv_s, float* ss_s) {
+  constexpr int kBatch = 8;
+  for (int g0 = c0; g0 < c1; g0 += kThreads) {
+    const int width = min(c1 - g0, kThreads);
+    const int lanes = kThreads / width;
+    const int lane = threadIdx.x / width;
+    const int ch = g0 + threadIdx.x % width;
+    // every load of the group goes out before the first is used
+    const float ga = gamma[ch];
+    const float be = beta[ch];
+    const float k = kOnePass ? 0.f : __ldcg(part_s + ch);
+    float s1 = 0.f, s2 = 0.f;
+    for (int j0 = lane; lane < lanes && j0 < chunks; j0 += kBatch * lanes) {
+      float a[kBatch], b[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = j0 + u * lanes;
+        a[u] = j < chunks ? __ldcg(part_s + (size_t)j * 2 * c + ch) : 0.f;
+        b[u] = j < chunks ? __ldcg(part_s + (size_t)j * 2 * c + c + ch) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = j0 + u * lanes;
+        if (j >= chunks) break;
+        if (kOnePass) {
+          s1 += a[u];
+          s2 += b[u];
+        } else {
+          const float nj = (float)min(chunk, hw - j * chunk);
+          const float d = a[u] - k;
+          s1 = fmaf(nj, d, s1);
+          s2 += fmaf(nj * d, d, b[u]);
+        }
+      }
+    }
+    float sums[2][1] = {{s1}, {s2}};
+    lane_sum<1, 2>(red, sums, width);
+    if (threadIdx.x < width) {
+      s1 = red[threadIdx.x];
+      s2 = red[kThreads + threadIdx.x];
+      const float fhw = (float)hw;
+      float mean, var;
+      if (kOnePass) {
+        mean = s1 / fhw;
+        var = fmaxf(s2 / fhw - mean * mean, 0.f);
+      } else {
+        const float dm = s1 / fhw;
+        mean = k + dm;
+        var = fmaxf(s2 - s1 * dm, 0.f) / fhw;
+      }
+      const float inv = rsqrtf(var + eps);
+      const float scale = inv * ga;
+      mean_s[ch] = mean;
+      inv_s[ch] = inv;
+      ss_s[ch] = scale;
+      ss_s[c + ch] = be - mean * scale;
+    }
+    __syncthreads();
+  }
+}
+
+// y = x * scale + shift (then the ReLU) over one chunk of np pixels, from
+// src (x in device memory, or the block's copy in shared memory) to dst;
+// cst holds each channel's scale, then each channel's shift.
+template <typename T, int VEC>
+__device__ __forceinline__ void apply_chunk(const T* src, T* __restrict__ dst,
+                                            int np, int c, const float* cst,
+                                            int relu) {
+  for (int cv0 = 0; cv0 < c / VEC; cv0 += kThreads) {
+    const Group g = group<VEC>(c, cv0);
+    if (g.lane >= g.lanes) continue;
+    float sc[VEC], sh[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      sc[i] = cst[g.ch + i];
+      sh[i] = cst[c + g.ch + i];
+    }
 #pragma unroll 4
-  for (int p = p0 + ly; p < p1; p += kLanes) {
-    const size_t i = base + (size_t)p * c;
-    float v = to_f32(x[i]) * scale + shift;
-    if (relu) v = fmaxf(v, 0.f);
-    y[i] = from_f32<T>(v);
+    for (int p = g.lane; p < np; p += g.lanes) {
+      const size_t o = (size_t)p * c + g.ch;
+      float v[VEC];
+      load_pack<T, VEC>(src + o, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        v[i] = fmaf(v[i], sc[i], sh[i]);
+        if (relu) v[i] = fmaxf(v[i], 0.f);
+      }
+      store_pack<T, VEC>(dst + o, v);
+    }
   }
 }
 
-template <typename T, bool kOnePass>
-cudaError_t launch(const void* x, const float* gamma, const float* beta,
-                   void* y, float* mean, float* inv, float* work, int n,
-                   int hw, int c, int chunk, int chunks, float eps, int relu,
-                   cudaStream_t stream) {
-  const dim3 block(kTileC, kLanes);
-  const dim3 grid(chunks, (c + kTileC - 1) / kTileC, n);
-  in_stats_partial<T, kOnePass><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), work, n, hw, c, chunk, chunks);
-  const cudaError_t err = cudaGetLastError();
+// Launch 1 of the two-launch kernel: block (chunk j, sample s) writes the
+// chunk's per-channel (mean, M2), one-pass (sum, sum of squares), to
+// part[s][j][0 | 1][c]. Sums are shifted by K, the chunk's first pixel, so
+// that M2 = S2 - S1^2 / n loses nothing to cancellation near the mean. The
+// sample's last block to publish merges all its partials into mean, inv
+// and ss[s] = (scale, shift).
+template <typename T, int VEC, bool kOnePass>
+__global__ void __launch_bounds__(kThreads)
+    in_fwd_partial(const T* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float* __restrict__ mean_out,
+                   float* __restrict__ inv_out, float* __restrict__ part,
+                   float* __restrict__ ss, unsigned* __restrict__ counters,
+                   int hw, int c, int chunk, int chunks, float eps) {
+  // two lane-sum arrays, which merge_chunks takes as one of 2 * kThreads
+  __shared__ __align__(16) float red[2 * kThreads * VEC];
+  __shared__ int s_last;
+  const int s = blockIdx.y;
+  const int j = blockIdx.x;
+  const int p0 = j * chunk;
+  const int np = min(chunk, hw - p0);
+  const T* xc = x + ((size_t)s * hw + p0) * c;
+  float* pm = part + ((size_t)s * chunks + j) * 2 * c;
+  for (int cv0 = 0; cv0 < c / VEC; cv0 += kThreads) {
+    const Group g = group<VEC>(c, cv0);
+    float k[VEC], ab[2][VEC];  // sums of d and of d * d
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) k[i] = ab[0][i] = ab[1][i] = 0.f;
+    if (g.lane < g.lanes) {
+      if (!kOnePass) load_pack<T, VEC>(xc + g.ch, k);
+#pragma unroll 4
+      for (int p = g.lane; p < np; p += g.lanes) {
+        float v[VEC];
+        load_pack<T, VEC>(xc + (size_t)p * c + g.ch, v);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float d = v[i] - k[i];
+          ab[0][i] += d;
+          ab[1][i] = fmaf(d, d, ab[1][i]);
+        }
+      }
+    }
+    lane_sum<VEC, 2>(red, ab, g.width / VEC);
+    for (int kk = threadIdx.x; kk < g.width; kk += kThreads) {
+      const float s1 = red[kk];
+      const float s2 = red[kThreads * VEC + kk];
+      const int ch = cv0 * VEC + kk;
+      if (kOnePass) {
+        pm[ch] = s1;
+        pm[c + ch] = s2;
+      } else {
+        const float dm = s1 / (float)np;
+        pm[ch] = to_f32(xc[ch]) + dm;
+        pm[c + ch] = fmaxf(s2 - s1 * dm, 0.f);
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(counters + 1 + s, 1u) == (unsigned)(chunks - 1);
+    if (s_last) __threadfence();
+  }
+  __syncthreads();
+  if (s_last) {
+    merge_chunks<kOnePass>(part + (size_t)s * chunks * 2 * c, red, 0, c, c, hw,
+                           chunk, chunks, eps, gamma, beta,
+                           mean_out + (size_t)s * c, inv_out + (size_t)s * c,
+                           ss + (size_t)s * 2 * c);
+  }
+}
+
+// Launch 2 of the two-launch kernel: block (chunk j, sample s).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    in_fwd_apply(const T* __restrict__ x, const float* __restrict__ ss,
+                 T* __restrict__ y, int hw, int c, int chunk, int relu) {
+  const int s = blockIdx.y;
+  const int p0 = blockIdx.x * chunk;
+  const size_t off = ((size_t)s * hw + p0) * c;
+  apply_chunk<T, VEC>(x + off, y + off, min(chunk, hw - p0), c,
+                      ss + (size_t)s * 2 * c, relu);
+}
+
+// The one-launch kernel (steps 1-5 in the header). part: (n, chunks, 2, c)
+// chunk partials; ss: (n, 2, c) each sample's (scale, shift); counters:
+// [ticket, published (n), merged (n)], zero at launch. At most 128
+// registers a thread, so that two blocks fit an SM.
+template <typename T, int VEC, bool kOnePass>
+__global__ void __launch_bounds__(kThreads, 2)
+    in_fwd_resident(const T* __restrict__ x, const float* __restrict__ gamma,
+                    const float* __restrict__ beta, T* __restrict__ y,
+                    float* __restrict__ mean_out, float* __restrict__ inv_out,
+                    float* __restrict__ part, float* __restrict__ ss,
+                    unsigned* __restrict__ counters, int n, int hw, int c,
+                    int chunk, int chunks, float eps, int relu) {
+  extern __shared__ __align__(16) unsigned char resident_smem_raw[];
+  T* xs = reinterpret_cast<T*>(resident_smem_raw);
+  float* red = reinterpret_cast<float*>(
+      resident_smem_raw + chunk_smem_bytes(chunk, c, sizeof(T)));
+  float* cst = red + red_floats<VEC>();
+  __shared__ unsigned s_ticket;
+  const int tid = threadIdx.x;
+
+  // 1. ticket -> (sample, chunk)
+  if (tid == 0) s_ticket = atomicAdd(counters, 1u);
+  __syncthreads();
+  const int s = (int)(s_ticket / (unsigned)chunks);
+  const int j = (int)(s_ticket % (unsigned)chunks);
+  const int p0 = j * chunk;
+  const int np = min(chunk, hw - p0);
+  const size_t off = ((size_t)s * hw + p0) * c;
+
+  // 2. the chunk into shared memory
+  if constexpr (VEC > 1) {
+    for (int i = tid * VEC; i < np * c; i += kThreads * VEC) {
+      cp_async16(xs + i, x + off + i);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+  } else {
+    for (int i = tid; i < np * c; i += kThreads) xs[i] = x[off + i];
+  }
+  __syncthreads();
+
+  // 3. the chunk's statistics
+  float* pm = part + ((size_t)s * chunks + j) * 2 * c;
+  for (int cv0 = 0; cv0 < c / VEC; cv0 += kThreads) {
+    const Group g = group<VEC>(c, cv0);
+    const int base = cv0 * VEC;
+    float a[1][VEC], b[1][VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) a[0][i] = b[0][i] = 0.f;
+    if (g.lane < g.lanes) {
+#pragma unroll 4
+      for (int p = g.lane; p < np; p += g.lanes) {
+        float v[VEC];
+        load_pack<T, VEC>(xs + p * c + g.ch, v);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          a[0][i] += v[i];
+          if (kOnePass) b[0][i] = fmaf(v[i], v[i], b[0][i]);
+        }
+      }
+    }
+    lane_sum<VEC, 1>(red, a, g.width / VEC);
+    for (int kk = tid; kk < g.width; kk += kThreads) {
+      const float v = kOnePass ? red[kk] : red[kk] / (float)np;
+      pm[base + kk] = v;
+      cst[base + kk] = v;
+    }
+    __syncthreads();
+    if (!kOnePass && g.lane < g.lanes) {
+      float m[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) m[i] = cst[g.ch + i];
+#pragma unroll 4
+      for (int p = g.lane; p < np; p += g.lanes) {
+        float v[VEC];
+        load_pack<T, VEC>(xs + p * c + g.ch, v);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float d = v[i] - m[i];
+          b[0][i] = fmaf(d, d, b[0][i]);
+        }
+      }
+    }
+    lane_sum<VEC, 1>(red, b, g.width / VEC);
+    for (int kk = tid; kk < g.width; kk += kThreads) pm[c + base + kk] = red[kk];
+    __syncthreads();
+  }
+
+  // 4. hand-off within the sample: wait until every block has published,
+  // merge this block's slice of the channels, wait until every slice is in
+  float* ss_s = ss + (size_t)s * 2 * c;
+  if (tid == 0) {
+    unsigned* published = counters + 1 + s;
+    publish(published);
+    wait_count(published, (unsigned)chunks);
+  }
+  __syncthreads();
+  // slices of a power-of-two width, for lane_sum's shuffles
+  int per = 1;
+  while (per * chunks < c) per *= 2;
+  const int c0 = min(c, j * per);
+  merge_chunks<kOnePass>(part + (size_t)s * chunks * 2 * c, red, c0,
+                         min(c, c0 + per), c, hw, chunk, chunks, eps, gamma,
+                         beta, mean_out + (size_t)s * c,
+                         inv_out + (size_t)s * c, ss_s);
+  __syncthreads();
+  if (tid == 0) {
+    unsigned* merged = counters + 1 + n + s;
+    publish(merged);
+    wait_count(merged, (unsigned)chunks);
+  }
+  __syncthreads();
+  for (int k = tid; k < 2 * c; k += kThreads) cst[k] = __ldcg(ss_s + k);
+  __syncthreads();
+
+  // 5. y from the shared copy
+  apply_chunk<T, VEC>(xs, y + off, np, c, cst, relu);
+}
+
+// The arguments of one forward call.
+struct FwdArgs {
+  const void* x;
+  const float* gamma;
+  const float* beta;
+  void* y;
+  float* mean;
+  float* inv;
+  float* work;
+  unsigned* counters;
+  int n, hw, c, chunk, chunks;
+  float eps;
+  int relu, onepass, is_bf16, vec, resident;
+  cudaStream_t stream;
+};
+
+// The ticket, arrival and flag counters to 0, on the kernel's stream.
+cudaError_t zero_counters(const FwdArgs& a) {
+  return cudaMemsetAsync(a.counters, 0, (1 + 2 * (size_t)a.n) * sizeof(unsigned),
+                         a.stream);
+}
+
+template <typename T, int VEC, bool kOnePass>
+cudaError_t launch_two(const FwdArgs& a) {
+  const dim3 grid(a.chunks, a.n);
+  const T* x = static_cast<const T*>(a.x);
+  float* ss = a.work + (size_t)a.n * a.chunks * 2 * a.c;
+  cudaError_t err = zero_counters(a);
   if (err != cudaSuccess) return err;
-  in_apply<T, kOnePass><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), gamma, beta, work, static_cast<T*>(y), mean,
-      inv, n, hw, c, chunk, chunks, eps, relu);
+  in_fwd_partial<T, VEC, kOnePass><<<grid, kThreads, 0, a.stream>>>(
+          x, a.gamma, a.beta, a.mean, a.inv, a.work, ss, a.counters, a.hw, a.c,
+          a.chunk, a.chunks, a.eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  in_fwd_apply<T, VEC><<<grid, kThreads, 0, a.stream>>>(
+      x, ss, static_cast<T*>(a.y), a.hw, a.c, a.chunk, a.relu);
   return cudaGetLastError();
+}
+
+// Blocks of in_fwd_resident<T, VEC, kOnePass> the current device holds at
+// once at kSmemLimit bytes of shared memory: (blocks per SM, SMs), asked of
+// the card once per device (which also raises the kernel's shared-memory
+// limit there).
+template <typename T, int VEC, bool kOnePass>
+cudaError_t resident_capacity(int* per_sm, int* sms) {
+  static std::mutex lock;
+  static int cached[kMaxDevices][2];  // blocks per SM + 1 (0: not asked), SMs
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> guard(lock);
+  if (cached[dev][0] == 0) {
+    const auto kernel = in_fwd_resident<T, VEC, kOnePass>;
+    int blocks = 0, count = 0;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, kThreads, kSmemLimit);
+    }
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return err;
+    cached[dev][0] = blocks + 1;
+    cached[dev][1] = count;
+  }
+  *per_sm = cached[dev][0] - 1;
+  *sms = cached[dev][1];
+  return cudaSuccess;
+}
+
+template <typename T, int VEC, bool kOnePass>
+cudaError_t launch_resident(const FwdArgs& a) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = resident_capacity<T, VEC, kOnePass>(&per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  const size_t smem = resident_smem<T, VEC>(a.chunk, a.c);
+  // a larger G could wait forever for a block that never starts
+  if (smem > (size_t)kSmemLimit || a.chunks > per_sm * sms) {
+    return cudaErrorInvalidValue;
+  }
+  err = zero_counters(a);
+  if (err != cudaSuccess) return err;
+  float* ss = a.work + (size_t)a.n * a.chunks * 2 * a.c;
+  in_fwd_resident<T, VEC, kOnePass>
+      <<<a.n * a.chunks, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.x), a.gamma, a.beta, static_cast<T*>(a.y), a.mean,
+      a.inv, a.work, ss, a.counters, a.n, a.hw, a.c, a.chunk, a.chunks, a.eps,
+      a.relu);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC, bool kOnePass>
+struct FwdOp {
+  static cudaError_t run(const FwdArgs& a) {
+    return a.resident ? launch_resident<T, VEC, kOnePass>(a)
+                      : launch_two<T, VEC, kOnePass>(a);
+  }
+};
+
+template <typename T, int VEC, bool kOnePass>
+struct CapacityOp {
+  static cudaError_t run(int* per_sm, int* sms) {
+    return resident_capacity<T, VEC, kOnePass>(per_sm, sms);
+  }
+};
+
+// Op<T, VEC, kOnePass>::run(args...) for the variant named at run time:
+// f32 or bf16, 16-byte packs or single elements, stable or one-pass.
+template <template <typename, int, bool> class Op, typename T, typename... Args>
+cudaError_t dispatch_type(int vec, int onepass, Args... args) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec == kVec) {
+    return onepass ? Op<T, kVec, true>::run(args...)
+                   : Op<T, kVec, false>::run(args...);
+  }
+  if (vec == 1) {
+    return onepass ? Op<T, 1, true>::run(args...) : Op<T, 1, false>::run(args...);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <template <typename, int, bool> class Op, typename... Args>
+cudaError_t dispatch(int is_bf16, int vec, int onepass, Args... args) {
+  return is_bf16 ? dispatch_type<Op, __nv_bfloat16>(vec, onepass, args...)
+                 : dispatch_type<Op, float>(vec, onepass, args...);
 }
 
 // xhat and the ReLU-gated gradient of one element, each operation rounded
@@ -380,31 +883,42 @@ cudaError_t launch_bwd(const void* x, const void* g, const float* mean,
 }  // namespace
 
 // x, y: (n, hw, c) NHWC, f32 or bf16 (is_bf16). gamma, beta: (c,) f32.
-// mean, inv: (n, c) f32 out. work: (3, n, chunks, c) f32 scratch.
-// chunks = ceil(hw / chunk). Launches on ``stream``; returns the CUDA error
-// code of the launches (0 on success). Allocates nothing.
+// mean, inv: (n, c) f32 out. work: f32 scratch of (n, chunks, 2, c) chunk
+// partials + (n, 2, c) scale and shift. counters: 1 + 2n unsigned ints,
+// zeroed here.
+// chunk: pixels per block; chunks = ceil(hw / chunk). vec: channels per
+// access, 16 / itemsize (c * itemsize a multiple of 16, x and y 16-byte
+// aligned) or 1. resident: the one-launch kernel, which needs chunks <=
+// the capacity (fnst_instance_norm_fwd_capacity); else the two-launch
+// kernel. Launches on ``stream``; returns the CUDA error code (0 on
+// success). Allocates nothing.
 extern "C" int fnst_instance_norm_fwd(const void* x, const void* gamma,
                                       const void* beta, void* y, void* mean,
-                                      void* inv, void* work, int n, int hw,
-                                      int c, int chunk, int chunks, float eps,
-                                      int relu, int onepass, int is_bf16,
-                                      void* stream) {
-  const float* g = static_cast<const float*>(gamma);
-  const float* b = static_cast<const float*>(beta);
-  float* m = static_cast<float*>(mean);
-  float* iv = static_cast<float*>(inv);
-  float* w = static_cast<float*>(work);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return onepass ? launch<__nv_bfloat16, true>(x, g, b, y, m, iv, w, n, hw,
-                                                 c, chunk, chunks, eps, relu, st)
-                   : launch<__nv_bfloat16, false>(x, g, b, y, m, iv, w, n, hw,
-                                                  c, chunk, chunks, eps, relu, st);
+                                      void* inv, void* work, void* counters,
+                                      int n, int hw, int c, int chunk,
+                                      int chunks, float eps, int relu,
+                                      int onepass, int is_bf16, int vec,
+                                      int resident, void* stream) {
+  if (n < 1 || hw < 1 || c < 1 || chunk < 1 || c % vec != 0 ||
+      chunks != (hw + chunk - 1) / chunk) {
+    return cudaErrorInvalidValue;
   }
-  return onepass ? launch<float, true>(x, g, b, y, m, iv, w, n, hw, c, chunk,
-                                       chunks, eps, relu, st)
-                 : launch<float, false>(x, g, b, y, m, iv, w, n, hw, c, chunk,
-                                        chunks, eps, relu, st);
+  const FwdArgs a{x, static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), y,
+                  static_cast<float*>(mean), static_cast<float*>(inv),
+                  static_cast<float*>(work), static_cast<unsigned*>(counters),
+                  n, hw, c, chunk, chunks, eps, relu, onepass, is_bf16, vec,
+                  resident, static_cast<cudaStream_t>(stream)};
+  return dispatch<FwdOp>(is_bf16, vec, onepass, a);
+}
+
+// Blocks of the one-launch kernel the current device holds at once, for
+// the variant (is_bf16, vec, onepass): blocks per SM at its largest shared
+// memory, and the SM count. Returns the CUDA error code (0 on success).
+extern "C" int fnst_instance_norm_fwd_capacity(int is_bf16, int vec,
+                                               int onepass, int* blocks_per_sm,
+                                               int* sms) {
+  return dispatch<CapacityOp>(is_bf16, vec, onepass, blocks_per_sm, sms);
 }
 
 // x, g, dx: (n, hw, c) NHWC in one dtype, f32 or bf16 (is_bf16). mean, inv:

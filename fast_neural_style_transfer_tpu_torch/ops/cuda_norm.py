@@ -1,13 +1,14 @@
 """Instance norm on the card: the wrappers of ``csrc/instance_norm.cu``
-(forward and backward), their plain PyTorch versions, and the autograd
-Function that joins them.
+(forward and backward), their plain PyTorch versions, the forward's
+planner, and the autograd Function that joins them.
 
 Replaces the TPU kernels ``fast_neural_style_transfer_tpu/ops/pallas_norm.py::
 _in_fwd_kernel`` and ``_in_bwd_kernel``. Both kernels are bound by bytes
 (forward: read x, write y; backward: read x and g, write dx); the source
-file states the bounds and the two-launch design that splits H*W across
-blocks, so that every IN site of the stylizer runs on the kernels at every
-batch size, with no size gate and no fallback.
+file states the bounds and the designs. The forward has two kernels, and
+``plan_fwd`` picks one by shape (its docstring states the rule); the
+backward splits H*W over blocks in two launches. Every IN site of the
+stylizer runs on the kernels at every batch size, with no fallback.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory format, i.e.
 physically NHWC, the layout the TPU kernels saw. ``mean`` and ``inv`` come
@@ -17,35 +18,44 @@ back as (N, C) float32, and so do the per-sample ``dgamma`` and ``dbeta``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from fast_neural_style_transfer_tpu_torch.ops import _build
 
-_TILE_C = 32  # channels per block (kTileC in the source)
-_MIN_CHUNK = 256  # fewest pixels a block reduces
-_MAX_CHUNKS = 64  # most chunk partials each apply block re-reads
-_TARGET_BLOCKS = 4 * 132  # about four blocks on each of the H100's 132 SMs
+_TILE_C = 32  # backward: channels per block (kTileC in the source)
+_MIN_CHUNK = 256  # backward: fewest pixels a block reduces
+_MAX_CHUNKS = 64  # backward: most chunk partials each apply block re-reads
+_TARGET_BLOCKS = 4 * 132  # backward: about four blocks on each of the H100's 132 SMs
+
+_FWD_THREADS = 256  # kThreads in the source
+# two-launch: most (chunk, channel) partials of a sample, all of which the
+# sample's last block merges
+_FWD_PARTIALS = 8192
 
 _fns = None
+_capacities: Dict[tuple, Tuple[int, int]] = {}
 
 
 def _kernels():
-    """(forward, backward) entry points of the built library."""
+    """(forward, backward, forward capacity) entry points of the library."""
     global _fns
     if _fns is None:
         lib = _build.load("instance_norm")
         fwd = lib.fnst_instance_norm_fwd
-        fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                        + [ctypes.c_float] + [ctypes.c_int] * 3
+        fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                        + [ctypes.c_float] + [ctypes.c_int] * 5
                         + [ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         bwd = lib.fnst_instance_norm_bwd
         bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
-        _fns = (fwd, bwd)
+        cap = lib.fnst_instance_norm_fwd_capacity
+        cap.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        cap.restype = ctypes.c_int
+        _fns = (fwd, bwd, cap)
     return _fns
 
 
@@ -83,10 +93,94 @@ def instance_norm_fwd_reference(
 
 
 def _num_chunks(n: int, hw: int, tiles: int) -> int:
-    """Pixel chunks per (sample, channel tile): enough blocks to fill the
-    card, at least _MIN_CHUNK pixels each, at most _MAX_CHUNKS."""
+    """Backward: pixel chunks per (sample, channel tile): enough blocks to
+    fill the card, at least _MIN_CHUNK pixels each, at most _MAX_CHUNKS."""
     want = -(-_TARGET_BLOCKS // (n * tiles))
     return max(1, min(want, _MAX_CHUNKS, hw // _MIN_CHUNK))
+
+
+# one-launch: most bytes of x a block holds, so that two blocks share an SM
+# (chip_smoke.py's in_fwd_budgets phase times 64, 80 and 96 KB)
+_FWD_CHUNK_BYTES = 80 * 1024
+_FWD_SMEM_LIMIT = 112 * 1024  # kSmemLimit: two such blocks fit an SM's 228 KB
+
+
+class FwdPlan(NamedTuple):
+    """How one ``instance_norm_fwd`` call runs (``plan_fwd``)."""
+
+    route: str  # "one_launch" or "two_launch"
+    vec: int  # channels per access: a 16-byte pack, or 1
+    chunk: int  # pixels per block
+    chunks: int  # blocks per sample (G)
+    blocks: int  # n * chunks
+    chunk_bytes: int  # bytes of x a block owns (its largest chunk)
+    smem_bytes: int  # dynamic shared memory of a one-launch block, else 0
+    capacity: int  # one-launch blocks the card holds at once
+
+
+def fwd_vec(c: int, itemsize: int, ptr: int) -> int:
+    """Channels per access: a 16-byte pack where a pixel row is a whole
+    number of packs and x is 16-byte aligned, else one element."""
+    return 16 // itemsize if (c * itemsize) % 16 == 0 and ptr % 16 == 0 else 1
+
+
+def fwd_smem_bytes(chunk: int, c: int, itemsize: int, vec: int) -> int:
+    """Dynamic shared memory of a one-launch block, as the source sizes it:
+    the chunk (rounded up to 16 bytes), the lane sums and each channel's
+    (scale, shift)."""
+    return (-(-chunk * c * itemsize // 16) * 16
+            + 4 * _FWD_THREADS * max(vec, 2) + 8 * c)
+
+
+def plan_fwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
+             blocks_per_sm: int, one_launch: bool = True) -> FwdPlan:
+    """The forward's kernel and chunks for n samples of hw pixels x c
+    channels, on a card of ``sms`` SMs that holds ``blocks_per_sm``
+    one-launch blocks each (``capacity`` = their product).
+
+    One launch: chunks of whole pixel rows, as many pixels as fit
+    _FWD_CHUNK_BYTES (and the block's shared memory _FWD_SMEM_LIMIT), cut
+    smaller, down to one pixel, where the grid would hold fewer than two
+    blocks per SM (or the capacity, if less). Every chunk of a sample has to
+    be resident at once, so this route is taken iff a sample's chunks G <=
+    capacity: a slab up to ~capacity * 80 KB (21 MB on an H100).
+    Otherwise (a larger slab, a pixel row above the budget, or
+    ``one_launch=False``) two launches: G for about four blocks per SM, at
+    most _FWD_PARTIALS / c chunks, at least one pixel each."""
+    row = c * itemsize
+    capacity = blocks_per_sm * sms
+    fixed = fwd_smem_bytes(0, c, itemsize, vec)
+    most = min(_FWD_CHUNK_BYTES, _FWD_SMEM_LIMIT - fixed - 15) // row
+    if one_launch and most >= 1:
+        g = -(-hw // most)
+        fill = min(2 * sms, capacity)
+        if n * g < fill:
+            g = min(hw, -(-fill // n))
+        chunk = -(-hw // g)
+        g = -(-hw // chunk)
+        if g <= capacity:
+            return FwdPlan("one_launch", vec, chunk, g, n * g, chunk * row,
+                           fwd_smem_bytes(chunk, c, itemsize, vec), capacity)
+    g = max(1, min(hw, -(-4 * sms // n), _FWD_PARTIALS // c))
+    chunk = -(-hw // g)
+    g = -(-hw // chunk)
+    return FwdPlan("two_launch", vec, chunk, g, n * g, chunk * row, 0, capacity)
+
+
+def _capacity(device: torch.device, is_bf16: bool, vec: int,
+              onepass: bool) -> Tuple[int, int]:
+    """(blocks per SM, SMs) of the one-launch kernel on ``device``, asked of
+    the card once per device and kernel variant."""
+    key = (device.index, is_bf16, vec, onepass)
+    if key not in _capacities:
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _kernels()[2](int(is_bf16), vec, int(onepass),
+                                ctypes.byref(per_sm), ctypes.byref(sms))
+        if err != 0:
+            raise RuntimeError(f"instance-norm capacity query failed: CUDA error {err}")
+        _capacities[key] = (per_sm.value, sms.value)
+    return _capacities[key]
 
 
 def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> None:
@@ -118,38 +212,64 @@ def instance_norm_fwd(
     """Instance norm + affine (+ReLU) -> (y, mean, inv).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    or raises: wrong dtype or layout, a failed build or a failed launch.
-    Gradients go through ``InstanceNormFn``."""
+    that ``plan_fwd`` picks, or raises: wrong dtype or layout, a failed
+    build or a failed launch. Gradients go through ``InstanceNormFn``."""
     if x.device.type == "cpu":
         return instance_norm_fwd_reference(
             x, gamma, beta, eps=eps, relu=relu, onepass=onepass)
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm_fwd runs on cuda or cpu, not {x.device}")
     _check(x, gamma, beta)
+    return _launch_fwd(x, gamma, beta, fwd_plan(x, onepass=onepass), eps=eps,
+                       relu=relu, onepass=onepass)
+
+
+def fwd_plan(x: torch.Tensor, *, onepass: bool = False,
+             one_launch: bool = True) -> FwdPlan:
+    """The plan ``instance_norm_fwd`` follows for the CUDA tensor x (with
+    ``one_launch=False``: the two-launch kernel's plan, for timing it)."""
     n, c, h, w = x.shape
-    hw = h * w
-    tiles = -(-c // _TILE_C)
-    chunk = -(-hw // _num_chunks(n, hw, tiles))
-    chunks = -(-hw // chunk)
+    is_bf16 = x.dtype == torch.bfloat16
+    vec = fwd_vec(c, x.element_size(), x.data_ptr())
+    per_sm, sms = _capacity(x.device, is_bf16, vec, onepass)
+    return plan_fwd(n, h * w, c, x.element_size(), vec, sms=sms,
+                    blocks_per_sm=per_sm, one_launch=one_launch)
+
+
+def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                plan: FwdPlan, *, eps: float, relu: bool,
+                onepass: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One forward call on the card as ``plan`` says (x already checked)."""
+    n, c, h, w = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
     mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
     inv = torch.empty_like(mean)
-    work = torch.empty((3, n, chunks, c), dtype=torch.float32, device=x.device)
+    # chunk partials (n, G, 2, c), then each sample's (scale, shift) (n, 2, c)
+    work = torch.empty((n * plan.chunks + n) * 2 * c, dtype=torch.float32,
+                       device=x.device)
+    # the ticket counter, then per sample its arrivals and its flag (the C
+    # call zeroes them)
+    counters = torch.empty(1 + 2 * n, dtype=torch.int32, device=x.device)
     g = gamma.detach().to(torch.float32).contiguous()
     b = beta.detach().to(torch.float32).contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernels()[0](
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
         mean.data_ptr(), inv.data_ptr(), work.data_ptr(),
-        n, hw, c, chunk, chunks, float(eps), int(relu), int(onepass),
-        int(x.dtype == torch.bfloat16), stream)
+        counters.data_ptr(), n, h * w, c, plan.chunk, plan.chunks, float(eps),
+        int(relu), int(onepass), int(x.dtype == torch.bfloat16), plan.vec,
+        int(plan.route == "one_launch"), stream)
     if err != 0:
-        raise RuntimeError(f"instance-norm kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"instance-norm kernel launch failed: CUDA error {err} "
+                           f"({plan})")
     instance_norm_fwd.launches += 1
+    instance_norm_fwd.launches_by_route[plan.route] += 1
     return y, mean, inv
 
 
+# calls that launched a forward kernel: in all, and by route
 instance_norm_fwd.launches = 0
+instance_norm_fwd.launches_by_route = {"one_launch": 0, "two_launch": 0}
 
 
 def instance_norm_bwd_reference(

@@ -199,62 +199,99 @@ def test_luminance_transfer_and_ssim_match_jax():
     assert torch_ssim(s, c) == jax_ssim(s, c)
 
 
-def _merge(a, b, onepass):
-    """Chan et al. merge of moment triples (count, mean|sum, M2|sumsq), the
-    ``merge`` of csrc/instance_norm.cu, in float32."""
-    (na, aa, ba), (nb, ab, bb) = a, b
-    if onepass:
-        return na + nb, aa + ab, ba + bb
-    n = na + nb
-    d = ab - aa
-    f = np.where(nb == 0, np.float32(0), nb / np.where(n == 0, 1, n)).astype(np.float32)
-    return (n, (aa + d * f).astype(np.float32),
-            (ba + bb + d * d * na * f).astype(np.float32))
+_SMS = 132  # an H100's SMs, for the forward's planner
 
 
-def _emulate_kernel(x, gamma, beta, *, relu, onepass, eps=1e-5):
-    """numpy emulation of the CUDA kernel's two launches, with the wrapper's
-    chunking: per-lane Welford (or sums), lane merge, chunk partials, then
-    each lane merging every 8th partial and the lanes merged again."""
+def _fold(lanes):
+    """The kernels' fixed tree over lanes (axis 0, float32): lanes [half, L)
+    are added onto [0, L - half), half = ceil(L / 2), until one is left."""
+    v = np.array(lanes, np.float32)
+    n = v.shape[0]
+    while n > 1:
+        half = (n + 1) // 2
+        v[:n - half] = v[:n - half] + v[half:n]
+        n = half
+    return v[0]
+
+
+def _lane_sum(vals, slots):
+    """Sum over axis 1 as the kernels add (lane_sum, 256 threads a block of
+    slots x lanes): lane l takes rows l, l + lanes, ... in order (float32);
+    where slots is a power of two below 32, each warp's 32 / slots lanes
+    fold first, then the 8 warps' sums; else all lanes (empty ones are 0)
+    fold."""
+    lanes = 256 // slots
+    zero = np.zeros(vals.shape[:1] + vals.shape[2:], np.float32)
+    sums = [vals[:, lane::lanes].cumsum(axis=1, dtype=np.float32)[:, -1]
+            if lane < vals.shape[1] else zero for lane in range(lanes)]
+    if slots < 32 and slots & (slots - 1) == 0:
+        per_warp = 32 // slots
+        return _fold([_fold(sums[w * per_warp:(w + 1) * per_warp]) for w in range(8)])
+    return _fold(sums)
+
+
+def _emulate_kernel(x, gamma, beta, *, relu, onepass, route, eps=1e-5):
+    """numpy emulation of the CUDA forward's reduction (float32), with the
+    planner's chunks on a 132-SM card holding two one-launch blocks per SM:
+    per chunk, lane sums over the pixels (one launch: the chunk mean, then
+    the squared deviations about it; two launches: sums shifted by the
+    chunk's first pixel; one-pass: sums and sums of squares), then the
+    chunks merged about chunk 0's mean (merge_chunks: one launch, each
+    block j its slice of ceil(C / G) channels; two launches, all C at
+    once), lanes over the chunks folded in the kernels' tree. Pixel rows of
+    no more packs, and no more channels, than a block has threads."""
     n, h, w, c = x.shape
-    hw, lanes = h * w, 8
-    xs = x.reshape(n, hw, c).astype(np.float32)
-    chunks = cuda_norm._num_chunks(n, hw, -(-c // 32))
-    chunk = -(-hw // chunks)
-    chunks = -(-hw // chunk)
-    zero = np.zeros((n, c), np.float32)
-    partials = []
-    for j in range(chunks):
-        merged = (zero, zero, zero)
-        for ly in range(lanes):
-            cnt, a, b = zero.copy(), zero.copy(), zero.copy()
-            for p in range(j * chunk + ly, min((j + 1) * chunk, hw), lanes):
-                v = xs[:, p]
-                cnt = cnt + np.float32(1)
-                if onepass:
-                    a, b = a + v, b + v * v
-                else:
-                    d = v - a
-                    a = a + d / cnt
-                    b = b + d * (v - a)
-            merged = _merge(merged, (cnt, a, b), onepass)
-        partials.append(merged)
-    lane_stats = []
-    for ly in range(lanes):
-        acc = (zero, zero, zero)
-        for j in range(ly, chunks, lanes):
-            acc = _merge(acc, partials[j], onepass)
-        lane_stats.append(acc)
-    total = lane_stats[0]
-    for s in lane_stats[1:]:
-        total = _merge(total, s, onepass)
-    _, a, b = total
-    if onepass:
-        mean = a / np.float32(hw)
-        var = np.maximum(b / np.float32(hw) - mean * mean, 0)
+    hw, f32 = h * w, np.float32
+    xs = x.reshape(n, hw, c).astype(f32)
+    vec = cuda_norm.fwd_vec(c, 4, 0)
+    plan = cuda_norm.plan_fwd(n, hw, c, 4, vec, sms=_SMS,
+                              blocks_per_sm=2, one_launch=route == "one_launch")
+    assert plan.route == route
+    packs = c // vec
+    a_parts, b_parts, counts = [], [], []
+    for j in range(plan.chunks):
+        xc = xs[:, j * plan.chunk:(j + 1) * plan.chunk]
+        cnt = f32(xc.shape[1])
+        if onepass:
+            a, b = _lane_sum(xc, packs), _lane_sum(xc * xc, packs)
+        elif route == "one_launch":
+            a = _lane_sum(xc, packs) / cnt
+            b = _lane_sum(np.square(xc - a[:, None]), packs)
+        else:
+            d = xc - xc[:, :1]
+            s1, s2 = _lane_sum(d, packs), _lane_sum(d * d, packs)
+            dm = s1 / cnt
+            a, b = xc[:, 0] + dm, np.maximum(s2 - s1 * dm, 0)
+        a_parts.append(a)
+        b_parts.append(b)
+        counts.append(cnt)
+    a_parts, b_parts = np.stack(a_parts, 1), np.stack(b_parts, 1)
+    nj = np.asarray(counts, f32)[None, :, None]
+    if route == "one_launch":
+        per = 1  # a power of two
+        while per * plan.chunks < c:
+            per *= 2
+        slices = [(j * per, min(c, (j + 1) * per)) for j in range(plan.chunks) if j * per < c]
     else:
-        mean, var = a, b / np.float32(hw)
-    inv = (1 / np.sqrt(var + np.float32(eps))).astype(np.float32)
+        slices = [(0, c)]
+    mean, var = np.zeros((n, c), f32), np.zeros((n, c), f32)
+    fhw = f32(hw)
+    for c0, c1 in slices:
+        m_slots = c1 - c0  # the merge's slots: its channels
+        pa, pb = a_parts[:, :, c0:c1], b_parts[:, :, c0:c1]
+        if onepass:
+            s1, s2 = _lane_sum(pa, m_slots), _lane_sum(pb, m_slots)
+            mean[:, c0:c1] = s1 / fhw
+            var[:, c0:c1] = np.maximum(s2 / fhw - np.square(s1 / fhw), 0)
+        else:
+            k = pa[:, 0]
+            d = pa - k[:, None]
+            s1 = _lane_sum(nj * d, m_slots)
+            s2 = _lane_sum(pb + nj * d * d, m_slots)
+            dm = s1 / fhw
+            mean[:, c0:c1] = k + dm
+            var[:, c0:c1] = np.maximum(s2 - s1 * dm, 0) / fhw
+    inv = (1 / np.sqrt(var + f32(eps))).astype(f32)
     scale = inv * gamma
     y = xs * scale[:, None] + (beta - mean * scale)[:, None]
     if relu:
@@ -262,15 +299,16 @@ def _emulate_kernel(x, gamma, beta, *, relu, onepass, eps=1e-5):
     return y.reshape(x.shape), mean, inv
 
 
+@pytest.mark.parametrize("route", ["one_launch", "two_launch"])
 @pytest.mark.parametrize("onepass", [False, True])
 @pytest.mark.parametrize("shape", [(2, 32, 32, 40), (1, 30, 35, 64), (3, 4, 5, 8)])
-def test_kernel_reduction_emulation_matches_plain(shape, onepass):
-    """The kernel's chunked Welford / one-pass reduction and its merges,
-    emulated on the CPU, agree with the plain version (f32; sums taken in
-    another order, so 1e-5)."""
+def test_kernel_reduction_emulation_matches_plain(shape, onepass, route):
+    """The forward kernels' chunked reductions and their merges, emulated on
+    the CPU, agree with the plain version (f32; sums taken in another
+    order, so 1e-5)."""
     x, gamma, beta = _in_inputs(shape, seed=9)
     y_e, mean_e, inv_e = _emulate_kernel(x, gamma, beta, relu=True,
-                                         onepass=onepass)
+                                         onepass=onepass, route=route)
     y_r, mean_r, inv_r = cuda_norm.instance_norm_fwd_reference(
         to_nchw(x), torch.from_numpy(gamma), torch.from_numpy(beta),
         relu=True, onepass=onepass)
@@ -279,12 +317,71 @@ def test_kernel_reduction_emulation_matches_plain(shape, onepass):
     np.testing.assert_allclose(y_e, to_nhwc(y_r), rtol=1e-4, atol=1e-4)
 
 
+_SITE_HWC = [(128, 128, 64), (64, 64, 256), (256, 256, 32)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 8, 20])
+@pytest.mark.parametrize("hwc", _SITE_HWC)
+def test_fwd_plan_at_site_shapes(hwc, n, itemsize):
+    """Every IN site of the 256^2 paths takes the one-launch kernel, on a
+    132-SM card holding two of its blocks per SM: chunks of whole pixel
+    rows within the byte budget and the shared memory, G within the
+    capacity, chunks that cover H*W exactly, at least a block per SM."""
+    h, w, c = hwc
+    hw = h * w
+    plan = cuda_norm.plan_fwd(n, hw, c, itemsize, 16 // itemsize,
+                              sms=_SMS, blocks_per_sm=2)
+    assert plan.route == "one_launch"
+    assert plan.chunk_bytes == plan.chunk * c * itemsize <= cuda_norm._FWD_CHUNK_BYTES
+    assert plan.smem_bytes == cuda_norm.fwd_smem_bytes(plan.chunk, c, itemsize, plan.vec)
+    assert plan.smem_bytes <= cuda_norm._FWD_SMEM_LIMIT
+    assert 1 <= plan.chunks <= plan.capacity == 2 * _SMS
+    assert (plan.chunks - 1) * plan.chunk < hw <= plan.chunks * plan.chunk
+    assert plan.blocks == n * plan.chunks >= _SMS
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 8])
+def test_fwd_plan_routes_large_slabs_to_two_launches(n, itemsize):
+    """A 1024^2 x 32 slab (134 MB a sample in f32) has more chunks than the
+    card holds at once: the two-launch kernel, with chunks that cover H*W
+    and at most _FWD_PARTIALS partials a sample."""
+    hw, c = 1024 * 1024, 32
+    plan = cuda_norm.plan_fwd(n, hw, c, itemsize, 16 // itemsize,
+                              sms=_SMS, blocks_per_sm=2)
+    assert plan.route == "two_launch" and plan.smem_bytes == 0
+    assert -(-hw * c * itemsize // cuda_norm._FWD_CHUNK_BYTES) > plan.capacity
+    assert (plan.chunks - 1) * plan.chunk < hw <= plan.chunks * plan.chunk
+    assert plan.chunks * c <= cuda_norm._FWD_PARTIALS
+    assert plan.blocks >= _SMS
+
+
+def test_fwd_plan_rules():
+    """16-byte packs only where a pixel row is whole packs and x aligned;
+    a one-launch block never exceeds its shared memory (a pixel row above
+    the budget goes to two launches); ``one_launch=False`` and a card that
+    holds no one-launch block take two launches."""
+    assert cuda_norm.fwd_vec(32, 4, 256) == 4 and cuda_norm.fwd_vec(32, 2, 256) == 8
+    assert cuda_norm.fwd_vec(3, 4, 256) == 1 and cuda_norm.fwd_vec(32, 4, 8) == 1
+    plan = cuda_norm.plan_fwd(2, 50 * 70, 3, 4, 1, sms=132, blocks_per_sm=2)
+    assert plan.route == "one_launch" and plan.vec == 1
+    assert plan.smem_bytes <= cuda_norm._FWD_SMEM_LIMIT
+    wide = cuda_norm.plan_fwd(1, 64, 2048, 4, 4, sms=132, blocks_per_sm=2)
+    assert wide.route == "one_launch" and wide.smem_bytes <= cuda_norm._FWD_SMEM_LIMIT
+    for kw in ({"one_launch": False}, {}):
+        per_sm = 2 if kw else 0
+        plan = cuda_norm.plan_fwd(8, 4096, 256, 2, 8, sms=132, blocks_per_sm=per_sm, **kw)
+        assert plan.route == "two_launch"
+
+
 @pytest.mark.parametrize("hwc", [(128, 128, 64), (64, 64, 256), (256, 256, 32)])
 @pytest.mark.parametrize("n", [1, 8])
 def test_kernel_chunking_at_site_shapes(n, hwc):
-    """At every IN site shape of a 256^2 forward the wrapper's grid keeps
-    >= 256 pixels per block, <= 64 partials per (sample, tile), and covers
-    every pixel."""
+    """The IN backward's grid (``_num_chunks``; the forward has its own
+    planner, ``plan_fwd``): at every IN site shape of a 256^2 forward it
+    keeps >= 256 pixels per block, <= 64 partials per (sample, tile), and
+    covers every pixel."""
     h, w, c = hwc
     hw = h * w
     chunks = cuda_norm._num_chunks(n, hw, -(-c // 32))

@@ -90,9 +90,22 @@ def test_package_data_ships_kernel_sources():
         assert (PORT_DIR / "csrc" / src).is_file()
 
 
-# (N, H, W, C, relu): the IN sites of a 256^2 forward, at B=1
+# (N, H, W, C, relu): the IN sites of a 256^2 forward at B=1, two of them
+# at the training batch of 20 (all on the one-launch kernel), and a slab
+# larger than the card holds at once (the two-launch kernel)
 _SITES = [(1, 128, 128, 64, True), (1, 64, 64, 256, True),
-          (1, 64, 64, 256, False), (1, 256, 256, 32, True)]
+          (1, 64, 64, 256, False), (1, 256, 256, 32, True),
+          (20, 256, 256, 32, True), (20, 64, 64, 256, False),
+          (1, 1024, 1024, 32, True)]
+
+
+def _site_inputs(rng, n, h, w, c, dtype):
+    x = torch.from_numpy(
+        (rng.standard_normal((n, c, h, w)) * 2 + 0.5).astype(np.float32))
+    x = x.to("cuda", dtype).contiguous(memory_format=torch.channels_last)
+    g = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda()
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda()
+    return x, g, b
 
 
 @pytest.mark.gpu
@@ -105,11 +118,9 @@ def test_kernel_matches_plain_on_card(dtype, onepass):
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(0)
     for n, h, w, c, relu in _SITES:
-        x = torch.from_numpy(
-            (rng.standard_normal((n, c, h, w)) * 2 + 0.5).astype(np.float32))
-        x = x.to("cuda", dt).contiguous(memory_format=torch.channels_last)
-        g = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda()
-        b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda()
+        x, g, b = _site_inputs(rng, n, h, w, c, dt)
+        route = cuda_norm.fwd_plan(x, onepass=onepass).route
+        assert route == ("two_launch" if h == 1024 else "one_launch")
         with torch.inference_mode():
             y, mean, inv = cuda_norm.instance_norm_fwd(x, g, b, relu=relu,
                                                        onepass=onepass)
@@ -123,6 +134,25 @@ def test_kernel_matches_plain_on_card(dtype, onepass):
         torch.testing.assert_close(mean, mean_r, rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(inv, inv_r, rtol=1e-3 if onepass else 1e-4,
                                    atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("onepass", [False, True])
+def test_kernel_repeats_bit_for_bit_on_card(dtype, onepass):
+    """Both forward kernels merge in a fixed order: two calls give the same
+    bits of y, mean and inv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(3)
+    for n, h, w, c, relu in (_SITES[4], _SITES[6]):
+        x, g, b = _site_inputs(rng, n, h, w, c, getattr(torch, dtype))
+        with torch.inference_mode():
+            first = cuda_norm.instance_norm_fwd(x, g, b, relu=relu, onepass=onepass)
+            second = cuda_norm.instance_norm_fwd(x, g, b, relu=relu, onepass=onepass)
+        for a, b2 in zip(first, second):
+            ints = torch.int16 if a.element_size() == 2 else torch.int32
+            assert torch.equal(a.view(ints), b2.view(ints))
 
 
 # (N, H, W, C): the IN sites of a training step at B=2
