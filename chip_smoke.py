@@ -6,18 +6,19 @@
 Drives ``fast_neural_style_transfer_tpu_torch`` only (no JAX). It builds
 the CUDA kernels from ``csrc/`` with nvcc (both sources at once), and holds
 each kernel against its plain PyTorch version at the shapes of the main
-paths (the IN forward's two kernels each where its planner routes: the
-one-launch kernel at every 256x256 site, the two-launch kernel at a slab
-larger than the card holds at once). Then it drives the two main paths,
-each with the kernel-launch counters (the IN forward's also by route) set
-to 0 just before and read just after:
+paths (the IN forward's and backward's two kernels each where its planner
+routes: the one-launch kernel at every 256x256 site, the two-launch kernel
+at a slab larger than the card holds at once). Then it drives the two main
+paths, each with the kernel-launch counters (the IN kernels' also by
+route) set to 0 just before and read just after:
 - serving (slice 1): the in-repo trained checkpoint against the port's own
   CPU path, concurrent HTTP requests and the inference CLI;
 - training (slice 2): the training CLI for 10 steps at batch 20, 256x256,
   full width, on synthetic images, then one step on the card against the
   port's CPU path.
 Last it times the kernels, their plain versions and the library ops, the
-training step, and the IN forward at three chunk budgets. Every phase
+training step, and the IN forward and backward at three chunk budgets
+each. Every phase
 prints one JSON line; any failure exits non-zero. The line before the
 last lists the kernels; the last line is ``{"ok": true, "device":
 {...}}``. ``--phases`` runs a subset (the build always runs), for
@@ -253,21 +254,51 @@ def over_tol(err, tol) -> float:
     return (err / tol.clamp_min(1e-30)).max().item()
 
 
+def in_bwd_chain(plan, c: int) -> int:
+    """The longest chain of f32 adds in a row behind one of the IN
+    backward's sums under ``plan``: the terms one thread adds, the levels
+    of its lane tree, the chunk partials one merge lane adds, the levels of
+    the merge's tree (one launch; two launches: 8 pixel lanes and 8 chunk
+    lanes, each folded in 7 adds in a row)."""
+    if plan.route == "two_launch":
+        return -(-plan.chunk // 8) + 7 + -(-plan.chunks // 8) + 7
+    packs = c // plan.vec
+    lanes = max(1, 256 // packs)
+    per = 1  # the merge's slice of channels
+    while per * plan.chunks < c:
+        per *= 2
+    merge_lanes = max(1, 256 // min(per, 256))
+    return (-(-plan.chunk // lanes) + lanes.bit_length()
+            + -(-plan.chunks // merge_lanes) + merge_lanes.bit_length())
+
+
 def phase_in_bwd_vs_plain(seed: int) -> float:
     """IN backward kernel against its plain version (the same formula in
     f32 on the upcast inputs), with (mean, inv) from the forward kernel: the
-    three site shapes with ReLU on and off, B=1 and B=20, f32 and bf16.
-    Tolerances: |ddx| <= 1e-4 * S + r|dx| with S the per-element sum of
-    absolute terms (in_bwd_scales; sums of up to ~350 f32 terms in a row
-    err by <= 350 * 2^-24 = 2e-5 of S: a thread adds at most ~300 of them
-    before the partials merge), r = 0 in f32 and 2^-7 in bf16 (dx
-    rounded to bf16 errs by half an ulp, up to 2^-8 |dx|; one ulp leaves
-    room for the f32 differences ahead of the rounding); |ddgamma| and
-    |ddbeta| <= 1e-4 of their sums of absolute terms. The ReLU masks are bitwise equal (the kernel
-    rounds each operation of xhat * gamma + beta on its own)."""
+    three site shapes with ReLU on and off, B=1 and B=20, f32 and bf16, on
+    the one-launch kernel (asserted), and the large slab LARGE_SLAB (ReLU
+    on) on the two-launch kernel (asserted). Each case states the planner's
+    plan and repeats: a second call must give the same bits of dx, dgamma
+    and dbeta.
+    Tolerances: |ddx| <= r_s * S + r|dx| with S the per-element sum of
+    absolute terms (in_bwd_scales). A sum whose adds run in a chain of L
+    errs by <= L * 2^-24 of its sum of absolute terms, and an error e in
+    the two sums moves dx by <= e * S. L is in_bwd_chain(plan): on the one
+    launch at most 32 at these shapes (<= 16 pixels a thread, its lane
+    tree, a merge lane's few chunk partials, the merge's tree), so 1.9e-6 *
+    S; on the two launches at the large slab 2,070 (2,048 pixels a
+    thread), so 1.2e-4 * S. r_s = max(1e-4, 2 L 2^-24): as much again for
+    the plain version's
+    own sums; 1e-4 at every site, 2.5e-4 at the large slab. r = 0 in f32
+    and 2^-7 in bf16 (dx rounded to bf16 errs by half an ulp, up to 2^-8
+    |dx|; one ulp leaves room for the f32 differences ahead of the
+    rounding). |ddgamma| and |ddbeta| <= r_s of their sums of absolute
+    terms. The ReLU masks are bitwise equal (the kernel rounds each
+    operation of xhat * gamma + beta on its own)."""
     import torch
 
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        bwd_plan,
         instance_norm_bwd,
         instance_norm_bwd_reference,
         instance_norm_fwd,
@@ -276,43 +307,59 @@ def phase_in_bwd_vs_plain(seed: int) -> float:
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     worst = 0.0
     shapes = sorted({(h, w, c) for _, h, w, c, _, _ in SITES})
-    for h, w, c in shapes:
-        for n in (1, 20):
-            base = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
-            gbase = torch.randn((n, c, h, w), generator=gen, device="cuda")
-            gamma = torch.randn(c, generator=gen, device="cuda")
-            beta = torch.randn(c, generator=gen, device="cuda")
-            for dtype in (torch.float32, torch.bfloat16):
-                x = base.to(dtype).contiguous(memory_format=torch.channels_last)
-                g = gbase.to(dtype).contiguous(memory_format=torch.channels_last)
+    cases = [(n, h, w, c, (False, True), SITE_ROUTE) for h, w, c in shapes
+             for n in (1, 20)]
+    n, h, w, c, _ = LARGE_SLAB
+    cases.append((n, h, w, c, (True,), "two_launch"))
+    for n, h, w, c, relus, route in cases:
+        base = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
+        gbase = torch.randn((n, c, h, w), generator=gen, device="cuda")
+        gamma = torch.randn(c, generator=gen, device="cuda")
+        beta = torch.randn(c, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = base.to(dtype).contiguous(memory_format=torch.channels_last)
+            g = gbase.to(dtype).contiguous(memory_format=torch.channels_last)
+            plan = bwd_plan(x, g)
+            r_s = max(1e-4, 2 * in_bwd_chain(plan, c) * 2.0 ** -24)
+            with torch.inference_mode():
+                _, mean, inv = instance_norm_fwd(x, gamma, beta)
+            for relu in relus:
                 with torch.inference_mode():
-                    _, mean, inv = instance_norm_fwd(x, gamma, beta)
-                for relu in (False, True):
-                    with torch.inference_mode():
-                        dx, dgn, dbn = instance_norm_bwd(x, g, mean, inv, gamma, beta,
-                                                         relu=relu)
-                        torch.cuda.synchronize()
-                        dx_r, dgn_r, dbn_r = instance_norm_bwd_reference(
-                            x.float(), g.float(), mean, inv, gamma, beta, relu=relu)
-                        sx, sg, sb = in_bwd_scales(x, g, mean, inv, gamma, beta, relu)
-                    r = 0.0 if dtype == torch.float32 else 2.0 ** -7
-                    ddx = (dx.float() - dx_r).abs()
-                    dx_over = over_tol(ddx, 1e-4 * sx + r * dx_r.abs())
-                    dg_over = over_tol((dgn - dgn_r).abs(), 1e-4 * sg)
-                    db_over = over_tol((dbn - dbn_r).abs(), 1e-4 * sb)
-                    max_abs = ddx.max().item()
-                    worst = max(worst, max_abs)
-                    ok = max(dx_over, dg_over, db_over) <= 1
-                    emit("in_bwd_vs_plain", shape=[n, h, w, c], relu=relu,
-                         dtype=str(dtype).replace("torch.", ""), dx_max_abs_err=max_abs,
-                         dx_max=dx_r.abs().max().item(), dx_err_over_tol=dx_over,
-                         dgamma_max_abs_err=(dgn - dgn_r).abs().max().item(),
-                         dgamma_err_over_tol=dg_over,
-                         dbeta_max_abs_err=(dbn - dbn_r).abs().max().item(),
-                         dbeta_err_over_tol=db_over, ok=ok)
-                    if not ok:
-                        fail(f"IN backward kernel disagrees with plain at "
-                             f"{[n, h, w, c]} {dtype} relu={relu}")
+                    dx, dgn, dbn = instance_norm_bwd(x, g, mean, inv, gamma, beta,
+                                                     relu=relu)
+                    again = instance_norm_bwd(x, g, mean, inv, gamma, beta, relu=relu)
+                    torch.cuda.synchronize()
+                    dx_r, dgn_r, dbn_r = instance_norm_bwd_reference(
+                        x.float(), g.float(), mean, inv, gamma, beta, relu=relu)
+                    sx, sg, sb = in_bwd_scales(x, g, mean, inv, gamma, beta, relu)
+                repeatable = all(torch.equal(bits(a), bits(b))
+                                 for a, b in zip((dx, dgn, dbn), again))
+                r = 0.0 if dtype == torch.float32 else 2.0 ** -7
+                ddx = (dx.float() - dx_r).abs()
+                dx_over = over_tol(ddx, r_s * sx + r * dx_r.abs())
+                dg_over = over_tol((dgn - dgn_r).abs(), r_s * sg)
+                db_over = over_tol((dbn - dbn_r).abs(), r_s * sb)
+                max_abs = ddx.max().item()
+                worst = max(worst, max_abs)
+                ok = (max(dx_over, dg_over, db_over) <= 1 and repeatable
+                      and plan.route == route)
+                emit("in_bwd_vs_plain", shape=[n, h, w, c], relu=relu,
+                     dtype=str(dtype).replace("torch.", ""), route=plan.route,
+                     vec=plan.vec, chunk_pixels=plan.chunk, chunk_bytes=plan.chunk_bytes,
+                     chunks_per_sample=plan.chunks, blocks=plan.blocks,
+                     smem_bytes=plan.smem_bytes, capacity=plan.capacity,
+                     add_chain=in_bwd_chain(plan, c), sum_rtol=r_s,
+                     dx_max_abs_err=max_abs,
+                     dx_max=dx_r.abs().max().item(), dx_err_over_tol=dx_over,
+                     dgamma_max_abs_err=(dgn - dgn_r).abs().max().item(),
+                     dgamma_err_over_tol=dg_over,
+                     dbeta_max_abs_err=(dbn - dbn_r).abs().max().item(),
+                     dbeta_err_over_tol=db_over, bitwise_repeatable=repeatable, ok=ok)
+                if not ok:
+                    fail(f"IN backward kernel disagrees with plain, repeats with "
+                         f"other bits or takes the wrong route at {[n, h, w, c]} "
+                         f"{dtype} relu={relu} ({plan.route})")
+                del dx, dgn, dbn, again, dx_r, dgn_r, dbn_r, sx, sg, sb
     return worst
 
 
@@ -379,13 +426,17 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
     return worst
 
 
-def reset_fwd_counts() -> None:
-    """Set the IN forward's launch counts, in all and by route, to 0."""
-    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
+def reset_in_counts() -> None:
+    """Set the IN forward's and backward's launch counts, in all and by
+    route, to 0."""
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_bwd,
+        instance_norm_fwd,
+    )
 
-    instance_norm_fwd.launches = 0
-    instance_norm_fwd.launches_by_route = dict.fromkeys(
-        instance_norm_fwd.launches_by_route, 0)
+    for fn in (instance_norm_fwd, instance_norm_bwd):
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def phase_trained_weights() -> None:
@@ -473,7 +524,7 @@ def phase_serving() -> dict:
                 "connect_p50_ms": float(np.median([r[4] for r in replies])),
                 "server_p50_ms_so_far": server_p50}
 
-    reset_fwd_counts()
+    reset_in_counts()
     try:
         bursts, burst_info = [], []
         for _ in range(2):
@@ -531,7 +582,8 @@ def phase_training(seed: int) -> dict:
     width, the seeded random VGG (no ImageNet weights exist here), on 40
     synthetic JPEGs and a synthetic style image. Launch counters are set to
     0 just before and read just after: 14 IN forwards and 14 IN backwards
-    and one conv1_1 dx per step. Every logged loss must be finite with no
+    (all on the one-launch kernels) and one conv1_1 dx per step. Every
+    logged loss must be finite with no
     skipped step, a checkpoint and style_transfer_final.npz must be
     written, and the port's Stylizer must stylize an image on the card with
     that .npz."""
@@ -564,7 +616,7 @@ def phase_training(seed: int) -> dict:
         out = os.path.join(tmp, "out")
         for fn in counters.values():
             fn.launches = 0
-        reset_fwd_counts()
+        reset_in_counts()
         t0 = time.perf_counter()
         final = begin_training.main([
             "--dataset_dir", data, "--style_image", style, "--output_dir", out,
@@ -574,6 +626,7 @@ def phase_training(seed: int) -> dict:
         seconds = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
         by_route = dict(instance_norm_fwd.launches_by_route)
+        bwd_by_route = dict(instance_norm_bwd.launches_by_route)
         with open(os.path.join(out, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         checkpoints = sorted(os.listdir(os.path.join(out, "checkpoints")))
@@ -591,15 +644,17 @@ def phase_training(seed: int) -> dict:
           and os.path.basename(final) == "style_transfer_final.npz"
           and y.shape == img.shape and y.dtype == np.uint8
           and launches == expected
-          and by_route[SITE_ROUTE] == launches["instance_norm_fwd"])
+          and by_route[SITE_ROUTE] == launches["instance_norm_fwd"]
+          and bwd_by_route[SITE_ROUTE] == launches["instance_norm_bwd"])
     emit("training", ok=ok, steps=TRAIN_STEPS, batch=TRAIN_BATCH, size=[256, 256],
          precision="f32", seconds=seconds, metrics=records, checkpoints=checkpoints,
          launches=launches, instance_norm_fwd_launches_by_route=by_route,
+         instance_norm_bwd_launches_by_route=bwd_by_route,
          expected_launches=expected,
          stylized_shape=list(y.shape), stylized_mean=float(y.mean()))
     if not ok:
         fail("training phase")
-    return {"launches": launches}
+    return {"launches": launches, "bwd_by_route": bwd_by_route}
 
 
 def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2):
@@ -704,9 +759,9 @@ def bound(bytes_moved: float, flops: float, dtype: str) -> tuple:
 
 def train_kernel_times(seed: int) -> dict:
     """Per training step at B=20, 256x256, in bf16 and f32: device time
-    (CUDA-graph replay) of the IN forward (the kernel its planner picks, and
-    the two-launch kernel at the same shapes: ``two_launch_ms``) and
-    backward kernels over the 14 sites and of the conv1_1 dx kernel, their
+    (CUDA-graph replay) of the IN forward and backward (each the kernel its
+    planner picks, and the two-launch kernel at the same shapes:
+    ``two_launch_ms``) over the 14 sites and of the conv1_1 dx kernel, their
     plain versions and the library
     calls (F.instance_norm(+F.relu); its autograd backward, as the graph
     time of forward + backward less that of the forward; cuDNN
@@ -719,7 +774,9 @@ def train_kernel_times(seed: int) -> dict:
         conv2d_same_dx_reference,
     )
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        _launch_bwd,
         _launch_fwd,
+        bwd_plan,
         fwd_plan,
         instance_norm_bwd,
         instance_norm_bwd_reference,
@@ -732,7 +789,8 @@ def train_kernel_times(seed: int) -> dict:
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        tot = dict.fromkeys(("ms", "two_launch_ms", "plain_ms", "library_ms", "bound_ms"),
+                            0.0)
         fwd = dict.fromkeys(("ms", "two_launch_ms", "plain_ms", "library_ms", "bound_ms"),
                             0.0)
         for name, h, w, c, relu, count in SITES:
@@ -772,9 +830,12 @@ def train_kernel_times(seed: int) -> dict:
 
             lib_fwd_bwd = graph_ms(lambda: torch.autograd.grad(
                 library_fwd(), (xr, gr, br), g))
+            plan, two_bwd = bwd_plan(x, g), bwd_plan(x, g, one_launch=False)
             site = {
                 "ms": graph_ms(lambda: instance_norm_bwd(x, g, mean, inv, gamma, beta,
                                                          relu=relu)),
+                "two_launch_ms": graph_ms(lambda: _launch_bwd(
+                    x, g, mean, inv, gamma, beta, two_bwd, relu=relu)),
                 "plain_ms": graph_ms(lambda: instance_norm_bwd_reference(
                     x, g, mean, inv, gamma, beta, relu=relu)),
                 "library_ms": lib_fwd_bwd - graph_ms(library_fwd),
@@ -782,7 +843,8 @@ def train_kernel_times(seed: int) -> dict:
             site["bound_ms"], by = bound(3 * x.numel() * x.element_size(),
                                          IN_BWD_FLOPS_PER_ELEMENT * x.numel(), dname)
             emit("train_times_in_bwd_site", site=name, shape=[n, h, w, c], dtype=dname,
-                 relu=relu, sites_per_step=count, bound_by=by,
+                 relu=relu, sites_per_step=count, route=plan.route,
+                 chunks_per_sample=plan.chunks, bound_by=by,
                  library_fwd_bwd_ms=lib_fwd_bwd,
                  library_op="autograd of F.instance_norm" + ("+F.relu" if relu else ""),
                  **site)
@@ -793,8 +855,8 @@ def train_kernel_times(seed: int) -> dict:
         emit("train_times_in_fwd", dtype=dname, batch=n, per="step (14 sites)",
              route=fwd_plan(x).route, **fwd,
              library_op="F.instance_norm(+F.relu)", bound_share=fwd["bound_ms"] / fwd["ms"])
-        emit("train_times_in_bwd", dtype=dname, batch=n, per="step (14 sites)", **tot,
-             bound_share=tot["bound_ms"] / tot["ms"])
+        emit("train_times_in_bwd", dtype=dname, batch=n, per="step (14 sites)",
+             route=plan.route, **tot, bound_share=tot["bound_ms"] / tot["ms"])
         out[("in_fwd", dname)] = fwd
         out[("in_bwd", dname)] = tot
 
@@ -962,6 +1024,55 @@ def phase_in_fwd_budgets(seed: int) -> dict:
     return result
 
 
+IN_BWD_BUDGETS_KB = (64, 80, 96)
+
+
+def phase_in_bwd_budgets(seed: int) -> dict:
+    """The one-launch IN backward at chunk budgets (x and g together) of 64,
+    80 and 96 KB (ops/cuda_norm.py::_BWD_CHUNK_BYTES; the port's is 80;
+    the block's shared memory caps the chunk where 96 KB does not fit):
+    device time (CUDA-graph replay) per training step at B=20 in bf16 and
+    f32, each site shape weighted by its sites (ReLU on)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops import cuda_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    weights = {}
+    for _, h, w, c, _, count in SITES:
+        weights[(h, w, c)] = weights.get((h, w, c), 0) + count
+    keep = cuda_norm._BWD_CHUNK_BYTES
+    result = {}
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            per_budget = dict.fromkeys(IN_BWD_BUDGETS_KB, 0.0)
+            chunks = {kb: [] for kb in IN_BWD_BUDGETS_KB}
+            for (h, w, c), count in weights.items():
+                shape = (TRAIN_BATCH, c, h, w)
+                x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+                x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+                g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                g = g.contiguous(memory_format=torch.channels_last)
+                gamma = torch.randn(c, generator=gen, device="cuda")
+                beta = torch.randn(c, generator=gen, device="cuda")
+                with torch.no_grad():
+                    _, mean, inv = cuda_norm.instance_norm_fwd(x, gamma, beta)
+                for kb in IN_BWD_BUDGETS_KB:
+                    cuda_norm._BWD_CHUNK_BYTES = kb * 1024
+                    plan = cuda_norm.bwd_plan(x, g)
+                    per_budget[kb] += count * graph_ms(lambda: cuda_norm._launch_bwd(
+                        x, g, mean, inv, gamma, beta, plan, relu=True))
+                    chunks[kb].append(plan.chunks)
+            dname = str(dtype).replace("torch.", "")
+            emit("in_bwd_budgets", batch=TRAIN_BATCH, dtype=dname, per="step",
+                 port_kb=keep // 1024, ms_by_budget_kb=per_budget,
+                 chunks_per_sample_by_budget_kb=chunks)
+            result[dname] = per_budget
+    finally:
+        cuda_norm._BWD_CHUNK_BYTES = keep
+    return result
+
+
 def graph_ms(fn, reps: int = 20) -> float:
     """Device time per call: ``reps`` calls captured in one CUDA graph and
     replayed, so host-side launch cost is out of the measurement."""
@@ -1108,7 +1219,7 @@ def profile_calls(fn, reps: int = 5, top: int = 8) -> dict:
 
 
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
-          "times", "train_times", "in_fwd_budgets")
+          "times", "train_times", "in_fwd_budgets", "in_bwd_budgets")
 
 
 def main() -> int:
@@ -1152,6 +1263,8 @@ def main() -> int:
     ttimes = phase_train_times(args.seed) if "train_times" in phases else None
     if "in_fwd_budgets" in phases:
         phase_in_fwd_budgets(args.seed)
+    if "in_bwd_budgets" in phases:
+        phase_in_bwd_budgets(args.seed)
     emit("done", seconds=time.perf_counter() - t0, phases=list(phases))
     if phases == PHASES:
         b8 = times["per_forward"][8]
@@ -1176,6 +1289,7 @@ def main() -> int:
             "source": src + "instance_norm.cu",
             "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:115",
             "launches": trained["launches"]["instance_norm_bwd"],
+            "launches_by_route": trained["bwd_by_route"],
             "max_abs_err": err["in_bwd"],
             # the training path: the 14 sites of one f32 step at B=20, 256x256
             "ms": in_bwd["ms"], "plain_ms": in_bwd["plain_ms"],

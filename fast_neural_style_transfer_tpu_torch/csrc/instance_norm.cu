@@ -98,28 +98,79 @@
 // from relu(y) > 0, as it does in the TPU kernel.
 // Bound: bytes. Read x and g once, write dx once: 3 * 2 B (bf16) per element,
 // 15,728,640 IN elements per 256x256 image, so 1.89 GB and 0.56 ms at B=20
-// bf16 over 3.35 TB/s (f32 doubles it). The two reductions force a second
-// read of x and g, which launch 2 makes (from L2 where the slab fits).
-// Design: two launches over chunks of H*W.
+// bf16 over 3.35 TB/s (f32 doubles it). dx needs both sums over the whole
+// sample first, so a design that reads x and g from device memory for the
+// sums and again for dx moves five slab passes where the bound counts three.
+//
+// Two kernels, picked by the wrapper's planner (ops/cuda_norm.py::plan_bwd)
+// by shape, as the forward's are.
+//
+// One-launch kernel (in_bwd_resident), for a slab whose chunks all fit on
+// the card at once (x + g up to ~32 MB a sample on an H100): every IN site
+// of the 256x256 training path. x and g cross HBM once. The forward's
+// layout (16-byte packs of one pixel, Group, lane_sum) and hand-off. Each
+// block:
+//   1. takes a ticket (atomicAdd) and maps it to (sample s, chunk j) =
+//      (ticket / chunks, ticket % chunks);
+//   2. loads its chunk of x and the same pixels of g, the only read of
+//      either: in f32 each thread's first 4 pixels into its registers
+//      (bwd_reg_pixels), the rest into dynamic shared memory with 16-byte
+//      cp.async (at most 96 KB of x and g, so two blocks share an SM), and
+//      the sample's mean, inv and the affine beside them;
+//   3. per channel: the chunk's gated sum(g) and sum(g * xhat) in f32, the
+//      lanes folded in a fixed tree; writes the pair to the workspace and
+//      keeps the gated g in place of g;
+//   4. publishes it (red.release on its sample's counter) and waits until
+//      all G blocks of the sample have (ld.acquire). Then it merges the
+//      chunk partials of its own power-of-two slice of the channels
+//      (sum_chunks, a fixed order), writes their per-sample dgamma and
+//      dbeta and the coefficients a = sum(g) / HW and b = sum(g * xhat) /
+//      HW, each value its own flag (st_published), and waits for every
+//      channel's pair (ld_published);
+//   5. writes dx from its registers and shared copies with 16-byte stores.
+// What bounds it: a block holds its slot from its load to its store, and
+// the card holds 264 blocks. They run in waves that load at once, then hand
+// off while the memory idles (the sums, the wait for the sample's last
+// block, two L2 round trips), then store. One block's load is no faster
+// when few blocks load (TMA bulk copies are no faster either), so one
+// sample's loads cannot be run alone ahead of the next sample's; what moves
+// the time is the bytes a wave holds. So the planner fills a wave with
+// whole samples (a sample split over two waves keeps its first blocks
+// waiting through a wave), and f32 keeps part of the chunk in registers,
+// which lets a wave hold 4 samples of 64x64x256 (not 3) and 2 of
+// 256x256x32 (not 1). bf16 holds none: there its sums and dx take twice the
+// instructions a byte, and it ran slower with any.
+// Why it cannot deadlock: the forward's argument, with this kernel's own
+// capacity. A block waits only on blocks of its own sample; tickets go out
+// sample by sample, so only the newest sample can have blocks that have not
+// started, and its G chunks fit on the card together: the wrapper routes
+// here only where G <= blocks per SM of in_bwd_resident at its largest
+// shared memory (kSmemLimit) x SMs, asked of the card once per device
+// (fnst_instance_norm_bwd_capacity), and the launch refuses a larger G.
+// The counters and the coefficients' flags are zeroed by cudaMemsetAsync on
+// the same stream in the same C call, so a CUDA graph can capture the call.
+//
+// Two-launch kernel, for any slab: two launches over chunks of H*W.
 //   1. in_bwd_partial: a block owns (sample, pixel chunk, tile of <= 32
 //      channels); each thread sums the gated g and g * xhat over its pixels
 //      in f32, the block adds its 8 pixel lanes and writes one partial pair
 //      per (n, chunk, c) to an f32 workspace (2, N, chunks, C).
 //   2. in_bwd_apply: every block adds its channels' chunk partials, the
 //      first chunk's block writes the per-sample dgamma / dbeta, and each
-//      block writes dx for its own chunk.
+//      block writes dx for its own chunk from a second read of x and g.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <mutex>
 #include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;  // forward: threads of a block
-constexpr int kTileC = 32;     // backward: channels per block
-constexpr int kLanes = 8;      // backward: pixel lanes per block
+constexpr int kThreads = 256;  // threads of a block (but the two-launch backward)
+constexpr int kTileC = 32;     // two-launch backward: channels per block
+constexpr int kLanes = 8;      // two-launch backward: pixel lanes per block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -143,21 +194,33 @@ template <typename T, int VEC>
 using Raw = typename std::conditional<VEC == 1, T, uint4>::type;
 
 template <typename T, int VEC>
-__device__ __forceinline__ void load_pack(const T* p, float (&f)[VEC]) {
+__device__ __forceinline__ void unpack(const Raw<T, VEC>& r, float (&f)[VEC]) {
   static_assert(VEC == 1 || VEC * sizeof(T) == 16, "a pack is 16 bytes");
-  const Raw<T, VEC> r = *reinterpret_cast<const Raw<T, VEC>*>(p);
   const T* e = reinterpret_cast<const T*>(&r);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) f[i] = to_f32(e[i]);
 }
 
+// The pack is read as one access into a register first: unpacking it where
+// it lies would read element by element.
 template <typename T, int VEC>
-__device__ __forceinline__ void store_pack(T* p, const float (&f)[VEC]) {
+__device__ __forceinline__ void load_pack(const T* p, float (&f)[VEC]) {
+  const Raw<T, VEC> r = *reinterpret_cast<const Raw<T, VEC>*>(p);
+  unpack<T, VEC>(r, f);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Raw<T, VEC> pack(const float (&f)[VEC]) {
   Raw<T, VEC> r;
   T* e = reinterpret_cast<T*>(&r);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) e[i] = from_f32<T>(f[i]);
-  *reinterpret_cast<Raw<T, VEC>*>(p) = r;
+  return r;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_pack(T* p, const float (&f)[VEC]) {
+  *reinterpret_cast<Raw<T, VEC>*>(p) = pack<T, VEC>(f);
 }
 
 // The block over the channel packs [cv0, cv0 + packs) of a pixel row:
@@ -305,19 +368,55 @@ size_t resident_smem(int chunk, int c) {
          sizeof(float) * (red_floats<VEC>() + 2 * (size_t)c);
 }
 
+// One lane's sums of one channel's chunk partials a_j = part_s[j][0][ch],
+// b_j = part_s[j][1][ch] of part_s (chunks, 2, c), over its chunks j =
+// lane, lane + lanes, ... in order, kBatch chunks' loads in flight at once
+// (lanes >= 1; a lane >= lanes adds nothing). Plain sums of a_j and b_j,
+// or (kShifted, chunk statistics (mean_j, M2_j)) sums about K = mean_0 of
+// n_j d and M2_j + n_j d^2, d = mean_j - K, n_j the chunk's pixels.
+template <bool kShifted>
+__device__ __forceinline__ void sum_chunks(const float* part_s, int c, int ch,
+                                           int lane, int lanes, int chunks,
+                                           int chunk, int hw, float k,
+                                           float& s1, float& s2) {
+  constexpr int kBatch = 8;
+  s1 = s2 = 0.f;
+  for (int j0 = lane; lane < lanes && j0 < chunks; j0 += kBatch * lanes) {
+    float a[kBatch], b[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = j0 + u * lanes;
+      a[u] = j < chunks ? __ldcg(part_s + (size_t)j * 2 * c + ch) : 0.f;
+      b[u] = j < chunks ? __ldcg(part_s + (size_t)j * 2 * c + c + ch) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = j0 + u * lanes;
+      if (j >= chunks) break;
+      if (kShifted) {
+        const float nj = (float)min(chunk, hw - j * chunk);
+        const float d = a[u] - k;
+        s1 = fmaf(nj, d, s1);
+        s2 += fmaf(nj * d, d, b[u]);
+      } else {
+        s1 += a[u];
+        s2 += b[u];
+      }
+    }
+  }
+}
+
 // Merges one sample's chunk partials part_s (chunks, 2, c) for the channels
 // [c0, c1) and writes their mean, inv, scale (ss_s[ch]) and shift
 // (ss_s[c + ch]). Thread t takes channel t % width of a group of at most
-// 256 and chunk lane t / width; a lane sums its chunks j = lane, lane +
-// lanes, ... in order, about K = chunk 0's mean (n_j d and M2_j + n_j d^2,
-// d = mean_j - K; one-pass: plain sums), kBatch chunks' loads in flight at
-// once, and the lanes fold in a fixed tree. red holds 2 * kThreads floats.
+// 256 and chunk lane t / width; a lane sums its chunks (sum_chunks: about
+// chunk 0's mean; one-pass: plain sums), and the lanes fold in a fixed
+// tree. red holds 2 * kThreads floats.
 template <bool kOnePass>
 __device__ __forceinline__ void merge_chunks(
     const float* part_s, float* red, int c0, int c1, int c, int hw, int chunk,
     int chunks, float eps, const float* __restrict__ gamma,
     const float* __restrict__ beta, float* mean_s, float* inv_s, float* ss_s) {
-  constexpr int kBatch = 8;
   for (int g0 = c0; g0 < c1; g0 += kThreads) {
     const int width = min(c1 - g0, kThreads);
     const int lanes = kThreads / width;
@@ -327,30 +426,9 @@ __device__ __forceinline__ void merge_chunks(
     const float ga = gamma[ch];
     const float be = beta[ch];
     const float k = kOnePass ? 0.f : __ldcg(part_s + ch);
-    float s1 = 0.f, s2 = 0.f;
-    for (int j0 = lane; lane < lanes && j0 < chunks; j0 += kBatch * lanes) {
-      float a[kBatch], b[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int j = j0 + u * lanes;
-        a[u] = j < chunks ? __ldcg(part_s + (size_t)j * 2 * c + ch) : 0.f;
-        b[u] = j < chunks ? __ldcg(part_s + (size_t)j * 2 * c + c + ch) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int j = j0 + u * lanes;
-        if (j >= chunks) break;
-        if (kOnePass) {
-          s1 += a[u];
-          s2 += b[u];
-        } else {
-          const float nj = (float)min(chunk, hw - j * chunk);
-          const float d = a[u] - k;
-          s1 = fmaf(nj, d, s1);
-          s2 += fmaf(nj * d, d, b[u]);
-        }
-      }
-    }
+    float s1, s2;
+    sum_chunks<!kOnePass>(part_s, c, ch, lane, lanes, chunks, chunk, hw, k, s1,
+                          s2);
     float sums[2][1] = {{s1}, {s2}};
     lane_sum<1, 2>(red, sums, width);
     if (threadIdx.x < width) {
@@ -625,10 +703,11 @@ struct FwdArgs {
   cudaStream_t stream;
 };
 
-// The ticket, arrival and flag counters to 0, on the kernel's stream.
-cudaError_t zero_counters(const FwdArgs& a) {
-  return cudaMemsetAsync(a.counters, 0, (1 + 2 * (size_t)a.n) * sizeof(unsigned),
-                         a.stream);
+// The first `count` counters to 0, on the kernel's stream (FwdArgs or
+// BwdArgs).
+template <typename Args>
+cudaError_t zero_counters(const Args& a, size_t count) {
+  return cudaMemsetAsync(a.counters, 0, count * sizeof(unsigned), a.stream);
 }
 
 template <typename T, int VEC, bool kOnePass>
@@ -636,7 +715,7 @@ cudaError_t launch_two(const FwdArgs& a) {
   const dim3 grid(a.chunks, a.n);
   const T* x = static_cast<const T*>(a.x);
   float* ss = a.work + (size_t)a.n * a.chunks * 2 * a.c;
-  cudaError_t err = zero_counters(a);
+  cudaError_t err = zero_counters(a, 1 + 2 * (size_t)a.n);
   if (err != cudaSuccess) return err;
   in_fwd_partial<T, VEC, kOnePass><<<grid, kThreads, 0, a.stream>>>(
           x, a.gamma, a.beta, a.mean, a.inv, a.work, ss, a.counters, a.hw, a.c,
@@ -648,21 +727,27 @@ cudaError_t launch_two(const FwdArgs& a) {
   return cudaGetLastError();
 }
 
-// Blocks of in_fwd_resident<T, VEC, kOnePass> the current device holds at
-// once at kSmemLimit bytes of shared memory: (blocks per SM, SMs), asked of
-// the card once per device (which also raises the kernel's shared-memory
-// limit there).
-template <typename T, int VEC, bool kOnePass>
-cudaError_t resident_capacity(int* per_sm, int* sms) {
-  static std::mutex lock;
-  static int cached[kMaxDevices][2];  // blocks per SM + 1 (0: not asked), SMs
+// One one-launch kernel's capacity per device: blocks per SM + 1 (0: not
+// asked yet), SMs.
+struct CapacityCache {
+  std::mutex lock;
+  int cached[kMaxDevices][2];
+};
+
+// Blocks of `kernel` (a one-launch kernel of kThreads threads) the current
+// device holds at once at kSmemLimit bytes of shared memory: (blocks per
+// SM, SMs), asked of the card once per device (which also raises the
+// kernel's shared-memory limit there) and kept in `cache`.
+template <typename Kernel>
+cudaError_t capacity_of(Kernel kernel, CapacityCache& cache, int* per_sm,
+                        int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> guard(lock);
+  auto& cached = cache.cached;
+  std::lock_guard<std::mutex> guard(cache.lock);
   if (cached[dev][0] == 0) {
-    const auto kernel = in_fwd_resident<T, VEC, kOnePass>;
     int blocks = 0, count = 0;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
@@ -683,6 +768,12 @@ cudaError_t resident_capacity(int* per_sm, int* sms) {
 }
 
 template <typename T, int VEC, bool kOnePass>
+cudaError_t resident_capacity(int* per_sm, int* sms) {
+  static CapacityCache cache;
+  return capacity_of(in_fwd_resident<T, VEC, kOnePass>, cache, per_sm, sms);
+}
+
+template <typename T, int VEC, bool kOnePass>
 cudaError_t launch_resident(const FwdArgs& a) {
   int per_sm = 0, sms = 0;
   cudaError_t err = resident_capacity<T, VEC, kOnePass>(&per_sm, &sms);
@@ -692,7 +783,7 @@ cudaError_t launch_resident(const FwdArgs& a) {
   if (smem > (size_t)kSmemLimit || a.chunks > per_sm * sms) {
     return cudaErrorInvalidValue;
   }
-  err = zero_counters(a);
+  err = zero_counters(a, 1 + 2 * (size_t)a.n);
   if (err != cudaSuccess) return err;
   float* ss = a.work + (size_t)a.n * a.chunks * 2 * a.c;
   in_fwd_resident<T, VEC, kOnePass>
@@ -860,25 +951,388 @@ __global__ void __launch_bounds__(kTileC * kLanes)
   }
 }
 
+// The one-launch backward block's per-channel constants in shared memory:
+// mean, inv, gamma, beta of its sample, then a and b (after the hand-off),
+// c floats each.
+constexpr int kBwdConsts = 6;
+
+// Floats of the one-launch backward block's lane sums: two arrays of
+// kThreads packs (sum_chunks' merge needs 2 * kThreads).
+template <int VEC>
+__host__ __device__ constexpr int bwd_red_floats() {
+  return 2 * kThreads * VEC;
+}
+
+// Packs of x and of g a one-launch backward thread holds in registers
+// through the hand-off, within 128 registers: 4 in f32; none in bf16, whose
+// kernel is slower with any (its sums and dx take twice the instructions a
+// byte, and the registers they need).
+template <int VEC>
+__host__ __device__ constexpr int bwd_reg_packs() {
+  return VEC == 8 ? 0 : 4;
+}
+
+// The first pixels of a one-launch backward block's chunk, which its
+// threads hold in registers: bwd_reg_packs pixels a lane, where a pixel row
+// is one group of packs (no more packs than threads); the rest of the chunk
+// sits in shared memory.
+template <int VEC>
+__host__ __device__ inline int bwd_reg_pixels(int c) {
+  const int packs = c / VEC;
+  return packs <= kThreads ? bwd_reg_packs<VEC>() * (kThreads / packs) : 0;
+}
+
+// The one-launch backward block's dynamic shared memory: the shared part of
+// its chunk of x and of g (each rounded up to 16 bytes), the lane sums and
+// the per-channel constants. ops/cuda_norm.py::bwd_smem_bytes is the same
+// formula.
+template <typename T, int VEC>
+size_t bwd_resident_smem(int chunk, int c) {
+  const int shared = chunk > bwd_reg_pixels<VEC>(c) ? chunk - bwd_reg_pixels<VEC>(c) : 0;
+  return 2 * chunk_smem_bytes(shared, c, sizeof(T)) +
+         sizeof(float) * (bwd_red_floats<VEC>() + kBwdConsts * (size_t)c);
+}
+
+// Stores v at p for other blocks that wait for it (ld_published): as the
+// bits of v inverted, in a buffer zeroed at launch, so that 0 reads as "not
+// yet stored". A NaN is stored as the canonical one, whose inverted bits are
+// not 0. The value is its own flag: no fence orders other writes before it.
+__device__ __forceinline__ void st_published(unsigned* p, float v) {
+  const unsigned w = ~__float_as_uint(v != v ? __int_as_float(0x7fffffff) : v);
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(w) : "memory");
+}
+
+// Waits (__nanosleep back-off) until another block has stored a value at p
+// with st_published, and returns it.
+__device__ __forceinline__ float ld_published(const unsigned* p) {
+  unsigned w, ns = 32;
+  while (true) {
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(w) : "l"(p) : "memory");
+    if (w != 0u) break;
+    __nanosleep(ns);
+    ns = ns < 256u ? 2 * ns : ns;
+  }
+  return __uint_as_float(~w);
+}
+
+// Merges one sample's chunk partials part_s (chunks, 2, c) of sum(g) and
+// sum(g * xhat) for the channels [c0, c1) (sum_chunks, then the lanes in a
+// fixed tree, as merge_chunks) and writes dbeta_s, dgamma_s and, for the
+// other blocks of the sample, the coefficients coef_s[ch] = sum(g) / hw and
+// coef_s[c + ch] = sum(g * xhat) / hw (st_published).
+__device__ __forceinline__ void merge_grad_sums(const float* part_s, float* red,
+                                                int c0, int c1, int c, int hw,
+                                                int chunks, float* dgamma_s,
+                                                float* dbeta_s, unsigned* coef_s) {
+  for (int g0 = c0; g0 < c1; g0 += kThreads) {
+    const int width = min(c1 - g0, kThreads);
+    const int ch = g0 + threadIdx.x % width;
+    float s1, s2;
+    sum_chunks<false>(part_s, c, ch, threadIdx.x / width, kThreads / width,
+                      chunks, 0, hw, 0.f, s1, s2);
+    float sums[2][1] = {{s1}, {s2}};
+    lane_sum<1, 2>(red, sums, width);
+    if (threadIdx.x < width) {
+      s1 = red[threadIdx.x];
+      s2 = red[kThreads + threadIdx.x];
+      const float fhw = (float)hw;
+      dbeta_s[ch] = s1;
+      dgamma_s[ch] = s2;
+      st_published(coef_s + ch, s1 / fhw);
+      st_published(coef_s + c + ch, s2 / fhw);
+    }
+    __syncthreads();
+  }
+}
+
+// The one-launch backward (steps 1-5 in the header), with the ReLU gate
+// (kRelu) or without. part: (n, chunks, 2,
+// c) chunk partials; counters: [ticket, published (n), then each sample's
+// coefficients (n, 2, c) as st_published stores them], zero at launch. At
+// most 128 registers a thread, so that two blocks fit an SM.
+template <typename T, int VEC, bool kRelu>
+__global__ void __launch_bounds__(kThreads, 2)
+    in_bwd_resident(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ inv,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ beta, T* __restrict__ dx,
+                    float* __restrict__ dgamma, float* __restrict__ dbeta,
+                    float* __restrict__ part, unsigned* __restrict__ counters,
+                    int n, int hw, int c, int chunk, int chunks) {
+  extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
+  constexpr int kReg = bwd_reg_packs<VEC>();
+  const int rp = kReg > 0 ? bwd_reg_pixels<VEC>(c) : 0;  // pixels in registers
+  const size_t slab = chunk_smem_bytes(max(chunk - rp, 0), c, sizeof(T));
+  T* xs = reinterpret_cast<T*>(bwd_smem_raw);
+  T* gs = reinterpret_cast<T*>(bwd_smem_raw + slab);
+  float* red = reinterpret_cast<float*>(bwd_smem_raw + 2 * slab);
+  float* cst = red + bwd_red_floats<VEC>();  // kBwdConsts arrays of c
+  __shared__ unsigned s_ticket;
+  const int tid = threadIdx.x;
+
+  // 1. ticket -> (sample, chunk)
+  if (tid == 0) s_ticket = atomicAdd(counters, 1u);
+  __syncthreads();
+  const int s = (int)(s_ticket / (unsigned)chunks);
+  const int j = (int)(s_ticket % (unsigned)chunks);
+  const int p0 = j * chunk;
+  const int np = min(chunk, hw - p0);
+  const int sp = max(np - rp, 0);  // the chunk's pixels in shared memory
+  const size_t off = ((size_t)s * hw + p0) * c;
+
+  // 2. the chunk of x and of g, the only read of either: a thread's first
+  // kReg pixels (those of the chunk's first rp) into its registers, the
+  // rest into shared memory with 16-byte cp.async; the constants beside
+  const Group g0 = group<VEC>(c, 0);
+  Raw<T, VEC> xreg[kReg > 0 ? kReg : 1], greg[kReg > 0 ? kReg : 1];
+  if (kReg > 0 && rp > 0 && g0.lane < g0.lanes) {
+#pragma unroll
+    for (int r = 0; r < kReg; ++r) {
+      const int p = g0.lane + r * g0.lanes;
+      if (p < np) {
+        const size_t o = off + (size_t)p * c + g0.ch;
+        xreg[r] = *reinterpret_cast<const Raw<T, VEC>*>(x + o);
+        greg[r] = *reinterpret_cast<const Raw<T, VEC>*>(g + o);
+      }
+    }
+  }
+  const size_t soff = off + (size_t)rp * c;
+  if constexpr (VEC > 1) {
+    for (int i = tid * VEC; i < sp * c; i += kThreads * VEC) {
+      cp_async16(xs + i, x + soff + i);
+      cp_async16(gs + i, g + soff + i);
+    }
+  } else {
+    for (int i = tid; i < sp * c; i += kThreads) {
+      xs[i] = x[soff + i];
+      gs[i] = g[soff + i];
+    }
+  }
+  for (int k = tid; k < c; k += kThreads) {
+    cst[k] = mean[(size_t)s * c + k];
+    cst[c + k] = inv[(size_t)s * c + k];
+    cst[2 * c + k] = gamma[k];
+    cst[3 * c + k] = beta[k];
+  }
+  if constexpr (VEC > 1) asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  // 3. the chunk's gated sum(g) and sum(g * xhat): a thread adds its pixels
+  // in order, those in registers first
+  float* pm = part + ((size_t)s * chunks + j) * 2 * c;
+  for (int cv0 = 0; cv0 < c / VEC; cv0 += kThreads) {
+    const Group gr = group<VEC>(c, cv0);
+    float ab[2][VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) ab[0][i] = ab[1][i] = 0.f;
+    if (gr.lane < gr.lanes) {
+      float m[VEC], iv[VEC], ga[VEC], be[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        m[i] = cst[gr.ch + i];
+        iv[i] = cst[c + gr.ch + i];
+        ga[i] = cst[2 * c + gr.ch + i];
+        be[i] = cst[3 * c + gr.ch + i];
+      }
+      if constexpr (kReg > 0) {
+        if (rp > 0) {
+#pragma unroll
+          for (int r = 0; r < kReg; ++r) {
+            if (gr.lane + r * gr.lanes < np) {
+              float xv[VEC], gv[VEC];
+              unpack<T, VEC>(xreg[r], xv);
+              unpack<T, VEC>(greg[r], gv);
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) {
+                float xh;
+                gate(xv[i], gv[i], m[i], iv[i], ga[i], be[i], kRelu, xh, gv[i]);
+                ab[0][i] += gv[i];
+                ab[1][i] = fmaf(gv[i], xh, ab[1][i]);
+              }
+              if constexpr (kRelu) greg[r] = pack<T, VEC>(gv);
+            }
+          }
+        }
+      }
+#pragma unroll 2
+      for (int q = gr.lane; q < sp; q += gr.lanes) {
+        float xv[VEC], gv[VEC];
+        load_pack<T, VEC>(xs + q * c + gr.ch, xv);
+        load_pack<T, VEC>(gs + q * c + gr.ch, gv);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float xh;
+          gate(xv[i], gv[i], m[i], iv[i], ga[i], be[i], kRelu, xh, gv[i]);
+          ab[0][i] += gv[i];
+          ab[1][i] = fmaf(gv[i], xh, ab[1][i]);
+        }
+        // the gated g, for step 5 (exact: each value is g's or 0)
+        if constexpr (kRelu) store_pack<T, VEC>(gs + q * c + gr.ch, gv);
+      }
+    }
+    lane_sum<VEC, 2>(red, ab, gr.width / VEC);
+    for (int kk = tid; kk < gr.width; kk += kThreads) {
+      pm[cv0 * VEC + kk] = red[kk];
+      pm[c + cv0 * VEC + kk] = red[kThreads * VEC + kk];
+    }
+    __syncthreads();
+  }
+
+  // 4. hand-off within the sample: wait until every block has published,
+  // merge this block's slice of the channels, then wait for every channel's
+  // (a, b) from the blocks that merge them
+  unsigned* coef_s = counters + 1 + n + (size_t)s * 2 * c;
+  if (tid == 0) {
+    unsigned* published = counters + 1 + s;
+    publish(published);
+    wait_count(published, (unsigned)chunks);
+  }
+  __syncthreads();
+  // slices of a power-of-two width, for lane_sum's shuffles
+  int per = 1;
+  while (per * chunks < c) per *= 2;
+  const int c0 = min(c, j * per);
+  merge_grad_sums(part + (size_t)s * chunks * 2 * c, red, c0, min(c, c0 + per),
+                  c, hw, chunks, dgamma + (size_t)s * c, dbeta + (size_t)s * c,
+                  coef_s);
+  for (int k = tid; k < 2 * c; k += kThreads) cst[4 * c + k] = ld_published(coef_s + k);
+  __syncthreads();
+
+  // 5. dx = gamma * inv * (g - a - xhat * b) from the registers and the
+  // shared copies
+  for (int cv0 = 0; cv0 < c / VEC; cv0 += kThreads) {
+    const Group gr = group<VEC>(c, cv0);
+    if (gr.lane >= gr.lanes) continue;
+    float m[VEC], iv[VEC], ga[VEC], a[VEC], b[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      m[i] = cst[gr.ch + i];
+      iv[i] = cst[c + gr.ch + i];
+      ga[i] = cst[2 * c + gr.ch + i];
+      a[i] = cst[4 * c + gr.ch + i];
+      b[i] = cst[5 * c + gr.ch + i];
+    }
+    if constexpr (kReg > 0) {
+      if (rp > 0) {
+#pragma unroll
+        for (int r = 0; r < kReg; ++r) {
+          const int p = gr.lane + r * gr.lanes;
+          if (p < np) {
+            float xv[VEC], gv[VEC];
+            unpack<T, VEC>(xreg[r], xv);
+            unpack<T, VEC>(greg[r], gv);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+              const float xh = __fmul_rn(__fsub_rn(xv[i], m[i]), iv[i]);
+              xv[i] = ga[i] * iv[i] * (gv[i] - a[i] - xh * b[i]);
+            }
+            store_pack<T, VEC>(dx + off + (size_t)p * c + gr.ch, xv);
+          }
+        }
+      }
+    }
+#pragma unroll 2
+    for (int q = gr.lane; q < sp; q += gr.lanes) {
+      float xv[VEC], gv[VEC];
+      load_pack<T, VEC>(xs + q * c + gr.ch, xv);
+      load_pack<T, VEC>(gs + q * c + gr.ch, gv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xh = __fmul_rn(__fsub_rn(xv[i], m[i]), iv[i]);
+        xv[i] = ga[i] * iv[i] * (gv[i] - a[i] - xh * b[i]);
+      }
+      store_pack<T, VEC>(dx + off + (size_t)(rp + q) * c + gr.ch, xv);
+    }
+  }
+}
+
+// The arguments of one backward call.
+struct BwdArgs {
+  const void* x;
+  const void* g;
+  const float* mean;
+  const float* inv;
+  const float* gamma;
+  const float* beta;
+  void* dx;
+  float* dgamma;
+  float* dbeta;
+  float* work;
+  unsigned* counters;
+  int n, hw, c, chunk, chunks, relu, resident;
+  cudaStream_t stream;
+};
+
 template <typename T>
-cudaError_t launch_bwd(const void* x, const void* g, const float* mean,
-                       const float* inv, const float* gamma,
-                       const float* beta, void* dx, float* dgamma,
-                       float* dbeta, float* work, int n, int hw, int c,
-                       int chunk, int chunks, int relu, cudaStream_t stream) {
+cudaError_t launch_bwd_two(const BwdArgs& a) {
   const dim3 block(kTileC, kLanes);
-  const dim3 grid(chunks, (c + kTileC - 1) / kTileC, n);
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  in_bwd_partial<T><<<grid, block, 0, stream>>>(
-      xt, gt, mean, inv, gamma, beta, work, n, hw, c, chunk, chunks, relu);
+  const dim3 grid(a.chunks, (a.c + kTileC - 1) / kTileC, a.n);
+  const T* xt = static_cast<const T*>(a.x);
+  const T* gt = static_cast<const T*>(a.g);
+  in_bwd_partial<T><<<grid, block, 0, a.stream>>>(
+      xt, gt, a.mean, a.inv, a.gamma, a.beta, a.work, a.n, a.hw, a.c, a.chunk,
+      a.chunks, a.relu);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  in_bwd_apply<T><<<grid, block, 0, stream>>>(
-      xt, gt, mean, inv, gamma, beta, work, static_cast<T*>(dx), dgamma,
-      dbeta, n, hw, c, chunk, chunks, relu);
+  in_bwd_apply<T><<<grid, block, 0, a.stream>>>(
+      xt, gt, a.mean, a.inv, a.gamma, a.beta, a.work, static_cast<T*>(a.dx),
+      a.dgamma, a.dbeta, a.n, a.hw, a.c, a.chunk, a.chunks, a.relu);
   return cudaGetLastError();
 }
+
+// The one-launch backward's counters: the ticket, one per sample and each
+// sample's coefficients (2c).
+size_t bwd_counters(int n, int c) { return 1 + (size_t)n * (1 + 2 * (size_t)c); }
+
+// The smaller of the two ReLU variants' capacities.
+template <typename T, int VEC>
+cudaError_t bwd_capacity(int* per_sm, int* sms) {
+  static CapacityCache with_relu, without;
+  int per_sm2 = 0;
+  cudaError_t err = capacity_of(in_bwd_resident<T, VEC, true>, with_relu, per_sm, sms);
+  if (err == cudaSuccess) {
+    err = capacity_of(in_bwd_resident<T, VEC, false>, without, &per_sm2, sms);
+  }
+  *per_sm = min(*per_sm, per_sm2);
+  return err;
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd_resident(const BwdArgs& a) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = bwd_capacity<T, VEC>(&per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  const size_t smem = bwd_resident_smem<T, VEC>(a.chunk, a.c);
+  // a larger G could wait forever for a block that never starts
+  if (smem > (size_t)kSmemLimit || a.chunks > per_sm * sms) {
+    return cudaErrorInvalidValue;
+  }
+  err = zero_counters(a, bwd_counters(a.n, a.c));
+  if (err != cudaSuccess) return err;
+  const auto kernel = a.relu ? in_bwd_resident<T, VEC, true>
+                             : in_bwd_resident<T, VEC, false>;
+  kernel<<<a.n * a.chunks, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.mean, a.inv,
+      a.gamma, a.beta, static_cast<T*>(a.dx), a.dgamma, a.dbeta, a.work,
+      a.counters, a.n, a.hw, a.c, a.chunk, a.chunks);
+  return cudaGetLastError();
+}
+
+// The backward has no statistics mode: `dispatch` is called with onepass 0.
+template <typename T, int VEC, bool>
+struct BwdOp {
+  static cudaError_t run(const BwdArgs& a) {
+    return a.resident ? launch_bwd_resident<T, VEC>(a) : launch_bwd_two<T>(a);
+  }
+};
+
+template <typename T, int VEC, bool>
+struct BwdCapacityOp {
+  static cudaError_t run(int* per_sm, int* sms) {
+    return bwd_capacity<T, VEC>(per_sm, sms);
+  }
+};
 
 }  // namespace
 
@@ -923,28 +1377,45 @@ extern "C" int fnst_instance_norm_fwd_capacity(int is_bf16, int vec,
 
 // x, g, dx: (n, hw, c) NHWC in one dtype, f32 or bf16 (is_bf16). mean, inv:
 // (n, c) f32 residuals of the forward. gamma, beta: (c,) f32. dgamma, dbeta:
-// (n, c) f32 out, per sample. work: (2, n, chunks, c) f32 scratch.
-// chunks = ceil(hw / chunk). Launches on ``stream``; returns the CUDA error
-// code of the launches (0 on success). Allocates nothing.
+// (n, c) f32 out, per sample. work: f32 scratch of 2 * n * chunks * c
+// chunk partials. counters: 1 + n (1 + 2c) unsigned ints, zeroed here (the
+// one-launch kernel's hand-off). chunk: pixels per block; chunks = ceil(hw /
+// chunk). vec: channels per access, 16 / itemsize (c * itemsize a multiple
+// of 16, x, g and dx 16-byte aligned) or 1. resident: the one-launch
+// kernel, which needs chunks <= the capacity
+// (fnst_instance_norm_bwd_capacity); else the two-launch kernel. Launches
+// on ``stream``; returns the CUDA error code (0 on success). Allocates
+// nothing.
 extern "C" int fnst_instance_norm_bwd(const void* x, const void* g,
                                       const void* mean, const void* inv,
                                       const void* gamma, const void* beta,
                                       void* dx, void* dgamma, void* dbeta,
-                                      void* work, int n, int hw, int c,
-                                      int chunk, int chunks, int relu,
-                                      int is_bf16, void* stream) {
-  const float* m = static_cast<const float*>(mean);
-  const float* iv = static_cast<const float*>(inv);
-  const float* ga = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
-  float* w = static_cast<float*>(work);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_bwd<__nv_bfloat16>(x, g, m, iv, ga, be, dx, dg, db, w, n,
-                                     hw, c, chunk, chunks, relu, st);
+                                      void* work, void* counters, int n,
+                                      int hw, int c, int chunk, int chunks,
+                                      int relu, int is_bf16, int vec,
+                                      int resident, void* stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(dx);
+  if (n < 1 || hw < 1 || c < 1 || chunk < 1 || vec < 1 || c % vec != 0 ||
+      (vec > 1 && ptrs % 16 != 0) || chunks != (hw + chunk - 1) / chunk) {
+    return cudaErrorInvalidValue;
   }
-  return launch_bwd<float>(x, g, m, iv, ga, be, dx, dg, db, w, n, hw, c,
-                           chunk, chunks, relu, st);
+  const BwdArgs a{x, g, static_cast<const float*>(mean),
+                  static_cast<const float*>(inv),
+                  static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), dx,
+                  static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+                  static_cast<float*>(work), static_cast<unsigned*>(counters),
+                  n, hw, c, chunk, chunks, relu, resident,
+                  static_cast<cudaStream_t>(stream)};
+  return dispatch<BwdOp>(is_bf16, vec, 0, a);
+}
+
+// Blocks of the one-launch backward kernel the current device holds at
+// once, for the variant (is_bf16, vec): blocks per SM at its largest shared
+// memory, and the SM count. Returns the CUDA error code (0 on success).
+extern "C" int fnst_instance_norm_bwd_capacity(int is_bf16, int vec,
+                                               int* blocks_per_sm, int* sms) {
+  return dispatch<BwdCapacityOp>(is_bf16, vec, 0, blocks_per_sm, sms);
 }

@@ -1,14 +1,16 @@
 """Instance norm on the card: the wrappers of ``csrc/instance_norm.cu``
-(forward and backward), their plain PyTorch versions, the forward's
-planner, and the autograd Function that joins them.
+(forward and backward), their plain PyTorch versions, their planners, and
+the autograd Function that joins them.
 
 Replaces the TPU kernels ``fast_neural_style_transfer_tpu/ops/pallas_norm.py::
 _in_fwd_kernel`` and ``_in_bwd_kernel``. Both kernels are bound by bytes
 (forward: read x, write y; backward: read x and g, write dx); the source
-file states the bounds and the designs. The forward has two kernels, and
-``plan_fwd`` picks one by shape (its docstring states the rule); the
-backward splits H*W over blocks in two launches. Every IN site of the
-stylizer runs on the kernels at every batch size, with no fallback.
+file states the bounds and the designs. Each direction has two kernels, a
+one-launch kernel that holds a sample's chunks on chip (shared memory, and
+registers in the f32 backward) and a two-launch kernel for any slab;
+``plan_fwd`` and ``plan_bwd`` pick one by shape (their docstrings state the
+rules). Every IN site of the stylizer runs on the kernels at every batch
+size, with no fallback.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory format, i.e.
 physically NHWC, the layout the TPU kernels saw. ``mean`` and ``inv`` come
@@ -18,28 +20,37 @@ back as (N, C) float32, and so do the per-sample ``dgamma`` and ``dbeta``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 from fast_neural_style_transfer_tpu_torch.ops import _build
 
-_TILE_C = 32  # backward: channels per block (kTileC in the source)
-_MIN_CHUNK = 256  # backward: fewest pixels a block reduces
-_MAX_CHUNKS = 64  # backward: most chunk partials each apply block re-reads
-_TARGET_BLOCKS = 4 * 132  # backward: about four blocks on each of the H100's 132 SMs
+# two-launch backward
+_TILE_C = 32  # channels per block (kTileC in the source)
+_MIN_CHUNK = 256  # fewest pixels a block reduces
+_MAX_CHUNKS = 64  # most chunk partials each apply block re-reads
+_TARGET_BLOCKS = 4 * 132  # about four blocks on each of the H100's 132 SMs
 
-_FWD_THREADS = 256  # kThreads in the source
-# two-launch: most (chunk, channel) partials of a sample, all of which the
-# sample's last block merges
+_THREADS = 256  # kThreads in the source: threads of a one-launch block
+# two-launch forward: most (chunk, channel) partials of a sample, all of
+# which the sample's last block merges
 _FWD_PARTIALS = 8192
 
 _fns = None
 _capacities: Dict[tuple, Tuple[int, int]] = {}
 
 
-def _kernels():
-    """(forward, backward, forward capacity) entry points of the library."""
+class _Lib(NamedTuple):
+    """The library's entry points."""
+
+    fwd: Callable
+    bwd: Callable
+    fwd_capacity: Callable
+    bwd_capacity: Callable
+
+
+def _kernels() -> _Lib:
     global _fns
     if _fns is None:
         lib = _build.load("instance_norm")
@@ -49,13 +60,16 @@ def _kernels():
                         + [ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         bwd = lib.fnst_instance_norm_bwd
-        bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                         + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
-        cap = lib.fnst_instance_norm_fwd_capacity
-        cap.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
-        cap.restype = ctypes.c_int
-        _fns = (fwd, bwd, cap)
+        fwd_cap = lib.fnst_instance_norm_fwd_capacity
+        fwd_cap.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fwd_cap.restype = ctypes.c_int
+        bwd_cap = lib.fnst_instance_norm_bwd_capacity
+        bwd_cap.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+        bwd_cap.restype = ctypes.c_int
+        _fns = _Lib(fwd, bwd, fwd_cap, bwd_cap)
     return _fns
 
 
@@ -93,16 +107,18 @@ def instance_norm_fwd_reference(
 
 
 def _num_chunks(n: int, hw: int, tiles: int) -> int:
-    """Backward: pixel chunks per (sample, channel tile): enough blocks to
-    fill the card, at least _MIN_CHUNK pixels each, at most _MAX_CHUNKS."""
+    """Two-launch backward: pixel chunks per (sample, channel tile): enough
+    blocks to fill the card, at least _MIN_CHUNK pixels each, at most
+    _MAX_CHUNKS."""
     want = -(-_TARGET_BLOCKS // (n * tiles))
     return max(1, min(want, _MAX_CHUNKS, hw // _MIN_CHUNK))
 
 
-# one-launch: most bytes of x a block holds, so that two blocks share an SM
-# (chip_smoke.py's in_fwd_budgets phase times 64, 80 and 96 KB)
+# one-launch forward: most bytes of x a block holds, so that two blocks
+# share an SM (chip_smoke.py's in_fwd_budgets phase times 64, 80 and 96 KB)
 _FWD_CHUNK_BYTES = 80 * 1024
-_FWD_SMEM_LIMIT = 112 * 1024  # kSmemLimit: two such blocks fit an SM's 228 KB
+# kSmemLimit: a one-launch block's most shared memory; two fit an SM's 228 KB
+_SMEM_LIMIT = 112 * 1024
 
 
 class FwdPlan(NamedTuple):
@@ -118,10 +134,12 @@ class FwdPlan(NamedTuple):
     capacity: int  # one-launch blocks the card holds at once
 
 
-def fwd_vec(c: int, itemsize: int, ptr: int) -> int:
+def pack_vec(c: int, itemsize: int, *ptrs: int) -> int:
     """Channels per access: a 16-byte pack where a pixel row is a whole
-    number of packs and x is 16-byte aligned, else one element."""
-    return 16 // itemsize if (c * itemsize) % 16 == 0 and ptr % 16 == 0 else 1
+    number of packs and every tensor the kernel moves in packs (its
+    pointers ``ptrs``) is 16-byte aligned, else one element."""
+    aligned = all(p % 16 == 0 for p in ptrs)
+    return 16 // itemsize if (c * itemsize) % 16 == 0 and aligned else 1
 
 
 def fwd_smem_bytes(chunk: int, c: int, itemsize: int, vec: int) -> int:
@@ -129,7 +147,7 @@ def fwd_smem_bytes(chunk: int, c: int, itemsize: int, vec: int) -> int:
     the chunk (rounded up to 16 bytes), the lane sums and each channel's
     (scale, shift)."""
     return (-(-chunk * c * itemsize // 16) * 16
-            + 4 * _FWD_THREADS * max(vec, 2) + 8 * c)
+            + 4 * _THREADS * max(vec, 2) + 8 * c)
 
 
 def plan_fwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
@@ -139,7 +157,7 @@ def plan_fwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
     one-launch blocks each (``capacity`` = their product).
 
     One launch: chunks of whole pixel rows, as many pixels as fit
-    _FWD_CHUNK_BYTES (and the block's shared memory _FWD_SMEM_LIMIT), cut
+    _FWD_CHUNK_BYTES (and the block's shared memory _SMEM_LIMIT), cut
     smaller, down to one pixel, where the grid would hold fewer than two
     blocks per SM (or the capacity, if less). Every chunk of a sample has to
     be resident at once, so this route is taken iff a sample's chunks G <=
@@ -150,7 +168,7 @@ def plan_fwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
     row = c * itemsize
     capacity = blocks_per_sm * sms
     fixed = fwd_smem_bytes(0, c, itemsize, vec)
-    most = min(_FWD_CHUNK_BYTES, _FWD_SMEM_LIMIT - fixed - 15) // row
+    most = min(_FWD_CHUNK_BYTES, _SMEM_LIMIT - fixed - 15) // row
     if one_launch and most >= 1:
         g = -(-hw // most)
         fill = min(2 * sms, capacity)
@@ -167,16 +185,16 @@ def plan_fwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
     return FwdPlan("two_launch", vec, chunk, g, n * g, chunk * row, 0, capacity)
 
 
-def _capacity(device: torch.device, is_bf16: bool, vec: int,
-              onepass: bool) -> Tuple[int, int]:
-    """(blocks per SM, SMs) of the one-launch kernel on ``device``, asked of
-    the card once per device and kernel variant."""
-    key = (device.index, is_bf16, vec, onepass)
+def _capacity(device: torch.device, query: str, *variant: int) -> Tuple[int, int]:
+    """(blocks per SM, SMs) of a one-launch kernel on ``device``, from the
+    library's ``query`` ("fwd_capacity" or "bwd_capacity") for the kernel
+    ``variant``, asked of the card once per device and variant."""
+    key = (device.index, query, variant)
     if key not in _capacities:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = _kernels()[2](int(is_bf16), vec, int(onepass),
-                                ctypes.byref(per_sm), ctypes.byref(sms))
+            err = getattr(_kernels(), query)(*variant, ctypes.byref(per_sm),
+                                             ctypes.byref(sms))
         if err != 0:
             raise RuntimeError(f"instance-norm capacity query failed: CUDA error {err}")
         _capacities[key] = (per_sm.value, sms.value)
@@ -230,8 +248,8 @@ def fwd_plan(x: torch.Tensor, *, onepass: bool = False,
     ``one_launch=False``: the two-launch kernel's plan, for timing it)."""
     n, c, h, w = x.shape
     is_bf16 = x.dtype == torch.bfloat16
-    vec = fwd_vec(c, x.element_size(), x.data_ptr())
-    per_sm, sms = _capacity(x.device, is_bf16, vec, onepass)
+    vec = pack_vec(c, x.element_size(), x.data_ptr())
+    per_sm, sms = _capacity(x.device, "fwd_capacity", int(is_bf16), vec, int(onepass))
     return plan_fwd(n, h * w, c, x.element_size(), vec, sms=sms,
                     blocks_per_sm=per_sm, one_launch=one_launch)
 
@@ -253,7 +271,7 @@ def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     g = gamma.detach().to(torch.float32).contiguous()
     b = beta.detach().to(torch.float32).contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels()[0](
+    err = _kernels().fwd(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
         mean.data_ptr(), inv.data_ptr(), work.data_ptr(),
         counters.data_ptr(), n, h * w, c, plan.chunk, plan.chunks, float(eps),
@@ -301,6 +319,101 @@ def instance_norm_bwd_reference(
     return dx.to(x.dtype), gx_sum, g_sum
 
 
+# one-launch backward: most bytes of x and g together a block holds, so
+# that two blocks share an SM; the block's shared memory caps it first at
+# most shapes (chip_smoke.py's in_bwd_budgets phase times 64, 80 and 96 KB)
+_BWD_CHUNK_BYTES = 96 * 1024
+_BWD_CONSTS = 6  # kBwdConsts: per-channel floats of a one-launch block
+
+
+class BwdPlan(NamedTuple):
+    """How one ``instance_norm_bwd`` call runs (``plan_bwd``)."""
+
+    route: str  # "one_launch" or "two_launch"
+    vec: int  # channels per access: a 16-byte pack, or 1
+    chunk: int  # pixels per block
+    chunks: int  # blocks per sample (G), per channel tile on two launches
+    blocks: int  # blocks of a launch
+    chunk_bytes: int  # bytes of x and g a block owns (its largest chunk)
+    smem_bytes: int  # dynamic shared memory of a one-launch block, else 0
+    capacity: int  # one-launch blocks the card holds at once
+
+
+def bwd_reg_pixels(c: int, vec: int) -> int:
+    """The first pixels of a one-launch backward chunk, which the block's
+    threads hold in registers (bwd_reg_pixels in the source): 4 pixels a
+    lane in f32 and none in bf16, where a pixel row is no more packs than a
+    block has threads, else none."""
+    packs = c // vec
+    return (0 if vec == 8 else 4) * (_THREADS // packs) if packs <= _THREADS else 0
+
+
+def bwd_smem_bytes(chunk: int, c: int, itemsize: int, vec: int) -> int:
+    """Dynamic shared memory of a one-launch backward block, as the source
+    sizes it: the chunk of x and of g past its register pixels (each
+    rounded up to 16 bytes), two arrays of lane sums and the per-channel
+    constants."""
+    shared = max(chunk - bwd_reg_pixels(c, vec), 0)
+    return (2 * (-(-shared * c * itemsize // 16) * 16)
+            + 4 * 2 * _THREADS * vec + 4 * _BWD_CONSTS * c)
+
+
+def plan_bwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
+             blocks_per_sm: int, one_launch: bool = True) -> BwdPlan:
+    """The backward's kernel and chunks for n samples of hw pixels x c
+    channels, on a card of ``sms`` SMs that holds ``blocks_per_sm``
+    one-launch backward blocks each (``capacity`` = their product).
+
+    One launch: chunks of whole pixel rows, the register pixels
+    (``bwd_reg_pixels``) and as many more as fit _BWD_CHUNK_BYTES of x and
+    g together in shared memory (and the block's shared memory
+    _SMEM_LIMIT), cut smaller, down to one pixel, where the grid would
+    hold fewer than two blocks per SM (or the capacity, if less). Every
+    chunk of a sample has to be resident at once, so this route is taken
+    iff a sample's chunks G <= capacity: x + g up to ~capacity * 96 KB
+    and the register pixels (~25 MB a sample in bf16, ~33 MB in f32 on an
+    H100). The blocks of a launch then run in waves of the
+    capacity, and a sample whose chunks straddle two waves keeps its first
+    blocks waiting through a wave, so G is raised to capacity // k, k the
+    whole samples a wave holds at the fewest chunks. Otherwise (a larger
+    slab, a pixel row above the budget, or ``one_launch=False``) two
+    launches, element by element: G = ``_num_chunks`` per tile of 32
+    channels."""
+    row = 2 * c * itemsize
+    capacity = blocks_per_sm * sms
+    fixed = bwd_smem_bytes(0, c, itemsize, vec)
+    # less two roundings of a chunk up to 16 bytes
+    most = (bwd_reg_pixels(c, vec)
+            + min(_BWD_CHUNK_BYTES, _SMEM_LIMIT - fixed - 30) // row)
+    if one_launch and most >= 1:
+        g = -(-hw // most)
+        fill = min(2 * sms, capacity)
+        if n * g < fill:
+            g = min(hw, -(-fill // n))
+        if g <= capacity:
+            g = capacity // (capacity // g)  # whole samples in a wave
+            chunk = -(-hw // g)
+            g = -(-hw // chunk)
+            return BwdPlan("one_launch", vec, chunk, g, n * g, chunk * row,
+                           bwd_smem_bytes(chunk, c, itemsize, vec), capacity)
+    tiles = -(-c // _TILE_C)
+    chunk = -(-hw // _num_chunks(n, hw, tiles))
+    g = -(-hw // chunk)
+    return BwdPlan("two_launch", 1, chunk, g, n * g * tiles, chunk * row, 0,
+                   capacity)
+
+
+def bwd_plan(x: torch.Tensor, g: torch.Tensor, *, one_launch: bool = True) -> BwdPlan:
+    """The plan ``instance_norm_bwd`` follows for the CUDA tensors x and g
+    (with ``one_launch=False``: the two-launch kernel's plan, for timing
+    it)."""
+    n, c, h, w = x.shape
+    vec = pack_vec(c, x.element_size(), x.data_ptr(), g.data_ptr())
+    per_sm, sms = _capacity(x.device, "bwd_capacity", int(x.dtype == torch.bfloat16), vec)
+    return plan_bwd(n, h * w, c, x.element_size(), vec, sms=sms,
+                    blocks_per_sm=per_sm, one_launch=one_launch)
+
+
 def instance_norm_bwd(
     x: torch.Tensor,
     g: torch.Tensor,
@@ -315,7 +428,8 @@ def instance_norm_bwd(
     g must already be in x's dtype and layout.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    or raises: wrong dtype or layout, a failed build or a failed launch."""
+    that ``plan_bwd`` picks, or raises: wrong dtype or layout, a failed
+    build or a failed launch."""
     if x.device.type == "cpu":
         return instance_norm_bwd_reference(x, g, mean, inv, gamma, beta, relu=relu)
     if x.device.type != "cuda":
@@ -330,30 +444,45 @@ def instance_norm_bwd(
     for name, r in (("mean", mean), ("inv", inv)):
         if r.shape != (n, c) or r.dtype != torch.float32 or not r.is_contiguous():
             raise ValueError(f"{name} must be a contiguous ({n}, {c}) float32 tensor")
-    hw = h * w
-    tiles = -(-c // _TILE_C)
-    chunk = -(-hw // _num_chunks(n, hw, tiles))
-    chunks = -(-hw // chunk)
+    return _launch_bwd(x, g, mean, inv, gamma, beta, bwd_plan(x, g), relu=relu)
+
+
+def _launch_bwd(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                inv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                plan: BwdPlan, *, relu: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One backward call on the card as ``plan`` says (inputs already
+    checked)."""
+    n, c, h, w = x.shape
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     dgamma = torch.empty((n, c), dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
-    work = torch.empty((2, n, chunks, c), dtype=torch.float32, device=x.device)
+    # chunk partials: (n, G, 2, c) on one launch, (2, n, G, c) on two
+    work = torch.empty(2 * n * plan.chunks * c, dtype=torch.float32, device=x.device)
+    # the one-launch kernel's hand-off: the ticket counter, then per sample
+    # its blocks that have published, then each sample's coefficients (n, 2,
+    # c) (the C call zeroes them all)
+    counters = torch.empty(1 + n * (1 + 2 * c), dtype=torch.int32, device=x.device)
     gm = gamma.detach().to(torch.float32).contiguous()
     bt = beta.detach().to(torch.float32).contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels()[1](
+    err = _kernels().bwd(
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(),
         gm.data_ptr(), bt.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-        dbeta.data_ptr(), work.data_ptr(), n, hw, c, chunk, chunks,
-        int(relu), int(x.dtype == torch.bfloat16), stream)
+        dbeta.data_ptr(), work.data_ptr(), counters.data_ptr(), n, h * w, c,
+        plan.chunk, plan.chunks, int(relu), int(x.dtype == torch.bfloat16),
+        plan.vec, int(plan.route == "one_launch"), stream)
     if err != 0:
-        raise RuntimeError(
-            f"instance-norm backward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"instance-norm backward kernel launch failed: CUDA "
+                           f"error {err} ({plan})")
     instance_norm_bwd.launches += 1
+    instance_norm_bwd.launches_by_route[plan.route] += 1
     return dx, dgamma, dbeta
 
 
+# calls that launched a backward kernel: in all, and by route
 instance_norm_bwd.launches = 0
+instance_norm_bwd.launches_by_route = {"one_launch": 0, "two_launch": 0}
 
 
 class InstanceNormFn(torch.autograd.Function):

@@ -51,7 +51,7 @@ class StylizeServer(ThreadingHTTPServer):
     request_queue_size = 128
 
     def __init__(self, addr, batcher: MicroBatcher, *, family: str,
-                 device: str = "cpu", size: int = 0,
+                 device: str, size: int = 0,
                  request_timeout_s: float = 60.0):
         self.batcher = batcher
         self.family = family
@@ -153,7 +153,7 @@ def make_server(
     forward: Callable[[np.ndarray], np.ndarray],
     *,
     family: str,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device],
     host: str = "127.0.0.1",
     port: int = 0,
     size: int = 0,

@@ -243,7 +243,7 @@ def _emulate_kernel(x, gamma, beta, *, relu, onepass, route, eps=1e-5):
     n, h, w, c = x.shape
     hw, f32 = h * w, np.float32
     xs = x.reshape(n, hw, c).astype(f32)
-    vec = cuda_norm.fwd_vec(c, 4, 0)
+    vec = cuda_norm.pack_vec(c, 4, 0)
     plan = cuda_norm.plan_fwd(n, hw, c, 4, vec, sms=_SMS,
                               blocks_per_sm=2, one_launch=route == "one_launch")
     assert plan.route == route
@@ -335,7 +335,7 @@ def test_fwd_plan_at_site_shapes(hwc, n, itemsize):
     assert plan.route == "one_launch"
     assert plan.chunk_bytes == plan.chunk * c * itemsize <= cuda_norm._FWD_CHUNK_BYTES
     assert plan.smem_bytes == cuda_norm.fwd_smem_bytes(plan.chunk, c, itemsize, plan.vec)
-    assert plan.smem_bytes <= cuda_norm._FWD_SMEM_LIMIT
+    assert plan.smem_bytes <= cuda_norm._SMEM_LIMIT
     assert 1 <= plan.chunks <= plan.capacity == 2 * _SMS
     assert (plan.chunks - 1) * plan.chunk < hw <= plan.chunks * plan.chunk
     assert plan.blocks == n * plan.chunks >= _SMS
@@ -362,13 +362,13 @@ def test_fwd_plan_rules():
     a one-launch block never exceeds its shared memory (a pixel row above
     the budget goes to two launches); ``one_launch=False`` and a card that
     holds no one-launch block take two launches."""
-    assert cuda_norm.fwd_vec(32, 4, 256) == 4 and cuda_norm.fwd_vec(32, 2, 256) == 8
-    assert cuda_norm.fwd_vec(3, 4, 256) == 1 and cuda_norm.fwd_vec(32, 4, 8) == 1
+    assert cuda_norm.pack_vec(32, 4, 256) == 4 and cuda_norm.pack_vec(32, 2, 256) == 8
+    assert cuda_norm.pack_vec(3, 4, 256) == 1 and cuda_norm.pack_vec(32, 4, 8) == 1
     plan = cuda_norm.plan_fwd(2, 50 * 70, 3, 4, 1, sms=132, blocks_per_sm=2)
     assert plan.route == "one_launch" and plan.vec == 1
-    assert plan.smem_bytes <= cuda_norm._FWD_SMEM_LIMIT
+    assert plan.smem_bytes <= cuda_norm._SMEM_LIMIT
     wide = cuda_norm.plan_fwd(1, 64, 2048, 4, 4, sms=132, blocks_per_sm=2)
-    assert wide.route == "one_launch" and wide.smem_bytes <= cuda_norm._FWD_SMEM_LIMIT
+    assert wide.route == "one_launch" and wide.smem_bytes <= cuda_norm._SMEM_LIMIT
     for kw in ({"one_launch": False}, {}):
         per_sm = 2 if kw else 0
         plan = cuda_norm.plan_fwd(8, 4096, 256, 2, 8, sms=132, blocks_per_sm=per_sm, **kw)
@@ -469,6 +469,184 @@ def test_instance_norm_backward_on_cpu_matches_jax_vjp(shape, relu, dtype):
                                **_tol(dtype, 1e-4))
     np.testing.assert_allclose(dg_t.numpy(), np.asarray(dg_j), rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(db_t.numpy(), np.asarray(db_j), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 8, 20])
+@pytest.mark.parametrize("hwc", _SITE_HWC)
+def test_bwd_plan_at_site_shapes(hwc, n, itemsize):
+    """Every IN site of the 256^2 training path takes the one-launch
+    backward, on a 132-SM card holding two of its blocks per SM: chunks of
+    whole pixel rows whose x and g past the register pixels fit the byte
+    budget and the shared memory, G within the capacity, chunks that cover
+    H*W exactly, at least a block per SM."""
+    h, w, c = hwc
+    hw = h * w
+    plan = cuda_norm.plan_bwd(n, hw, c, itemsize, 16 // itemsize,
+                              sms=_SMS, blocks_per_sm=2)
+    assert plan.route == "one_launch" and plan.vec == 16 // itemsize
+    assert plan.chunk_bytes == 2 * plan.chunk * c * itemsize
+    shared = max(plan.chunk - cuda_norm.bwd_reg_pixels(c, plan.vec), 0)
+    assert 2 * shared * c * itemsize <= cuda_norm._BWD_CHUNK_BYTES
+    assert plan.smem_bytes == cuda_norm.bwd_smem_bytes(plan.chunk, c, itemsize, plan.vec)
+    assert plan.smem_bytes <= cuda_norm._SMEM_LIMIT
+    assert 1 <= plan.chunks <= plan.capacity == 2 * _SMS
+    assert (plan.chunks - 1) * plan.chunk < hw <= plan.chunks * plan.chunk
+    assert plan.blocks == n * plan.chunks >= _SMS
+
+
+@pytest.mark.parametrize("itemsize,chunks", [(4, (66, 66, 132)), (2, (44, 52, 88))],
+                         ids=["f32", "bf16"])
+def test_bwd_plan_fills_waves_with_whole_samples(itemsize, chunks):
+    """At the training batch the one-launch backward's blocks run in waves
+    of the capacity (264): G = 264 // k, k the most whole samples a wave
+    can hold, so no sample's chunks straddle two waves; f32 holds 4 pixels
+    a lane in registers beside shared memory (4 samples a wave at 128^2 x 64
+    and 64^2 x 256, 2 at 256^2 x 32), bf16 none (6, 5 and 3)."""
+    got = tuple(cuda_norm.plan_bwd(20, h * w, c, itemsize, 16 // itemsize, sms=_SMS,
+                                   blocks_per_sm=2).chunks for h, w, c in _SITE_HWC)
+    assert got == chunks
+    assert all(264 // g * g > 264 - g for g in got)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 2])
+def test_bwd_plan_routes_large_slabs_to_two_launches(n, itemsize):
+    """A 1024^2 x 32 slab (x + g 268 MB a sample in f32) has more chunks
+    than the card holds at once: the two-launch kernel, element by element,
+    with the chunks of ``_num_chunks`` covering H*W."""
+    hw, c = 1024 * 1024, 32
+    plan = cuda_norm.plan_bwd(n, hw, c, itemsize, 16 // itemsize,
+                              sms=_SMS, blocks_per_sm=2)
+    assert plan.route == "two_launch" and plan.smem_bytes == 0 and plan.vec == 1
+    assert -(-hw * 2 * c * itemsize // cuda_norm._BWD_CHUNK_BYTES) > plan.capacity
+    assert plan.chunks == cuda_norm._num_chunks(n, hw, 1)
+    assert (plan.chunks - 1) * plan.chunk < hw <= plan.chunks * plan.chunk
+    assert plan.blocks == n * plan.chunks
+
+
+def test_bwd_plan_rules():
+    """16-byte packs only where a pixel row is whole packs and both x and g
+    are aligned; a one-launch block never exceeds its shared memory (a
+    pixel row of x and g above the budget goes to two launches);
+    ``one_launch=False`` and a card that holds no one-launch block take
+    two launches."""
+    assert cuda_norm.pack_vec(32, 4, 256, 512) == 4
+    assert cuda_norm.pack_vec(32, 2, 256, 512) == 8
+    assert cuda_norm.pack_vec(32, 4, 256, 8) == 1  # g unaligned
+    assert cuda_norm.pack_vec(3, 2, 256, 512) == 1  # a row of 6 bytes
+    plan = cuda_norm.plan_bwd(2, 50 * 70, 3, 4, 1, sms=_SMS, blocks_per_sm=2)
+    assert plan.route == "one_launch" and plan.vec == 1
+    assert plan.smem_bytes <= cuda_norm._SMEM_LIMIT
+    wide = cuda_norm.plan_bwd(1, 64, 2048, 4, 4, sms=_SMS, blocks_per_sm=2)
+    assert wide.route == "one_launch" and wide.smem_bytes <= cuda_norm._SMEM_LIMIT
+    huge_row = cuda_norm.plan_bwd(1, 64, 16384, 4, 4, sms=_SMS, blocks_per_sm=2)
+    assert huge_row.route == "two_launch"
+    for kw in ({"one_launch": False}, {}):
+        per_sm = 2 if kw else 0
+        plan = cuda_norm.plan_bwd(8, 4096, 256, 2, 8, sms=_SMS, blocks_per_sm=per_sm, **kw)
+        assert plan.route == "two_launch"
+
+
+def _merge_slices(c, chunks):
+    """The one-launch kernels' merge: block j takes channels [j * per,
+    (j + 1) * per), per the least power of two with per * chunks >= c."""
+    per = 1
+    while per * chunks < c:
+        per *= 2
+    return [(j * per, min(c, (j + 1) * per)) for j in range(chunks) if j * per < c]
+
+
+def _emulate_bwd_kernel(x, gy, mean, inv, gamma, beta, *, relu, itemsize, route):
+    """numpy emulation (float32) of the CUDA backward's reduction, with the
+    planner's chunks on a 132-SM card holding two one-launch blocks per SM.
+    x, gy (n, h, w, c) already rounded to the working dtype. The gate and
+    xhat as the plain version forms them (each operation rounded); then
+    per chunk the gated sum(g) and sum(g * xhat): one launch, lane sums
+    over the pixels (lane_sum) and each block's merge of its slice of the
+    channels over the chunks (lane_sum again); two launches, 8 pixel lanes
+    per 32-channel tile added in order, lane 0 adding the other 7, the same
+    again over the chunks. dx = gamma * inv * (g - a - xhat * b), rounded
+    to the working dtype; returns (dx, dgamma, dbeta)."""
+    n, h, w, c = x.shape
+    hw, f32 = h * w, np.float32
+    xs = x.reshape(n, hw, c).astype(f32)
+    gs = gy.reshape(n, hw, c).astype(f32)
+    vec = cuda_norm.pack_vec(c, itemsize, 0, 0)
+    plan = cuda_norm.plan_bwd(n, hw, c, itemsize, vec, sms=_SMS, blocks_per_sm=2,
+                              one_launch=route == "one_launch")
+    assert plan.route == route
+    xh = (xs - mean[:, None]) * inv[:, None]
+    gg = np.where(xh * gamma + beta > 0, gs, f32(0)) if relu else gs
+    gx = gg * xh
+    parts = []  # per chunk: (sum g, sum g * xhat), each (n, c)
+    for j in range(plan.chunks):
+        sl = slice(j * plan.chunk, (j + 1) * plan.chunk)
+        if route == "one_launch":
+            parts.append((_lane_sum(gg[:, sl], c // vec), _lane_sum(gx[:, sl], c // vec)))
+        else:
+            parts.append((_seq_lanes(gg[:, sl], 8), _seq_lanes(gx[:, sl], 8)))
+    pa = np.stack([p[0] for p in parts], 1)  # (n, chunks, c)
+    pb = np.stack([p[1] for p in parts], 1)
+    if route == "one_launch":
+        sg, sgx = np.zeros((n, c), f32), np.zeros((n, c), f32)
+        for c0, c1 in _merge_slices(c, plan.chunks):
+            sg[:, c0:c1] = _lane_sum(pa[:, :, c0:c1], c1 - c0)
+            sgx[:, c0:c1] = _lane_sum(pb[:, :, c0:c1], c1 - c0)
+    else:
+        sg, sgx = _seq_lanes(pa, 8), _seq_lanes(pb, 8)
+    a, b = sg / f32(hw), sgx / f32(hw)
+    dx = (gamma * inv)[:, None] * (gg - a[:, None] - xh * b[:, None])
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    dx = torch.from_numpy(dx.reshape(x.shape)).to(dtype).float().numpy()
+    return dx, sgx, sg
+
+
+def _seq_lanes(vals, lanes):
+    """Sum over axis 1 as the two-launch backward adds: lane l takes rows
+    l, l + lanes, ... in order, then lane 0 adds lanes 1, 2, ... in order."""
+    sums = [vals[:, lane::lanes].cumsum(axis=1, dtype=np.float32)[:, -1]
+            if lane < vals.shape[1] else np.zeros(vals.shape[:1] + vals.shape[2:], np.float32)
+            for lane in range(lanes)]
+    total = sums[0]
+    for s_ in sums[1:]:
+        total = total + s_
+    return total
+
+
+@pytest.mark.parametrize("route", ["one_launch", "two_launch"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", _IN_SHAPES + [(2, 32, 32, 40), (1, 30, 35, 64)])
+def test_in_bwd_kernel_reduction_emulation_matches_plain(shape, relu, dtype, route):
+    """The backward kernels' chunked sums and their merges, emulated on the
+    CPU, against the plain version on the same residuals and, at the
+    shapes of the Pallas tests above, against _pallas_in_backward in
+    interpret mode. f32: sums in another order, 1e-5; bf16: one ulp plus
+    1e-2, as above."""
+    x, gy, gamma, beta = _grad_inputs(shape, dtype, seed=19)
+    itemsize = 4 if dtype == "float32" else 2
+    tdt = getattr(torch, dtype)
+    _, mean_t, inv_t = cuda_norm.instance_norm_fwd_reference(
+        to_nchw(x, tdt), torch.from_numpy(gamma), torch.from_numpy(beta))
+    mean, inv = mean_t.numpy(), inv_t.numpy()
+    dx_e, dg_e, db_e = _emulate_bwd_kernel(x, gy, mean, inv, gamma, beta, relu=relu,
+                                           itemsize=itemsize, route=route)
+    dx_r, dg_r, db_r = cuda_norm.instance_norm_bwd_reference(
+        to_nchw(x, tdt), to_nchw(gy, tdt), mean_t, inv_t, torch.from_numpy(gamma),
+        torch.from_numpy(beta), relu=relu)
+    np.testing.assert_allclose(dx_e, to_nhwc(dx_r), **_tol(dtype, 1e-5))
+    np.testing.assert_allclose(dg_e, dg_r.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(db_e, db_r.numpy(), rtol=1e-5, atol=1e-4)
+    if shape in _IN_SHAPES:
+        jdt = getattr(jnp, dtype)
+        dx_j, dg_j, db_j = _pallas_in_backward(
+            jnp.asarray(x).astype(jdt), jnp.asarray(gy).astype(jdt),
+            jnp.asarray(mean[:, None]), jnp.asarray(inv[:, None]), jnp.asarray(gamma),
+            jnp.asarray(beta), relu=relu, interpret=True)
+        np.testing.assert_allclose(dx_e, np.asarray(dx_j, np.float32), **_tol(dtype, 1e-5))
+        np.testing.assert_allclose(dg_e, np.asarray(dg_j)[:, 0], rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(db_e, np.asarray(db_j)[:, 0], rtol=1e-5, atol=1e-4)
 
 
 def test_instance_norm_without_grad_makes_one_forward_call():

@@ -168,12 +168,8 @@ def test_in_bwd_kernel_matches_plain_on_card(dtype, relu):
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(1)
     for n, h, w, c in _BWD_SITES:
-        mk = lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
-        x = (mk((n, c, h, w)) * 2 + 0.5).to(dt).contiguous(memory_format=torch.channels_last)
-        g = mk((n, c, h, w)).to(dt).contiguous(memory_format=torch.channels_last)
-        gamma, beta = mk(c), mk(c)
+        x, g, mean, inv, gamma, beta = _bwd_inputs(rng, n, h, w, c, dt)
         with torch.inference_mode():
-            _, mean, inv = cuda_norm.instance_norm_fwd(x, gamma, beta)
             dx, dgn, dbn = cuda_norm.instance_norm_bwd(x, g, mean, inv, gamma, beta,
                                                        relu=relu)
             torch.cuda.synchronize()
@@ -186,6 +182,67 @@ def test_in_bwd_kernel_matches_plain_on_card(dtype, relu):
         scale = float(dgn_r.abs().max()) + float(dbn_r.abs().max())
         torch.testing.assert_close(dgn, dgn_r, rtol=1e-4, atol=1e-4 * scale)
         torch.testing.assert_close(dbn, dbn_r, rtol=1e-4, atol=1e-4 * scale)
+
+
+def _bwd_inputs(rng, n, h, w, c, dt):
+    mk = lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+    x = (mk((n, c, h, w)) * 2 + 0.5).to(dt).contiguous(memory_format=torch.channels_last)
+    g = mk((n, c, h, w)).to(dt).contiguous(memory_format=torch.channels_last)
+    gamma, beta = mk(c), mk(c)
+    with torch.inference_mode():
+        _, mean, inv = cuda_norm.instance_norm_fwd(x, gamma, beta)
+    return x, g, mean, inv, gamma, beta
+
+
+# (N, H, W, C, route): the largest IN site of a training step at its batch
+# of 20, and a slab larger than the card holds at once
+_BWD_ROUTES = [(20, 256, 256, 32, "one_launch"), (2, 1024, 1024, 32, "two_launch")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _BWD_ROUTES, ids=lambda c: c[-1])
+def test_in_bwd_kernel_routes_and_matches_plain_on_card(dtype, case):
+    """The backward on the route plan_bwd picks (asserted) against its
+    plain version, the ReLU on: the same tolerances as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n, h, w, c, route = case
+    dt = getattr(torch, dtype)
+    x, g, mean, inv, gamma, beta = _bwd_inputs(np.random.default_rng(4), n, h, w, c, dt)
+    assert cuda_norm.bwd_plan(x, g).route == route
+    before = dict(cuda_norm.instance_norm_bwd.launches_by_route)
+    with torch.inference_mode():
+        dx, dgn, dbn = cuda_norm.instance_norm_bwd(x, g, mean, inv, gamma, beta, relu=True)
+        torch.cuda.synchronize()
+        dx_r, dgn_r, dbn_r = cuda_norm.instance_norm_bwd_reference(
+            x.float(), g.float(), mean, inv, gamma, beta, relu=True)
+    assert cuda_norm.instance_norm_bwd.launches_by_route[route] == before[route] + 1
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=1 / 128, atol=1e-2)
+    torch.testing.assert_close(dx.float(), dx_r, **tol)
+    scale = float(dgn_r.abs().max()) + float(dbn_r.abs().max())
+    torch.testing.assert_close(dgn, dgn_r, rtol=1e-4, atol=1e-4 * scale)
+    torch.testing.assert_close(dbn, dbn_r, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _BWD_ROUTES, ids=lambda c: c[-1])
+def test_in_bwd_kernel_repeats_bit_for_bit_on_card(dtype, case):
+    """Both backward kernels sum in a fixed order: two calls give the same
+    bits of dx, dgamma and dbeta."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n, h, w, c, _ = case
+    x, g, mean, inv, gamma, beta = _bwd_inputs(
+        np.random.default_rng(5), n, h, w, c, getattr(torch, dtype))
+    with torch.inference_mode():
+        first = cuda_norm.instance_norm_bwd(x, g, mean, inv, gamma, beta, relu=True)
+        second = cuda_norm.instance_norm_bwd(x, g, mean, inv, gamma, beta, relu=True)
+    for a, b in zip(first, second):
+        ints = torch.int16 if a.element_size() == 2 else torch.int32
+        assert torch.equal(a.view(ints), b.view(ints))
 
 
 @pytest.mark.gpu

@@ -187,9 +187,16 @@ def test_warm_up_runs_every_batch_size_on_the_dispatcher_thread():
         b.close()
 
 
+def test_make_server_needs_the_device_it_reports():
+    """/healthz names the device the forward runs on: the caller must say
+    which, or a server on the card would report the CPU."""
+    with pytest.raises(TypeError, match="device"):
+        make_server(lambda batch: batch, family="flagship", port=0)
+
+
 def test_make_server_raises_a_failed_warm_up():
     def forward(batch):
         raise RuntimeError("no plan for this shape")
 
     with pytest.raises(RuntimeError, match="no plan"):
-        make_server(forward, family="flagship", port=0, warm_size=16)
+        make_server(forward, family="flagship", device="cpu", port=0, warm_size=16)
