@@ -8,9 +8,10 @@ the CUDA kernels from ``csrc/`` with nvcc (both sources at once), and holds
 each kernel against its plain PyTorch version at the shapes of the main
 paths (the IN forward's and backward's two kernels each where its planner
 routes: the one-launch kernel at every 256x256 site, the two-launch kernel
-at a slab larger than the card holds at once). Then it drives the two main
-paths, each with the kernel-launch counters (the IN kernels' also by
-route) set to 0 just before and read just after:
+at a slab larger than the card holds at once; the conv dx's tap-packed
+kernel at VGG conv1_1 and its tiled kernel at a k=9 conv). Then it drives
+the two main paths, each with the kernel-launch counters (also by route)
+set to 0 just before and read just after:
 - serving (slice 1): the in-repo trained checkpoint against the port's own
   CPU path, concurrent HTTP requests and the inference CLI;
 - training (slice 2): the training CLI for 10 steps at batch 20, 256x256,
@@ -363,35 +364,51 @@ def phase_in_bwd_vs_plain(seed: int) -> float:
     return worst
 
 
+# conv backward cases: (N, H, W, C_in, k, route of dx-only). VGG conv1_1
+# (64 -> 3, k3) at 256x256 with B=1 and B=20, and 200x300 with B=2 (ragged
+# strips and tiles, outside the TPU kernel's gate), on the tap-packed
+# kernel; a k=9, C_in=1 conv (k*k*C_in = 81 > 32) on the tiled one
+CONV_CASES = [(1, 256, 256, 3, 3, "tap_packed"), (20, 256, 256, 3, 3, "tap_packed"),
+              (2, 200, 300, 3, 3, "tap_packed"), (2, 128, 160, 1, 9, "tiled")]
+
+
 def phase_conv_bwd_vs_plain(seed: int) -> float:
-    """conv backward kernel (dx-only and full) against its plain version
-    (shifted sums in f32 on the upcast inputs): VGG conv1_1 (64 -> 3, k3)
-    at 256x256 with B=1 and B=20, and 200x300 with B=2 (ragged tiles on
-    both edges, outside the TPU kernel's gate), f32 and bf16. Tolerances:
-    each output is a sum (dx: 576 terms a pixel; dw, db: N*H*W terms an
-    entry); a sum in another order errs by at most (terms) * 2^-24 of its
-    sum of absolute terms S, in practice by ~sqrt(terms) times less, so
-    |d| <= 1e-4 * S, plus 2^-7 |dx| in bf16 (one ulp: dx rounded to
-    bf16 errs by up to 2^-8 |dx|)."""
+    """conv backward kernels against their plain version (shifted sums in
+    f32 on the upcast inputs) at CONV_CASES, f32 and bf16: dx-only on the
+    route plan_conv_dx picks (asserted; each case called twice, and the
+    second call must give the same bits), and full mode (dx, dw, db) on the
+    tiled kernel. Each case states its plan; a tap-packed plan's shared
+    memory must equal the source's. Tolerances: each output is a sum (dx:
+    k*k*64 terms a pixel; dw, db: N*H*W terms an entry); a sum in another
+    order errs by at most (terms) * 2^-24 of its sum of absolute terms S,
+    in practice by ~sqrt(terms) times less, and 3xTF32 products by ~2^-21
+    of S, so |d| <= 1e-4 * S, plus 2^-7 |dx| in bf16 (one ulp: dx rounded
+    to bf16 errs by up to 2^-8 |dx|)."""
     import torch
 
     from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import (
+        _kernel,
         conv2d_same_bwd,
         conv2d_same_bwd_reference,
         conv2d_same_dx,
         conv2d_same_dx_reference,
+        conv_dx_plan,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     worst = 0.0
-    w32 = torch.randn((64, 3, 3, 3), generator=gen, device="cuda") * 0.1
-    for n, h, w in ((1, 256, 256), (20, 256, 256), (2, 200, 300)):
+    for n, h, w, ci, k, route in CONV_CASES:
+        w32 = torch.randn((64, ci, k, k), generator=gen, device="cuda") * 0.1
         gbase = torch.randn((n, 64, h, w), generator=gen, device="cuda")
-        xbase = torch.randn((n, 3, h, w), generator=gen, device="cuda")
+        xbase = torch.randn((n, ci, h, w), generator=gen, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
             g = gbase.to(dtype).contiguous(memory_format=torch.channels_last)
             x = xbase.to(dtype).contiguous(memory_format=torch.channels_last)
             wt = w32.to(dtype)
+            plan = conv_dx_plan(g, wt)
+            bf16 = int(dtype == torch.bfloat16)
+            smem_ok = (plan.route != "tap_packed"
+                       or plan.smem_bytes == _kernel().dx_smem(k, ci, bf16))
             with torch.inference_mode():
                 dx_r, dw_r, db_r = conv2d_same_bwd_reference(g.float(), x.float(), wt.float())
                 _, sw, sb = conv2d_same_bwd_reference(g.float().abs(), x.float().abs(),
@@ -399,9 +416,14 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
                 sx = conv2d_same_dx_reference(g.float().abs(), wt.float().abs())
             r = 0.0 if dtype == torch.float32 else 2.0 ** -7
             for mode in ("dx", "full"):
+                repeatable = True
                 with torch.inference_mode():
                     if mode == "dx":
                         dx = conv2d_same_dx(g, wt)
+                        again = conv2d_same_dx(g, wt)
+                        torch.cuda.synchronize()
+                        repeatable = torch.equal(bits(dx), bits(again))
+                        del again
                     else:
                         dx, dw, db = conv2d_same_bwd(g, x, wt)
                     torch.cuda.synchronize()
@@ -416,13 +438,20 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
                         db_max_abs_err=(db - db_r).abs().max().item(),
                         db_err_over_tol=over_tol((db - db_r).abs(), 1e-4 * sb))
                 worst = max(worst, fields["dx_max_abs_err"])
-                ok = (dx.shape == x.shape and dx.dtype == dtype
-                      and max(v for k, v in fields.items() if k.endswith("over_tol")) <= 1)
-                emit("conv_bwd_vs_plain", shape=[n, h, w], c_in=3, c_out=64, k=3,
-                     dtype=str(dtype).replace("torch.", ""), mode=mode, ok=ok, **fields)
+                kernel = plan.route if mode == "dx" else "tiled"
+                ok = (dx.shape == x.shape and dx.dtype == dtype and repeatable
+                      and plan.route == route and smem_ok
+                      and max(v for k_, v in fields.items() if k_.endswith("over_tol")) <= 1)
+                emit("conv_bwd_vs_plain", shape=[n, h, w], c_in=ci, c_out=64, k=k,
+                     dtype=str(dtype).replace("torch.", ""), mode=mode, route=kernel,
+                     plan=plan._asdict() if mode == "dx" else None,
+                     bitwise_repeatable=repeatable if mode == "dx" else None,
+                     ok=ok, **fields)
                 if not ok:
-                    fail(f"conv backward kernel disagrees with plain at {[n, h, w]} "
-                         f"{dtype} {mode}")
+                    fail(f"conv backward kernel disagrees with plain, repeats with "
+                         f"other bits or takes the wrong route at {[n, h, w]} k={k} "
+                         f"C_in={ci} {dtype} {mode} ({plan.route})")
+            del g, x, dx, dx_r, sx
     return worst
 
 
@@ -582,7 +611,8 @@ def phase_training(seed: int) -> dict:
     width, the seeded random VGG (no ImageNet weights exist here), on 40
     synthetic JPEGs and a synthetic style image. Launch counters are set to
     0 just before and read just after: 14 IN forwards and 14 IN backwards
-    (all on the one-launch kernels) and one conv1_1 dx per step. Every
+    (all on the one-launch kernels) and one conv1_1 dx per step (all on
+    the tap-packed kernel). Every
     logged loss must be finite with no
     skipped step, a checkpoint and style_transfer_final.npz must be
     written, and the port's Stylizer must stylize an image on the card with
@@ -616,6 +646,8 @@ def phase_training(seed: int) -> dict:
         out = os.path.join(tmp, "out")
         for fn in counters.values():
             fn.launches = 0
+        conv2d_same_dx.launches_by_route = dict.fromkeys(
+            conv2d_same_dx.launches_by_route, 0)
         reset_in_counts()
         t0 = time.perf_counter()
         final = begin_training.main([
@@ -627,6 +659,7 @@ def phase_training(seed: int) -> dict:
         launches = {k: fn.launches for k, fn in counters.items()}
         by_route = dict(instance_norm_fwd.launches_by_route)
         bwd_by_route = dict(instance_norm_bwd.launches_by_route)
+        conv_by_route = dict(conv2d_same_dx.launches_by_route)
         with open(os.path.join(out, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         checkpoints = sorted(os.listdir(os.path.join(out, "checkpoints")))
@@ -645,16 +678,19 @@ def phase_training(seed: int) -> dict:
           and y.shape == img.shape and y.dtype == np.uint8
           and launches == expected
           and by_route[SITE_ROUTE] == launches["instance_norm_fwd"]
-          and bwd_by_route[SITE_ROUTE] == launches["instance_norm_bwd"])
+          and bwd_by_route[SITE_ROUTE] == launches["instance_norm_bwd"]
+          and conv_by_route == {"tap_packed": TRAIN_STEPS, "tiled": 0})
     emit("training", ok=ok, steps=TRAIN_STEPS, batch=TRAIN_BATCH, size=[256, 256],
          precision="f32", seconds=seconds, metrics=records, checkpoints=checkpoints,
          launches=launches, instance_norm_fwd_launches_by_route=by_route,
          instance_norm_bwd_launches_by_route=bwd_by_route,
+         conv2d_same_dx_launches_by_route=conv_by_route,
          expected_launches=expected,
          stylized_shape=list(y.shape), stylized_mean=float(y.mean()))
     if not ok:
         fail("training phase")
-    return {"launches": launches, "bwd_by_route": bwd_by_route}
+    return {"launches": launches, "bwd_by_route": bwd_by_route,
+            "conv_by_route": conv_by_route}
 
 
 def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2):
@@ -761,8 +797,9 @@ def train_kernel_times(seed: int) -> dict:
     """Per training step at B=20, 256x256, in bf16 and f32: device time
     (CUDA-graph replay) of the IN forward and backward (each the kernel its
     planner picks, and the two-launch kernel at the same shapes:
-    ``two_launch_ms``) over the 14 sites and of the conv1_1 dx kernel, their
-    plain versions and the library
+    ``two_launch_ms``) over the 14 sites and of the conv1_1 dx kernel (the
+    tap-packed kernel its planner picks, and the tiled kernel at the same
+    shapes: ``tiled_ms``), their plain versions and the library
     calls (F.instance_norm(+F.relu); its autograd backward, as the graph
     time of forward + backward less that of the forward; cuDNN
     backward-data torch.nn.grad.conv2d_input), beside the bounds."""
@@ -770,8 +807,10 @@ def train_kernel_times(seed: int) -> dict:
     import torch.nn.functional as F
 
     from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import (
+        _launch_dx,
         conv2d_same_dx,
         conv2d_same_dx_reference,
+        conv_dx_plan,
     )
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
         _launch_bwd,
@@ -863,8 +902,10 @@ def train_kernel_times(seed: int) -> dict:
         g = torch.randn((n, 64, 256, 256), generator=gen, device="cuda").to(dtype)
         g = g.contiguous(memory_format=torch.channels_last)
         wt = (torch.randn((64, 3, 3, 3), generator=gen, device="cuda") * 0.1).to(dtype)
+        tiled = conv_dx_plan(g, wt, tap_packed=False)
         conv = {
             "ms": graph_ms(lambda: conv2d_same_dx(g, wt)),
+            "tiled_ms": graph_ms(lambda: _launch_dx(g, wt, tiled)),
             "plain_ms": graph_ms(lambda: conv2d_same_dx_reference(g, wt)),
             "library_ms": graph_ms(lambda: torch.nn.grad.conv2d_input(
                 (n, 3, 256, 256), wt, g, padding=1)),
@@ -874,6 +915,7 @@ def train_kernel_times(seed: int) -> dict:
             g.numel() * g.element_size() + dx_bytes, 2 * 27 * 64 * n * 256 * 256, dname)
         emit("train_times_conv_dx", dtype=dname, shape=[n, 256, 256], c_in=3, c_out=64,
              k=3, per="step (1 launch)", library_op="torch.nn.grad.conv2d_input (cuDNN)",
+             route=conv_dx_plan(g, wt).route, blocks=conv_dx_plan(g, wt).blocks,
              **conv, bound_share=conv["bound_ms"] / conv["ms"])
         out[("conv_dx", dname)] = conv
     return out
@@ -1301,9 +1343,10 @@ def main() -> int:
             "source": src + "conv_same_bwd.cu",
             "replaces": "fast_neural_style_transfer_tpu/ops/pallas_conv.py:87",
             "launches": trained["launches"]["conv2d_same_dx"],
+            "launches_by_route": trained["conv_by_route"],
             "max_abs_err": err["conv"],
             # the training path: VGG conv1_1 dx of one f32 step at B=20, 256x256
-            "ms": conv["ms"], "plain_ms": conv["plain_ms"],
+            "ms": conv["ms"], "tiled_ms": conv["tiled_ms"], "plain_ms": conv["plain_ms"],
             "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
             "library_ms": conv["library_ms"],
         }]

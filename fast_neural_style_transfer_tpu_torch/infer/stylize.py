@@ -270,7 +270,11 @@ def pipeline_directory(
     ]
 
     written = [None] * len(files)
-    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+    # prep runs on ``pool`` and waits on its decodes, so they run on a pool
+    # of their own: no task waits on a task of its own pool (with one
+    # worker that would wait forever)
+    with ThreadPoolExecutor(max_workers=num_workers) as pool, \
+            ThreadPoolExecutor(max_workers=num_workers) as decode_pool:
         def try_dec(i):
             try:
                 return i, dec(files[i])
@@ -281,7 +285,7 @@ def pipeline_directory(
                 return i, None
 
         def prep(chunk):
-            results = list(pool.map(try_dec, chunk))
+            results = list(decode_pool.map(try_dec, chunk))
             kept = [i for i, u8 in results if u8 is not None]
             if not kept:
                 return kept, None

@@ -3,9 +3,14 @@ wrapper of ``csrc/conv_same_bwd.cu``, its plain PyTorch versions, and the
 autograd Function that puts it under VGG ``conv1_1``.
 
 Replaces the TPU kernel ``fast_neural_style_transfer_tpu/ops/pallas_conv.py::
-_bwd_kernel`` (``conv2d_same_bwd``, ``conv2d_same_dx``). The kernel is bound
-by bytes (read the 64-channel gradient once, write the 3-channel dx once);
-the source file states the bound, the layout and the design.
+_bwd_kernel`` (``conv2d_same_bwd``, ``conv2d_same_dx``). dx-only takes one
+of two kernels, picked by ``plan_conv_dx`` from the shape alone: the
+tap-packed tensor-core kernel (route "tap_packed": C_out = 64, k >= 3,
+k*k*C_in <= 32, g 16-byte aligned, w in g's dtype; VGG conv1_1) or the
+tiled kernel (route "tiled": every other shape in the gate, and full mode).
+dx-only is bound by bytes (read the 64-channel gradient once, write the
+3-channel dx once); the source file states the bound, the layout and the
+designs.
 
 Tensors are PyTorch's: g (N, C_out, H, W) and x, dx (N, C_in, H, W) in
 ``torch.channels_last`` memory format (physically NHWC), w (C_out, C_in, k,
@@ -18,7 +23,7 @@ goes quietly to cuDNN.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,22 +33,45 @@ from fast_neural_style_transfer_tpu_torch.ops import _build
 _TILE_H, _TILE_W = 8, 32  # kTH, kTW in the source
 _MAX_FULL_BLOCKS = 4 * 132  # persistent grid of the full mode: 4 per SM
 _SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
+_SMS = 132  # an H100 SXM's SMs
 
-_fns = None
+# the tap-packed kernel (tp:: in the source)
+_TP_STRIP = 64  # kSW: output columns of a strip
+_TP_STAGES = 4  # kStages: g rows in flight, less one
+_TP_CO = 64  # kCO: the C_out it takes
+_TP_COLS = 32  # 8 * kNT: P columns, k*k*C_in at most
 
 
-def _kernel():
-    global _fns
-    if _fns is None:
+class _Lib(NamedTuple):
+    bwd: ctypes._CFuncPtr  # the tiled kernel (dx-only or full)
+    bwd_smem: ctypes._CFuncPtr
+    dx: ctypes._CFuncPtr  # the tap-packed kernel
+    dx_smem: ctypes._CFuncPtr
+    dx_occupancy: ctypes._CFuncPtr
+
+
+_lib: Optional[_Lib] = None
+
+
+def _kernel() -> _Lib:
+    global _lib
+    if _lib is None:
         lib = _build.load("conv_same_bwd")
-        fn = lib.fnst_conv_same_bwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        smem = lib.fnst_conv_same_bwd_smem
-        smem.argtypes = [ctypes.c_int] * 3
-        smem.restype = ctypes.c_longlong
-        _fns = (fn, smem)
-    return _fns
+        bwd = lib.fnst_conv_same_bwd
+        bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
+        dx = lib.fnst_conv_dx_tap_packed
+        dx.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        dx.restype = ctypes.c_int
+        for fn in (lib.fnst_conv_same_bwd_smem, lib.fnst_conv_dx_tap_packed_smem):
+            fn.argtypes = [ctypes.c_int] * 3
+            fn.restype = ctypes.c_longlong
+        occ = lib.fnst_conv_dx_tap_packed_occupancy
+        occ.argtypes = [ctypes.c_int] * 3
+        occ.restype = ctypes.c_int
+        _lib = _Lib(bwd, lib.fnst_conv_same_bwd_smem, dx,
+                    lib.fnst_conv_dx_tap_packed_smem, occ)
+    return _lib
 
 
 def supported(k: int, c_in: int, stride: int = 1) -> bool:
@@ -91,6 +119,102 @@ def conv2d_same_bwd_reference(
     return dx, dw, gf.sum(dim=(0, 1, 2))
 
 
+# -- the dx planner ---------------------------------------------------------------
+
+
+class ConvDxPlan(NamedTuple):
+    """How one ``conv2d_same_dx`` call runs (``plan_conv_dx``)."""
+
+    route: str  # "tap_packed" or "tiled"
+    strip: int  # output columns a block spans (its strip, or its tile)
+    rows: int  # rows a block owns (tap_packed: the most over its pieces), or the tile's
+    stages: int  # g rows the block has in flight (tap_packed), else 0
+    blocks: int  # the grid
+    smem_bytes: int  # dynamic shared memory of a block
+
+
+def tap_packed_smem_bytes(k: int, c_in: int, itemsize: int) -> int:
+    """Dynamic shared memory of a tap-packed block, as the source sizes it
+    (tp::layout): the g stages, the ring of k P rows in f32 (odd pixel
+    stride), two dx row segments and, in f32, W' as 16-byte fragment packs,
+    each rounded up to 16 bytes."""
+    cols, kkc = _TP_STRIP + 2 * (k // 2), k * k * c_in
+    ring = k * cols * (kkc | 1) * 4
+    seg = -(-(_TP_STRIP * c_in * itemsize + 16) // 16) * 16
+    frags = (_TP_CO // 8) * -(-kkc // 8) * 32 * 16 if itemsize == 4 else 0
+    return _TP_STAGES * cols * _TP_CO * itemsize + -(-ring // 16) * 16 + 2 * seg + frags
+
+
+def tiled_smem_bytes(k: int, c_in: int, full: bool = False) -> int:
+    """Dynamic shared memory of a tiled block (smem_bytes in the source)."""
+    ci4 = 4 * -(-c_in // 4)
+    stride = (_TILE_W + 2 * (k // 2)) | 1
+    floats = 32 * k * k * ci4 + (_TILE_H + 2 * (k // 2)) * 32 * stride
+    if full:
+        floats += (_TILE_H + 2 * (k // 2)) * c_in * stride
+    return 4 * floats
+
+
+def plan_conv_dx(n: int, h: int, w: int, c_in: int, c_out: int, k: int,
+                 dtype: torch.dtype, aligned: bool, *, w_same_dtype: bool = True,
+                 sms: int = _SMS, blocks_per_sm: Optional[int] = None,
+                 tap_packed: bool = True) -> ConvDxPlan:
+    """The dx kernel and its grid for g (n, c_out, h, w) and a k x k
+    weight with c_in inputs, g in ``dtype``; ``aligned``: g's pointer is on
+    16 bytes; ``w_same_dtype``: w comes in g's dtype.
+
+    "tap_packed" iff c_out == 64, k >= 3, k*k*c_in <= 32 (so k, c_in is
+    3, 1..3 or 5, 1), aligned and w_same_dtype (``tap_packed=False`` gives
+    the tiled plan, for timing it). Its grid is one wave of ``sms`` x
+    ``blocks_per_sm`` blocks (by default the blocks an SM is built to hold:
+    4 in bf16, 2 in f32; the wrapper asks the card), at most one a row:
+    the n x ceil(w / 64) x h row segments, numbered sample by sample,
+    strip by strip, row by row, are cut into equal contiguous ranges, one a
+    block (block b: [b S / blocks, (b + 1) S / blocks)), walked as pieces
+    that end at a strip's last row. Otherwise "tiled": one block per 8 x
+    32 tile."""
+    itemsize = dtype.itemsize
+    if (tap_packed and c_out == _TP_CO and k >= 3 and k * k * c_in <= _TP_COLS
+            and aligned and w_same_dtype):
+        smem = tap_packed_smem_bytes(k, c_in, itemsize)
+        if blocks_per_sm is None:
+            blocks_per_sm = 4 if itemsize == 2 else 2
+        segments = n * -(-w // _TP_STRIP) * h
+        blocks = max(1, min(segments, sms * blocks_per_sm))
+        return ConvDxPlan("tap_packed", _TP_STRIP, -(-segments // blocks), _TP_STAGES,
+                          blocks, smem)
+    return ConvDxPlan("tiled", _TILE_W, _TILE_H, 0,
+                      n * -(-h // _TILE_H) * -(-w // _TILE_W), tiled_smem_bytes(k, c_in))
+
+
+_occupancy: Dict[tuple, Tuple[int, int]] = {}
+
+
+def conv_dx_plan(g: torch.Tensor, w: torch.Tensor, *, tap_packed: bool = True
+                 ) -> ConvDxPlan:
+    """The plan ``conv2d_same_dx`` follows for the CUDA tensors g and w
+    (the tap-packed grid from the card's SMs and the blocks an SM holds,
+    asked of the card once per device and shape class; with
+    ``tap_packed=False``: the tiled kernel's plan, for timing it)."""
+    n, co, h, wd = g.shape
+    ci, k = w.shape[1], w.shape[-1]
+    args = (n, h, wd, ci, co, k, g.dtype, g.data_ptr() % 16 == 0)
+    same = w.dtype == g.dtype
+    plan = plan_conv_dx(*args, w_same_dtype=same, tap_packed=tap_packed)
+    if plan.route != "tap_packed":
+        return plan
+    bf16 = int(g.dtype == torch.bfloat16)
+    key = (g.device.index, k, ci, bf16)
+    if key not in _occupancy:
+        per_sm = _kernel().dx_occupancy(k, ci, bf16)
+        if per_sm < 1:
+            raise RuntimeError(f"tap-packed dx kernel: occupancy query failed ({per_sm})")
+        sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+        _occupancy[key] = (per_sm, sms)
+    per_sm, sms = _occupancy[key]
+    return plan_conv_dx(*args, w_same_dtype=same, sms=sms, blocks_per_sm=per_sm)
+
+
 # -- kernel wrappers ------------------------------------------------------------
 
 
@@ -129,10 +253,11 @@ def _pack(w: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(g, x, w, full):
+    """The tiled kernel: dx-only or full (inputs already checked)."""
     n, co, h, wd = g.shape
     ci, k = w.shape[1], w.shape[-1]
-    fn, smem = _kernel()
-    if smem(k, ci, int(full)) > _SMEM_LIMIT:
+    lib = _kernel()
+    if lib.bwd_smem(k, ci, int(full)) > _SMEM_LIMIT:
         raise ValueError(f"conv backward kernel: k={k}, C_in={ci} needs more "
                          "shared memory than a block has")
     tiles = n * -(-h // _TILE_H) * -(-wd // _TILE_W)
@@ -147,16 +272,38 @@ def _launch(g, x, w, full):
         work = dwb = None
     wpk = _pack(w)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = fn(g.data_ptr(), x.data_ptr() if full else 0, wpk.data_ptr(),
-             dx.data_ptr(), work.data_ptr() if full else 0,
-             dwb.data_ptr() if full else 0, n, h, wd, ci, co, k, int(full),
-             blocks, int(g.dtype == torch.bfloat16), stream)
+    err = lib.bwd(g.data_ptr(), x.data_ptr() if full else 0, wpk.data_ptr(),
+                  dx.data_ptr(), work.data_ptr() if full else 0,
+                  dwb.data_ptr() if full else 0, n, h, wd, ci, co, k, int(full),
+                  blocks, int(g.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"conv backward kernel launch failed: CUDA error {err}")
     if not full:
         return dx
     dw = dwb[:k * k * ci * co].view(k, k, ci, co).permute(3, 2, 0, 1).contiguous()
     return dx, dw, dwb[k * k * ci * co:]
+
+
+def _launch_dx(g: torch.Tensor, w: torch.Tensor, plan: ConvDxPlan) -> torch.Tensor:
+    """One dx-only call on the card as ``plan`` says (inputs already
+    checked); counts the launch in all and by route."""
+    if plan.route == "tiled":
+        dx = _launch(g, None, w, full=False)
+    else:
+        n, co, h, wd = g.shape
+        ci, k = w.shape[1], w.shape[-1]
+        dx = torch.empty((n, ci, h, wd), dtype=g.dtype, device=g.device,
+                         memory_format=torch.channels_last)
+        wc = w.detach().contiguous()
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = _kernel().dx(g.data_ptr(), wc.data_ptr(), dx.data_ptr(), n, h, wd, ci,
+                           co, k, plan.blocks, int(g.dtype == torch.bfloat16), stream)
+        if err != 0:
+            raise RuntimeError(f"tap-packed dx kernel launch failed: CUDA error "
+                               f"{err} ({plan})")
+    conv2d_same_dx.launches += 1
+    conv2d_same_dx.launches_by_route[plan.route] += 1
+    return dx
 
 
 def _device_ok(t: torch.Tensor, name: str) -> bool:
@@ -172,14 +319,12 @@ def conv2d_same_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx of ``conv2d_same(x, w, b)``: channels_last, in g's dtype.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    or raises: a shape outside the gate, a wrong dtype or layout, a failed
-    build or a failed launch."""
+    that ``plan_conv_dx`` picks, or raises: a shape outside the gate, a
+    wrong dtype or layout, a failed build or a failed launch."""
     if not _device_ok(g, "conv2d_same_dx"):
         return conv2d_same_dx_reference(g, w)
     _check(g, w, None)
-    dx = _launch(g, None, w, full=False)
-    conv2d_same_dx.launches += 1
-    return dx
+    return _launch_dx(g, w, conv_dx_plan(g, w))
 
 
 def conv2d_same_bwd(
@@ -195,7 +340,9 @@ def conv2d_same_bwd(
     return out
 
 
+# calls that launched a kernel: dx-only in all and by route; full mode
 conv2d_same_dx.launches = 0
+conv2d_same_dx.launches_by_route = {"tap_packed": 0, "tiled": 0}
 conv2d_same_bwd.launches = 0
 
 

@@ -7,6 +7,8 @@ is max |du8| <= 1.
 """
 
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -143,6 +145,32 @@ def test_stylize_directory_mixed_shapes(ckpt_pth, tmp_path):
         assert a.shape == (*expect[os.path.relpath(ours, tmp_path / "ours")], 3)
         # the same JPEG encoder on u8 arrays that differ by <= 1 level
         assert np.abs(a - b).mean() < 1
+
+
+def test_stylize_directory_one_worker_finishes(ckpt_pth, tmp_path):
+    """With num_workers=1 the pipeline's prep task must not wait on a task
+    queued to its own pool. Run in a subprocess with a timeout, so that a
+    hang fails the test instead of the worker (pool threads are joined at
+    exit)."""
+    src = tmp_path / "content"
+    src.mkdir()
+    for i in range(3):
+        Image.fromarray(_img(20, 24, seed=30 + i)).save(src / f"{i}.png")
+    script = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fast_neural_style_transfer_tpu_torch.infer import stylize_directory\n"
+        "out = stylize_directory(sys.argv[1], sys.argv[2], sys.argv[3], batch_size=2,\n"
+        "                        num_workers=1, device='cpu')\n"
+        "print(sum(p is not None for p in out))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", script, ckpt_pth, str(src), str(tmp_path / "out")],
+        capture_output=True, text=True, timeout=60,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "3"
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        f"{i}_stylized.jpg" for i in range(3)]
 
 
 def test_begin_inference_cli(ckpt_pth, tmp_path, capsys):

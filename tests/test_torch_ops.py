@@ -859,3 +859,159 @@ def test_conv_kernel_gate():
     assert not cuda_conv.supported(3, 15)  # 135 > 128
     assert not cuda_conv.supported(13, 1)
     assert not cuda_conv.supported(3, 3, stride=2)
+
+
+# The tap-packed dx kernel (route "tap_packed"): its planner, and its
+# strips, pieces, row loop, P ring and halo zero-fill emulated in numpy.
+
+
+def _tp_blocks_per_sm(dtype):
+    return 4 if dtype == torch.bfloat16 else 2
+
+
+def _tp_pieces(n, h, w, blocks):
+    """Per block of a tap-packed launch, its pieces (sample, first output
+    column, first row, end row), as the kernel walks them (plan_conv_dx's
+    docstring)."""
+    strips = -(-w // 64)
+    total = n * strips * h
+    out = []
+    for b in range(blocks):
+        idx, end = total * b // blocks, total * (b + 1) // blocks
+        pieces = []
+        while idx < end:
+            col, ra = divmod(idx, h)
+            rb = min(h, ra + end - idx)
+            idx += rb - ra
+            nb, strip = divmod(col, strips)
+            pieces.append((nb, strip * 64, ra, rb))
+        out.append(pieces)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("hw", [(256, 256), (200, 300)])
+@pytest.mark.parametrize("n", [1, 8, 20])
+def test_plan_conv_dx_takes_tap_packed_for_conv1_1(n, hw, dtype):
+    """VGG conv1_1 (k3, 3 <- 64) at the training and check shapes: the
+    tap-packed route, two or more blocks an SM (shared memory <= 113 KB),
+    one wave of the card's slots, and pieces that cover every output pixel
+    once, each block within one row of the others."""
+    h, w = hw
+    plan = cuda_conv.plan_conv_dx(n, h, w, 3, 64, 3, dtype, True)
+    assert plan.route == "tap_packed" and plan.strip == 64 and plan.stages == 4
+    assert plan.smem_bytes <= min(cuda_conv._SMEM_LIMIT, 113 * 1024)
+    segments = n * -(-w // 64) * h
+    assert plan.blocks == min(segments, 132 * _tp_blocks_per_sm(dtype))
+    seen = np.zeros((n, h, w), np.int32)
+    rows = []
+    for pieces in _tp_pieces(n, h, w, plan.blocks):
+        rows.append(sum(rb - ra for _, _, ra, rb in pieces))
+        for nb, c0, ra, rb in pieces:
+            assert 0 <= ra < rb <= h and c0 % 64 == 0 and c0 < w
+            seen[nb, ra:rb, c0:c0 + 64] += 1
+    assert (seen == 1).all()
+    assert max(rows) - min(rows) <= 1 and max(rows) == plan.rows
+
+
+@pytest.mark.parametrize("change", [
+    dict(k=9, c_in=1),  # k*k*C_in = 81 > 32
+    dict(k=3, c_in=4),  # 36 > 32
+    dict(k=7, c_in=1),  # 49 > 32
+    dict(k=1, c_in=3),  # k = 1: no halo, the tiled kernel serves it
+    dict(c_out=48),  # not the kernel's C_out
+    dict(c_out=128),
+    dict(aligned=False),  # g off the 16-byte grid
+    dict(w_same_dtype=False),  # w in another dtype than g
+], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_plan_conv_dx_sends_other_shapes_to_tiled(change):
+    """Shapes inside the gate that the tap-packed kernel does not take run
+    on the tiled kernel: one block per 8 x 32 tile."""
+    args = dict(n=2, h=37, w=70, c_in=3, c_out=64, k=3, dtype=torch.float32,
+                aligned=True)
+    args.update(change)
+    same = args.pop("w_same_dtype", True)
+    assert cuda_conv.supported(args["k"], args["c_in"])
+    plan = cuda_conv.plan_conv_dx(**args, w_same_dtype=same)
+    assert plan.route == "tiled" and plan.stages == 0
+    assert plan.blocks == 2 * 5 * 3
+    assert plan.smem_bytes == cuda_conv.tiled_smem_bytes(args["k"], args["c_in"])
+
+
+def test_plan_conv_dx_grid_follows_the_card():
+    """The grid is the card's slots (SMs x blocks an SM holds), and never
+    more blocks than row segments."""
+    plan = cuda_conv.plan_conv_dx(20, 256, 256, 3, 64, 3, torch.bfloat16, True,
+                                  sms=100, blocks_per_sm=3)
+    assert plan.blocks == 300 and plan.rows == -(-20 * 4 * 256 // 300)
+    tiny = cuda_conv.plan_conv_dx(1, 2, 10, 3, 64, 3, torch.float32, True)
+    assert tiny.blocks == 2 and tiny.rows == 1
+    for ci, k in ((1, 3), (2, 3), (3, 3), (1, 5)):  # the kernel's (C_in, k)
+        assert cuda_conv.plan_conv_dx(1, 8, 8, ci, 64, k, torch.float32,
+                                      True).route == "tap_packed"
+
+
+def _emulate_tap_packed(g, w, blocks):
+    """The tap-packed kernel step by step: g (n, h, w, 64) f32, w (64, ci,
+    k, k) -> dx (n, h, w, ci). Each block walks its pieces; a piece loads
+    its g rows (64 + 2p columns, zeros outside the image) one at a time,
+    multiplies each by W' (64 x 32) into a ring of k P rows in f32, and
+    emits dx row r once P rows r - p .. r + p are in the ring."""
+    n, h, wd, co = g.shape
+    ci, k = w.shape[1], w.shape[-1]
+    p, kkc, strip = k // 2, k * k * ci, cuda_conv._TP_STRIP
+    qc = strip + 2 * p
+    wprime = np.zeros((co, cuda_conv._TP_COLS), np.float32)
+    wprime[:, :kkc] = w.transpose(0, 2, 3, 1).reshape(co, kkc)  # [o, (u, v, i)]
+    dx = np.full((n, h, wd, ci), np.nan, np.float32)
+    px = np.arange(strip)
+    for pieces in _tp_pieces(n, h, wd, blocks):
+        for nb, c0, ra, rb in pieces:
+            cols = min(strip, wd - c0)
+            ring = np.zeros((k, qc, kkc), np.float32)
+            for t in range(rb - ra + 2 * p):
+                gr, lo = ra - p + t, c0 - p
+                seg = np.zeros((qc, co), np.float32)
+                if 0 <= gr < h:
+                    a, b = max(lo, 0), min(lo + qc, wd)
+                    seg[a - lo:b - lo] = g[nb, gr, a:b]
+                ring[t % k] = (seg @ wprime)[:, :kkc]
+                if t < 2 * p:
+                    continue
+                s = np.zeros((strip, ci), np.float32)
+                for u in range(k):
+                    for v in range(k):
+                        j = (u * k + v) * ci
+                        s += ring[(t - u) % k][px + 2 * p - v, j:j + ci]
+                r = ra + t - 2 * p
+                assert np.isnan(dx[nb, r, c0:c0 + cols]).all()  # written once
+                dx[nb, r, c0:c0 + cols] = s[:cols]
+    assert not np.isnan(dx).any()
+    return dx
+
+
+def test_tap_packed_emulation_matches_pallas_kernel_interpret():
+    """Inside the TPU kernel's gate (H % 16, W % 128), VGG conv1_1's shape
+    class: the emulation against the plain version and the Pallas kernel
+    (interpret mode)."""
+    g, _, w, _ = _conv_inputs(1, 32, 128, 3, 64, 3, seed=20)
+    assert pallas_conv.supported(g.shape, w.shape)
+    want = np.asarray(pallas_conv.conv2d_same_dx(jnp.asarray(g), jnp.asarray(w),
+                                                 interpret=True))
+    plan = cuda_conv.plan_conv_dx(1, 32, 128, 3, 64, 3, torch.float32, True,
+                                  sms=4, blocks_per_sm=2)
+    got = _emulate_tap_packed(g, _oihw(w).numpy(), plan.blocks)
+    _close(got, want)
+    _close(to_nhwc(cuda_conv.conv2d_same_dx_reference(to_nchw(g), _oihw(w))), want)
+
+
+@pytest.mark.parametrize("n,h,w,ci,k,blocks", [
+    (2, 13, 150, 3, 3, 7),  # ragged last strip; ranges cross strips and images
+    (1, 9, 70, 1, 5, 4),    # k = 5: two halo rows and columns
+    (1, 6, 40, 2, 3, 3),    # C_in = 2, one short strip
+])
+def test_tap_packed_emulation_matches_plain(n, h, w, ci, k, blocks):
+    g, _, _, _ = _conv_inputs(n, h, w, ci, 64, k, seed=21)
+    wt = (np.random.default_rng(22).standard_normal((64, ci, k, k)) * 0.2).astype(np.float32)
+    want = to_nhwc(cuda_conv.conv2d_same_dx_reference(to_nchw(g), torch.from_numpy(wt)))
+    _close(_emulate_tap_packed(g, wt, blocks), want)

@@ -245,24 +245,40 @@ def test_in_bwd_kernel_repeats_bit_for_bit_on_card(dtype, case):
         assert torch.equal(a.view(ints), b.view(ints))
 
 
+# (N, H, W, C_in, k, route of dx-only): VGG conv1_1 at B=2 (256^2 and a
+# ragged 200x300) and at the training batch of 20, and a k=9, C_in=1 conv
+# (k*k*C_in = 81) that the tap-packed kernel does not take
+_CONV_CASES = [(2, 256, 256, 3, 3, "tap_packed"), (2, 200, 300, 3, 3, "tap_packed"),
+               (20, 256, 256, 3, 3, "tap_packed"), (2, 64, 96, 1, 9, "tiled")]
+
+
+def _conv_inputs(rng, n, h, w, ci, k, dt):
+    mk = lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+    g = mk((n, 64, h, w)).to(dt).contiguous(memory_format=torch.channels_last)
+    x = mk((n, ci, h, w)).to(dt).contiguous(memory_format=torch.channels_last)
+    return g, x, (mk((64, ci, k, k)) * 0.1).to(dt)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hw", [(256, 256), (200, 300)])
-def test_conv_bwd_kernel_matches_plain_on_card(dtype, hw):
+@pytest.mark.parametrize("case", _CONV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_conv_bwd_kernel_matches_plain_on_card(dtype, case):
+    """dx-only on the route plan_conv_dx picks (asserted, and counted by
+    route), and full mode (the tiled kernel), against the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    n, h, w, ci, k, route = case
     dt = getattr(torch, dtype)
-    rng = np.random.default_rng(2)
-    mk = lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
-    g = mk((2, 64, *hw)).to(dt).contiguous(memory_format=torch.channels_last)
-    x = mk((2, 3, *hw)).to(dt).contiguous(memory_format=torch.channels_last)
-    w = (mk((64, 3, 3, 3)) * 0.1).to(dt)
+    g, x, wt = _conv_inputs(np.random.default_rng(2), n, h, w, ci, k, dt)
+    assert cuda_conv.conv_dx_plan(g, wt).route == route
+    before = dict(cuda_conv.conv2d_same_dx.launches_by_route)
     with torch.inference_mode():
-        dx_only = cuda_conv.conv2d_same_dx(g, w)
-        dx, dw, db = cuda_conv.conv2d_same_bwd(g, x, w)
+        dx_only = cuda_conv.conv2d_same_dx(g, wt)
+        dx, dw, db = cuda_conv.conv2d_same_bwd(g, x, wt)
         torch.cuda.synchronize()
         dx_r, dw_r, db_r = cuda_conv.conv2d_same_bwd_reference(g.float(), x.float(),
-                                                               w.float())
+                                                               wt.float())
+    assert cuda_conv.conv2d_same_dx.launches_by_route[route] == before[route] + 1
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
         dict(rtol=1 / 128, atol=2e-2)
     torch.testing.assert_close(dx_only.float(), dx_r, **tol)
@@ -271,4 +287,21 @@ def test_conv_bwd_kernel_matches_plain_on_card(dtype, hw):
     torch.testing.assert_close(dw, dw_r, rtol=1e-4, atol=1e-4 * float(dw_r.abs().max()))
     torch.testing.assert_close(db, db_r, rtol=1e-4, atol=1e-4 * float(db_r.abs().max()))
     with pytest.raises(ValueError, match="gate"):
-        cuda_conv.conv2d_same_dx(g, mk((64, 16, 3, 3)).to(dt))
+        cuda_conv.conv2d_same_dx(g, torch.zeros((64, 16, 3, 3), dtype=dt, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [_CONV_CASES[2], _CONV_CASES[3]], ids=lambda c: c[-1])
+def test_conv_dx_repeats_bit_for_bit_on_card(dtype, case):
+    """Neither dx kernel uses atomics, and every sum has a fixed order: two
+    calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n, h, w, ci, k, _ = case
+    g, _, wt = _conv_inputs(np.random.default_rng(6), n, h, w, ci, k, getattr(torch, dtype))
+    with torch.inference_mode():
+        first = cuda_conv.conv2d_same_dx(g, wt)
+        second = cuda_conv.conv2d_same_dx(g, wt)
+    ints = torch.int16 if first.element_size() == 2 else torch.int32
+    assert torch.equal(first.view(ints), second.view(ints))
