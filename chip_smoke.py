@@ -9,17 +9,22 @@ each kernel against its plain PyTorch version at the shapes of the main
 paths (the IN forward's and backward's two kernels each where its planner
 routes: the one-launch kernel at every 256x256 site, the two-launch kernel
 at a slab larger than the card holds at once; the conv dx's tap-packed
-kernel at VGG conv1_1 and its tiled kernel at a k=9 conv). Then it drives
-the two main paths, each with the kernel-launch counters (also by route)
-set to 0 just before and read just after:
+kernel at VGG conv1_1 and its tiled kernel at a k=9 conv; both IN kernels
+again with per-sample (N, C) affines). Then it drives the main paths, each
+with the kernel-launch counters (also by route and by affine) set to 0 just
+before and read just after:
 - serving (slice 1): the in-repo trained checkpoint against the port's own
   CPU path, concurrent HTTP requests and the inference CLI;
 - training (slice 2): the training CLI for 10 steps at batch 20, 256x256,
   full width, on synthetic images, then one step on the card against the
-  port's CPU path.
+  port's CPU path, with stable and with one-pass IN statistics;
+- multi-style (slice 7): the training CLI with 4 style images (per-sample
+  affines at every IN site), the checkpoint served by style index and by
+  blend, the inference CLI with --style_index, and one multi-style step on
+  the card against the CPU.
 Last it times the kernels, their plain versions and the library ops, the
-training step, and the IN forward and backward at three chunk budgets
-each. Every phase
+training step (single-style, 4-style and one-pass), and the IN forward and
+backward at three chunk budgets each. Every phase
 prints one JSON line; any failure exits non-zero. The line before the
 last lists the kernels; the last line is ``{"ok": true, "device":
 {...}}``. ``--phases`` runs a subset (the build always runs), for
@@ -239,14 +244,15 @@ def in_bwd_scales(x, g, mean, inv, gamma, beta, relu):
     import torch
 
     col = lambda t: t[:, :, None, None]
+    aff = lambda t: t.reshape(-1, t.shape[-1])[:, :, None, None]  # (C,) or (N, C)
     xh = (x.float() - col(mean)) * col(inv)
     gf = g.float()
     if relu:
-        gf = torch.where(xh * gamma[None, :, None, None] + beta[None, :, None, None] > 0,
-                         gf, torch.zeros((), device=gf.device))
+        gf = torch.where(xh * aff(gamma) + aff(beta) > 0, gf,
+                         torch.zeros((), device=gf.device))
     a = gf.abs().mean(dim=(2, 3))
     b = (gf * xh).abs().mean(dim=(2, 3))
-    dx_scale = (gamma[None, :, None, None] * col(inv)).abs() * (gf.abs() + col(a) + xh.abs() * col(b))
+    dx_scale = (aff(gamma) * col(inv)).abs() * (gf.abs() + col(a) + xh.abs() * col(b))
     return dx_scale, (gf * xh).abs().sum(dim=(2, 3)), gf.abs().sum(dim=(2, 3))
 
 
@@ -456,8 +462,8 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
 
 
 def reset_in_counts() -> None:
-    """Set the IN forward's and backward's launch counts, in all and by
-    route, to 0."""
+    """Set the IN forward's and backward's launch counts, in all, by route
+    and by affine, to 0."""
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
         instance_norm_bwd,
         instance_norm_fwd,
@@ -466,6 +472,136 @@ def reset_in_counts() -> None:
     for fn in (instance_norm_fwd, instance_norm_bwd):
         fn.launches = 0
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        fn.launches_by_affine = dict.fromkeys(fn.launches_by_affine, 0)
+
+
+def phase_affine_vs_plain(seed: int) -> tuple:
+    """Both IN kernels with per-sample (N, C) gamma and beta (multi-style
+    training), against their plain versions: the site shapes at N = 8 and
+    20 on the one-launch kernels and LARGE_SLAB on the two-launch kernels
+    (routes asserted), ReLU on and off, f32 and bf16; the forward in both
+    statistics modes, the backward on the forward's (mean, inv). The rows
+    differ and hold negative entries, so the ReLU gate flips per sample.
+    Each call runs twice and must repeat bit for bit; each is counted as a
+    "sample" launch. Tolerances: those of phase_kernel_vs_plain (forward)
+    and phase_in_bwd_vs_plain (backward). Then the same shapes with (N, C)
+    rows that all equal a (C,) vector: output bit-identical to the (C,)
+    call, both directions (f32 and bf16, ReLU on). -> the largest |dy| and
+    the largest |ddx|."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        bwd_plan,
+        fwd_plan,
+        instance_norm_bwd,
+        instance_norm_bwd_reference,
+        instance_norm_fwd,
+        instance_norm_fwd_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    shapes = sorted({(h, w, c) for _, h, w, c, _, _ in SITES})
+    cases = [(n, h, w, c, SITE_ROUTE) for h, w, c in shapes for n in (8, 20)]
+    cases.append((*LARGE_SLAB[:4], "two_launch"))
+    for n, h, w, c, route in cases:
+        base = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
+        gbase = torch.randn((n, c, h, w), generator=gen, device="cuda")
+        g_rows = torch.randn((n, c), generator=gen, device="cuda")
+        b_rows = torch.randn((n, c), generator=gen, device="cuda")
+        gamma = torch.randn(c, generator=gen, device="cuda")
+        beta = torch.randn(c, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = base.to(dtype).contiguous(memory_format=torch.channels_last)
+            g = gbase.to(dtype).contiguous(memory_format=torch.channels_last)
+            bplan = bwd_plan(x, g)
+            r_s = max(1e-4, 2 * in_bwd_chain(bplan, c) * 2.0 ** -24)
+            r = 0.0 if dtype == torch.float32 else 2.0 ** -7
+            dname = str(dtype).replace("torch.", "")
+            for relu in (False, True):
+                for onepass in (False, True):
+                    fplan = fwd_plan(x, onepass=onepass)
+                    before = instance_norm_fwd.launches_by_affine["sample"]
+                    with torch.inference_mode():
+                        y, mean, inv = instance_norm_fwd(x, g_rows, b_rows, relu=relu,
+                                                         onepass=onepass)
+                        again = instance_norm_fwd(x, g_rows, b_rows, relu=relu,
+                                                  onepass=onepass)
+                        torch.cuda.synchronize()
+                        y_r, mean_r, inv_r = instance_norm_fwd_reference(
+                            x.float(), g_rows, b_rows, relu=relu, onepass=onepass)
+                    repeatable = all(torch.equal(bits(a), bits(b))
+                                     for a, b in zip((y, mean, inv), again))
+                    rtol_y = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+                    dy = (y.float() - y_r).abs()
+                    y_over = (dy / (1e-4 + rtol_y * y_r.abs())).max().item()
+                    inv_rel = ((inv - inv_r).abs() / inv_r).max().item()
+                    inv_tol = 1e-3 if onepass else 1e-4
+                    counted = instance_norm_fwd.launches_by_affine["sample"] - before
+                    worst["fwd"] = max(worst["fwd"], dy.max().item())
+                    ok = (y_over <= 1 and inv_rel <= inv_tol and repeatable
+                          and fplan.route == route and counted == 2)
+                    emit("affine_vs_plain", direction="fwd", affine="sample",
+                         shape=[n, h, w, c], relu=relu, dtype=dname, onepass=onepass,
+                         route=fplan.route, chunks_per_sample=fplan.chunks,
+                         y_max_abs_err=dy.max().item(), y_err_over_tol=y_over,
+                         inv_max_rel_err=inv_rel, inv_rtol=inv_tol,
+                         bitwise_repeatable=repeatable, sample_launches=counted, ok=ok)
+                    if not ok:
+                        fail(f"IN forward with per-sample affines failed at "
+                             f"{[n, h, w, c]} {dtype} relu={relu} onepass={onepass}")
+                    del y, again, y_r, mean_r, inv_r
+                    if onepass:
+                        continue
+                    before = instance_norm_bwd.launches_by_affine["sample"]
+                    with torch.inference_mode():
+                        dx, dgn, dbn = instance_norm_bwd(x, g, mean, inv, g_rows, b_rows,
+                                                         relu=relu)
+                        again = instance_norm_bwd(x, g, mean, inv, g_rows, b_rows,
+                                                  relu=relu)
+                        torch.cuda.synchronize()
+                        dx_r, dgn_r, dbn_r = instance_norm_bwd_reference(
+                            x.float(), g.float(), mean, inv, g_rows, b_rows, relu=relu)
+                        sx, sg, sb = in_bwd_scales(x, g, mean, inv, g_rows, b_rows, relu)
+                    repeatable = all(torch.equal(bits(a), bits(b))
+                                     for a, b in zip((dx, dgn, dbn), again))
+                    ddx = (dx.float() - dx_r).abs()
+                    dx_over = over_tol(ddx, r_s * sx + r * dx_r.abs())
+                    dg_over = over_tol((dgn - dgn_r).abs(), r_s * sg)
+                    db_over = over_tol((dbn - dbn_r).abs(), r_s * sb)
+                    counted = instance_norm_bwd.launches_by_affine["sample"] - before
+                    worst["bwd"] = max(worst["bwd"], ddx.max().item())
+                    ok = (max(dx_over, dg_over, db_over) <= 1 and repeatable
+                          and bplan.route == route and counted == 2)
+                    emit("affine_vs_plain", direction="bwd", affine="sample",
+                         shape=[n, h, w, c], relu=relu, dtype=dname, route=bplan.route,
+                         chunks_per_sample=bplan.chunks, sum_rtol=r_s,
+                         dx_max_abs_err=ddx.max().item(), dx_err_over_tol=dx_over,
+                         dgamma_err_over_tol=dg_over, dbeta_err_over_tol=db_over,
+                         bitwise_repeatable=repeatable, sample_launches=counted, ok=ok)
+                    if not ok:
+                        fail(f"IN backward with per-sample affines failed at "
+                             f"{[n, h, w, c]} {dtype} relu={relu}")
+                    del mean, inv, dx, dgn, dbn, again, dx_r, dgn_r, dbn_r, sx, sg, sb
+            # (N, C) rows equal to a (C,) vector: the (C,) call's bits
+            same_g = gamma.expand(n, c).contiguous()
+            same_b = beta.expand(n, c).contiguous()
+            with torch.inference_mode():
+                outs = {}
+                for kind, (ga, be) in (("rows", (same_g, same_b)), ("channel", (gamma, beta))):
+                    fwd = instance_norm_fwd(x, ga, be, relu=True)
+                    outs[kind] = fwd + instance_norm_bwd(x, g, fwd[1], fwd[2], ga, be,
+                                                         relu=True)
+                torch.cuda.synchronize()
+            same = all(torch.equal(bits(a), bits(b))
+                       for a, b in zip(outs["rows"], outs["channel"]))
+            emit("affine_vs_plain", direction="fwd+bwd", affine="equal rows vs channel",
+                 shape=[n, h, w, c], relu=True, dtype=dname, bit_identical=same, ok=same)
+            if not same:
+                fail(f"equal (N, C) rows differ from the (C,) call at {[n, h, w, c]} "
+                     f"{dtype}")
+            del outs, x, g
+    return worst["fwd"], worst["bwd"]
 
 
 def phase_trained_weights() -> None:
@@ -693,10 +829,129 @@ def phase_training(seed: int) -> dict:
             "conv_by_route": conv_by_route}
 
 
-def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2):
+STYLES = 4  # the multi-style configuration: one net for four styles
+
+
+def phase_multi_style(seed: int) -> dict:
+    """The multi-style main path (conditional IN, ROADMAP row 10): the
+    training CLI with STYLES seeded style images, TRAIN_STEPS steps at batch
+    20, 256x256, f32 (the CLI's defaults), full width, launch counters set
+    to 0 just before and read just after: 14 IN forwards and 14 IN
+    backwards a step, all on the one-launch kernels and all with per-sample
+    (B, C) affines ("sample"), and one tap-packed conv1_1 dx a step. Then
+    the final .npz serves: Stylizer.from_checkpoint(style=1) and the blend
+    style=[0.25] * 4, f32 and bf16 on the card, against the port's CPU f32
+    path (f32 max |du8| <= 1, bf16 SSIM >= 0.98, 14 "channel" launches a
+    forward: the style is baked); the inference CLI with --style_index 2
+    against the CPU path likewise. Last, one f32 multi-style step on the
+    card against the CPU step (phase_train_parity's tolerances, B=4, one
+    example per style)."""
+    import torch
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import begin_inference, begin_training
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES, num_styles
+    from fast_neural_style_transfer_tpu_torch.models.weights import load_checkpoint
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import conv2d_same_dx
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_bwd,
+        instance_norm_fwd,
+    )
+    from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        for i in range(40):
+            img = smooth_image(240 + 16 * (i % 4), 256 + 24 * (i % 3), seed=1000 + i)
+            Image.fromarray(img).save(os.path.join(data, f"{i:03d}.jpg"), quality=92)
+        styles = []
+        for s in range(STYLES):
+            styles.append(os.path.join(tmp, f"style{s}.jpg"))
+            Image.fromarray(smooth_image(320, 320, seed=990 + s)).save(styles[-1], quality=95)
+        out = os.path.join(tmp, "out")
+        reset_in_counts()
+        conv2d_same_dx.launches = 0
+        conv2d_same_dx.launches_by_route = dict.fromkeys(conv2d_same_dx.launches_by_route, 0)
+        t0 = time.perf_counter()
+        final = begin_training.main([
+            "--dataset_dir", data, "--style_image", *styles, "--output_dir", out,
+            "--total_steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_BATCH),
+            "--training_monitor_content_image", "", "--seed", str(seed)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {name: {"launches": fn.launches, "by_route": dict(fn.launches_by_route),
+                         "by_affine": dict(fn.launches_by_affine)}
+                  for name, fn in (("instance_norm_fwd", instance_norm_fwd),
+                                   ("instance_norm_bwd", instance_norm_bwd))}
+        counts["conv2d_same_dx"] = {"launches": conv2d_same_dx.launches,
+                                    "by_route": dict(conv2d_same_dx.launches_by_route)}
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        steps = NUM_IN_SITES * TRAIN_STEPS
+        ok = (all(counts[k] == {"launches": steps, "by_route": {SITE_ROUTE: steps,
+                                                                "two_launch": 0},
+                                "by_affine": {"channel": 0, "sample": steps}}
+                  for k in ("instance_norm_fwd", "instance_norm_bwd"))
+              and counts["conv2d_same_dx"] == {"launches": TRAIN_STEPS, "by_route": {
+                  "tap_packed": TRAIN_STEPS, "tiled": 0}}
+              and records and records[-1]["step"] == TRAIN_STEPS
+              and all(r["skipped_nonfinite"] == 0 and np.isfinite(r["loss"])
+                      for r in records)
+              and num_styles(load_checkpoint(final)) == STYLES)
+        emit("multi_style_training", ok=ok, styles=STYLES, steps=TRAIN_STEPS,
+             batch=TRAIN_BATCH, size=[256, 256], precision="f32", seconds=seconds,
+             counts=counts, metrics=records)
+        if not ok:
+            fail("multi-style training phase")
+        result["counts"] = counts
+
+        img = smooth_image(256, 256, seed=78)
+        for style in (1, [0.25] * STYLES):
+            want = Stylizer.from_checkpoint(final, style=style, device="cpu").stylize_u8(img)
+            for precision in ("f32", "bf16"):
+                card = Stylizer.from_checkpoint(final, style=style, precision=precision)
+                reset_in_counts()
+                got = card.stylize_u8(img)
+                by_affine = dict(instance_norm_fwd.launches_by_affine)
+                du8 = int(np.abs(got.astype(int) - want.astype(int)).max())
+                score = ssim(got / 255.0, want / 255.0)
+                ok = (by_affine == {"channel": NUM_IN_SITES, "sample": 0}
+                      and (du8 <= 1 if precision == "f32" else score >= 0.98))
+                emit("multi_style_serving", style=style, precision=precision,
+                     max_abs_du8=du8, ssim=score, launches_by_affine=by_affine,
+                     criterion="max|du8|<=1" if precision == "f32" else "ssim>=0.98",
+                     ok=ok)
+                if not ok:
+                    fail(f"multi-style serving (style={style}, {precision})")
+        src = os.path.join(tmp, "content.jpg")
+        Image.fromarray(smooth_image(240, 320, seed=79)).save(src, quality=95)
+        begin_inference.main(["--model_path", final, "--content_image", src,
+                              "--output_dir", tmp, "--output_name", "cli.png",
+                              "--style_index", "2"])
+        got = np.asarray(Image.open(os.path.join(tmp, "cli.png")), np.int32)
+        cpu = Stylizer.from_checkpoint(final, style=2, device="cpu")
+        want = cpu.stylize_u8(np.asarray(Image.open(src).convert("RGB"))).astype(np.int32)
+        du8 = int(np.abs(got - want).max())
+        ok = got.shape == (240, 320, 3) and du8 <= 1
+        emit("multi_style_inference_cli", style_index=2, precision="f32",
+             max_abs_du8=du8, criterion="max|du8|<=1", ok=ok)
+        if not ok:
+            fail("multi-style inference CLI")
+    phase_train_parity(seed, variant="multi_style", styles=STYLES, batch=STYLES)
+    return result
+
+
+def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2,
+                    styles: int = 1, in_stats: str = "stable"):
     """One f32 step without dropout from seeded params, VGG and batch ->
     (loss, grads, grad_norm, params before, params after, state.step),
-    all on the CPU."""
+    all on the CPU. ``styles`` > 1: a multi-style net whose IN banks' rows
+    differ (gamma 1 + 0.1 N(0, 1), beta 0.1 N(0, 1), seeded), on (S, c, c)
+    Gram banks of S seeded style images, example i on style i % S (an
+    explicit one-hot style_select, the same on both devices)."""
     import torch
 
     from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
@@ -718,29 +973,56 @@ def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2):
     prec = Precision.f32()
     exact_f32(torch.device(device), prec)
     torch.manual_seed(seed)
-    net = TransformerNet().to(device, memory_format=torch.channels_last)
+    net = TransformerNet(num_styles=styles)
+    if styles > 1:  # rows that differ, so each example's style matters
+        with torch.no_grad():
+            for name, p in net.named_parameters():
+                if p.dim() == 2:
+                    p.copy_(torch.randn(p.shape) * 0.1
+                            + (1.0 if name.endswith("weight") else 0.0))
+    net = net.to(device, memory_format=torch.channels_last)
     vgg = make_vgg(random_params(seed), device)
     taps = LossTaps()
-    style = u8_to_network(torch.from_numpy(smooth_image(size, size, seed=5))[None]).to(device)
     u8 = torch.from_numpy(np.stack([smooth_image(size, size, seed=10 + i)
                                     for i in range(batch)])).to(device)
-    with torch.no_grad():
-        grams = style_targets_from_features(vgg(style, taps.style_taps, precision=prec))
+    per_style = []
+    for s in range(styles):
+        style = u8_to_network(torch.from_numpy(
+            smooth_image(size, size, seed=5 + 100 * s))[None]).to(device)
+        with torch.no_grad():
+            per_style.append(style_targets_from_features(
+                vgg(style, taps.style_taps, precision=prec)))
+    select = None
+    if styles == 1:
+        grams = per_style[0]
+    else:
+        grams = [torch.stack(layer) for layer in zip(*per_style)]
+        select = torch.eye(styles, device=device)[torch.arange(batch) % styles]
     cpu = lambda ts: [t.detach().float().cpu().clone() for t in ts]
     params = list(net.parameters())
     before = cpu(params)
     total, _ = loss_fn(net, vgg, u8, grams, LossWeightSchedule()(0), taps=taps,
-                       precision=prec, dropout=False)
+                       precision=prec, dropout=False, style_select=select,
+                       in_stats=in_stats)
     grads = torch.autograd.grad(total, params)
     state = create_train_state(net)
-    metrics = make_train_step(dropout=False)(state, vgg, u8, grams)
+    metrics = make_train_step(dropout=False, num_styles=styles, in_stats=in_stats)(
+        state, vgg, u8, grams, style_select=select)
     return (float(metrics["loss"]), cpu(grads), float(metrics["grad_norm"]), before,
             cpu(net.parameters()), state.step)
 
 
-def phase_train_parity(seed: int) -> None:
-    """One f32 step (128x128, B=2, no dropout) on the card against the
-    port's CPU path from the same seeded params, VGG and batch. Tolerances:
+def _param_names(styles: int):
+    from fast_neural_style_transfer_tpu_torch.models import TransformerNet
+
+    return list(TransformerNet(num_styles=styles).named_parameters())
+
+
+def phase_train_parity(seed: int, variant: str = "single_style", styles: int = 1,
+                       batch: int = 2, in_stats: str = "stable") -> None:
+    """One f32 step (128x128, B=2, no dropout; ``variant``: other style
+    counts, batches or IN statistics) on the card against the port's CPU
+    path from the same seeded params, VGG and batch. Tolerances:
     loss and gradient global norm relative 1e-4, every gradient element
     within 1e-3 of the largest gradient (f32 sums in other orders through
     ~30 layers). Updated params: Adam's first update is lr * u(g), u(g) =
@@ -752,11 +1034,14 @@ def phase_train_parity(seed: int) -> None:
     effective gradient is at least 1e-4 on the CPU (where du/dg <= 1)
     within 1e-3 lr."""
     lr = 1e-3
-    card = _one_train_step("cuda", seed)
-    cpu = _one_train_step("cpu", seed)
+    card = _one_train_step("cuda", seed, batch=batch, styles=styles, in_stats=in_stats)
+    cpu = _one_train_step("cpu", seed, batch=batch, styles=styles, in_stats=in_stats)
     loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
     gmax = max(g.abs().max().item() for g in cpu[1])
-    grad_err = max((a - b).abs().max().item() for a, b in zip(card[1], cpu[1])) / gmax
+    errs = [(a - b).abs().max().item() for a, b in zip(card[1], cpu[1])]
+    grad_err = max(errs) / gmax
+    names = [n for n, _ in _param_names(styles)]
+    worst = int(np.argmax(errs))
     norm_rel = abs(card[2] - cpu[2]) / cpu[2]
     dp = [(a - b).abs() / lr for a, b in zip(card[4], cpu[4])]
     numel = sum(d.numel() for d in dp)
@@ -770,15 +1055,18 @@ def phase_train_parity(seed: int) -> None:
     dp_max = max(d.max().item() for d in dp)
     ok = (loss_rel <= 1e-4 and norm_rel <= 1e-4 and grad_err <= 1e-3
           and dp_max <= 2 and g_eff_off < 1e-4 and card[5] == cpu[5] == 1)
-    emit("train_parity", ok=ok, size=[128, 128], batch=2, precision="f32",
+    emit("train_parity", ok=ok, variant=variant, size=[128, 128], batch=batch,
+         styles=styles, in_stats=in_stats, precision="f32",
          loss_card=card[0], loss_cpu=cpu[0], loss_rel_err=loss_rel,
          grad_norm_card=card[2], grad_norm_cpu=cpu[2], grad_norm_rel_err=norm_rel,
-         grad_max_abs_err_over_max_grad=grad_err, param_max_abs_err_over_lr=dp_max,
+         grad_max_abs_err_over_max_grad=grad_err, worst_grad_param=names[worst],
+         worst_grad_param_max=cpu[1][worst].abs().max().item(), max_grad=gmax,
+         param_max_abs_err_over_lr=dp_max,
          param_mean_abs_err_over_lr=sum(d.sum().item() for d in dp) / numel,
          param_frac_off_over_1e_3_lr=frac_off,
          largest_effective_grad_where_off=g_eff_off, steps=[card[5], cpu[5]])
     if not ok:
-        fail("card-vs-CPU train step parity")
+        fail(f"card-vs-CPU train step parity ({variant})")
 
 
 IN_BWD_FLOPS_PER_ELEMENT = 16  # the TPU kernel's cost estimate
@@ -802,7 +1090,9 @@ def train_kernel_times(seed: int) -> dict:
     shapes: ``tiled_ms``), their plain versions and the library
     calls (F.instance_norm(+F.relu); its autograd backward, as the graph
     time of forward + backward less that of the forward; cuDNN
-    backward-data torch.nn.grad.conv2d_input), beside the bounds."""
+    backward-data torch.nn.grad.conv2d_input), beside the bounds. The IN
+    kernels also with per-sample (B, C) affines, as multi-style training
+    calls them (``sample_affine_ms``; ``ms`` is the (C,) call)."""
     import torch
     import torch.nn.functional as F
 
@@ -828,10 +1118,9 @@ def train_kernel_times(seed: int) -> dict:
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        tot = dict.fromkeys(("ms", "two_launch_ms", "plain_ms", "library_ms", "bound_ms"),
-                            0.0)
-        fwd = dict.fromkeys(("ms", "two_launch_ms", "plain_ms", "library_ms", "bound_ms"),
-                            0.0)
+        keys = ("ms", "sample_affine_ms", "two_launch_ms", "plain_ms", "library_ms",
+                "bound_ms")
+        tot, fwd = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
         for name, h, w, c, relu, count in SITES:
             x = (torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5)
             x = x.to(dtype).contiguous(memory_format=torch.channels_last)
@@ -839,6 +1128,8 @@ def train_kernel_times(seed: int) -> dict:
             g = g.contiguous(memory_format=torch.channels_last)
             gamma = torch.randn(c, generator=gen, device="cuda")
             beta = torch.randn(c, generator=gen, device="cuda")
+            g_rows = torch.randn((n, c), generator=gen, device="cuda")
+            b_rows = torch.randn((n, c), generator=gen, device="cuda")
             with torch.no_grad():
                 _, mean, inv = instance_norm_fwd(x, gamma, beta)
 
@@ -849,6 +1140,8 @@ def train_kernel_times(seed: int) -> dict:
                 two = fwd_plan(x, one_launch=False)
                 site_fwd = {
                     "ms": graph_ms(lambda: instance_norm_fwd(x, gamma, beta, relu=relu)),
+                    "sample_affine_ms": graph_ms(lambda: instance_norm_fwd(
+                        x, g_rows, b_rows, relu=relu)),
                     "two_launch_ms": graph_ms(lambda: _launch_fwd(
                         x, gamma, beta, two, eps=1e-5, relu=relu, onepass=False)),
                     "plain_ms": graph_ms(lambda: instance_norm_fwd_reference(
@@ -873,6 +1166,8 @@ def train_kernel_times(seed: int) -> dict:
             site = {
                 "ms": graph_ms(lambda: instance_norm_bwd(x, g, mean, inv, gamma, beta,
                                                          relu=relu)),
+                "sample_affine_ms": graph_ms(lambda: instance_norm_bwd(
+                    x, g, mean, inv, g_rows, b_rows, relu=relu)),
                 "two_launch_ms": graph_ms(lambda: _launch_bwd(
                     x, g, mean, inv, gamma, beta, two_bwd, relu=relu)),
                 "plain_ms": graph_ms(lambda: instance_norm_bwd_reference(
@@ -952,13 +1247,20 @@ def count_gradient_copies(fn) -> dict:
     return counts
 
 
+TRAIN_VARIANTS = (("single_style", 1, "stable"), ("multi_style", STYLES, "stable"),
+                  ("onepass", 1, "onepass"))
+
+
 def phase_train_times(seed: int) -> dict:
     """Training step p50 at B=20, 256x256, bf16 and f32 (CUDA events
     around each step, which ends in the non-finite guard's sync, after 3
-    warm-up steps; the host clock beside them), the layout
-    copies and casts ahead of the kernels' backward (count_gradient_copies),
-    a torch.profiler breakdown of one bf16 step by kernel and by aten op, and
-    the kernels' per-step times (train_kernel_times)."""
+    warm-up steps; the host clock beside them) for each of TRAIN_VARIANTS:
+    single-style, the STYLES-style net (a style drawn per example) and
+    one-pass IN statistics, with the IN launches of the timed steps by
+    route and by affine; for single-style also the layout copies and casts
+    ahead of the kernels' backward (count_gradient_copies) and a
+    torch.profiler breakdown of one bf16 step by kernel and by aten op;
+    then the kernels' per-step times (train_kernel_times)."""
     import torch
 
     from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
@@ -968,30 +1270,37 @@ def phase_train_times(seed: int) -> dict:
     )
     from fast_neural_style_transfer_tpu_torch.models import TransformerNet
     from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
     from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
     from fast_neural_style_transfer_tpu_torch.train.step import exact_f32, make_train_step
     from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
 
     u8 = torch.from_numpy(np.stack([smooth_image(256, 256, seed=2000 + i)
                                     for i in range(TRAIN_BATCH)])).cuda()
-    style = u8_to_network(torch.from_numpy(smooth_image(256, 256, seed=5))[None]).cuda()
+    style_imgs = [u8_to_network(torch.from_numpy(
+        smooth_image(256, 256, seed=5 + 100 * s))[None]).cuda() for s in range(STYLES)]
     result = {}
-    for precision in ("bf16", "f32"):
+    for precision, (variant, styles, in_stats) in (
+            (p, v) for p in ("bf16", "f32") for v in TRAIN_VARIANTS):
         prec = canonical_compute_dtype(precision)
         exact_f32(torch.device("cuda"), prec)
         torch.manual_seed(seed)
-        net = TransformerNet().cuda().to(memory_format=torch.channels_last)
+        net = TransformerNet(num_styles=styles).cuda().to(memory_format=torch.channels_last)
         vgg = make_vgg(random_params(seed), "cuda")
         taps = LossTaps()
         with torch.no_grad():
-            grams = style_targets_from_features(vgg(style, taps.style_taps, precision=prec))
+            per_style = [style_targets_from_features(vgg(s, taps.style_taps, precision=prec))
+                         for s in style_imgs[:styles]]
+        grams = (per_style[0] if styles == 1
+                 else [torch.stack(layer) for layer in zip(*per_style)])
         state = create_train_state(net)
-        step = make_train_step(precision=prec)
+        step = make_train_step(precision=prec, num_styles=styles, in_stats=in_stats)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         for _ in range(3):
             step(state, vgg, u8, grams, gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_in_counts()
         samples, host = [], []
         for _ in range(10):
             start = torch.cuda.Event(enable_timing=True)
@@ -1004,12 +1313,23 @@ def phase_train_times(seed: int) -> dict:
             host.append((time.perf_counter() - t0) * 1e3)
             samples.append(start.elapsed_time(end))
         p50 = float(np.median(samples))
-        emit("train_step_time", precision=precision, batch=TRAIN_BATCH, size=[256, 256],
+        by_route = dict(instance_norm_fwd.launches_by_route)
+        by_affine = dict(instance_norm_fwd.launches_by_affine)
+        emit("train_step_time", variant=variant, styles=styles, in_stats=in_stats,
+             precision=precision, batch=TRAIN_BATCH, size=[256, 256],
              p50_ms=p50, min_ms=float(np.min(samples)), max_ms=float(np.max(samples)),
              host_p50_ms=float(np.median(host)), images_per_s=TRAIN_BATCH / p50 * 1e3,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-             loss=float(m["loss"]))
-        result[precision] = p50
+             loss=float(m["loss"]), in_fwd_launches_by_route=by_route,
+             in_fwd_launches_by_affine=by_affine)
+        if by_route["two_launch"] or by_affine["sample" if styles == 1 else "channel"]:
+            fail(f"train_times {variant} {precision}: IN forward off the one-launch "
+                 f"kernel or on the wrong affine ({by_route}, {by_affine})")
+        result[(variant, precision)] = p50
+        if variant != "single_style":
+            del net, vgg, state, step
+            torch.cuda.empty_cache()
+            continue
         emit("train_gradient_copies", precision=precision,
              **count_gradient_copies(lambda: step(state, vgg, u8, grams, gen)))
         if precision == "bf16":
@@ -1261,7 +1581,7 @@ def profile_calls(fn, reps: int = 5, top: int = 8) -> dict:
 
 
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
-          "times", "train_times", "in_fwd_budgets", "in_bwd_budgets")
+          "multi_style", "times", "train_times", "in_fwd_budgets", "in_bwd_budgets")
 
 
 def main() -> int:
@@ -1294,6 +1614,7 @@ def main() -> int:
     if "kernels" in phases:
         err["in_fwd"] = phase_kernel_vs_plain(args.seed)
         err["in_bwd"] = phase_in_bwd_vs_plain(args.seed)
+        err["affine_fwd"], err["affine_bwd"] = phase_affine_vs_plain(args.seed)
         err["conv"] = phase_conv_bwd_vs_plain(args.seed)
     if "trained_weights" in phases:
         phase_trained_weights()
@@ -1301,6 +1622,8 @@ def main() -> int:
     trained = phase_training(args.seed) if "training" in phases else None
     if "train_parity" in phases:
         phase_train_parity(args.seed)
+        phase_train_parity(args.seed, variant="onepass", in_stats="onepass")
+    multi = phase_multi_style(args.seed) if "multi_style" in phases else None
     times = phase_times(args.seed) if "times" in phases else None
     ttimes = phase_train_times(args.seed) if "train_times" in phases else None
     if "in_fwd_budgets" in phases:
@@ -1310,6 +1633,7 @@ def main() -> int:
     emit("done", seconds=time.perf_counter() - t0, phases=list(phases))
     if phases == PHASES:
         b8 = times["per_forward"][8]
+        in_fwd = ttimes["kernels"][("in_fwd", "float32")]
         in_bwd = ttimes["kernels"][("in_bwd", "float32")]
         conv = ttimes["kernels"][("conv_dx", "float32")]
         src = "fast_neural_style_transfer_tpu_torch/csrc/"
@@ -1320,11 +1644,15 @@ def main() -> int:
             "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:61",
             "launches": served["launches"],
             "launches_by_route": served["launches_by_route"],
-            "max_abs_err": err["in_fwd"],
+            "launches_multi_style": multi["counts"]["instance_norm_fwd"],
+            "max_abs_err": max(err["in_fwd"], err["affine_fwd"]),
             # the serving path: the 14 sites of one 256x256 bf16 forward at B=8
             "ms": b8["ms"], "plain_ms": b8["plain_ms"],
             "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
             "library_ms": b8["library_ms"],
+            # the training path: one f32 step at B=20, (C,) and (B, C) affines
+            "train_step_ms": in_fwd["ms"],
+            "train_step_sample_affine_ms": in_fwd["sample_affine_ms"],
         }, {
             "name": "instance_norm_bwd",
             "route": "cuda",
@@ -1332,9 +1660,11 @@ def main() -> int:
             "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:115",
             "launches": trained["launches"]["instance_norm_bwd"],
             "launches_by_route": trained["bwd_by_route"],
-            "max_abs_err": err["in_bwd"],
+            "launches_multi_style": multi["counts"]["instance_norm_bwd"],
+            "max_abs_err": max(err["in_bwd"], err["affine_bwd"]),
             # the training path: the 14 sites of one f32 step at B=20, 256x256
-            "ms": in_bwd["ms"], "plain_ms": in_bwd["plain_ms"],
+            "ms": in_bwd["ms"], "sample_affine_ms": in_bwd["sample_affine_ms"],
+            "plain_ms": in_bwd["plain_ms"],
             "bound_ms": in_bwd["bound_ms"], "bound_by": in_bwd["bound_by"],
             "library_ms": in_bwd["library_ms"],
         }, {

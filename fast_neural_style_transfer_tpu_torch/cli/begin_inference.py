@@ -5,8 +5,9 @@
         --content_image photo.jpg --output_dir out
 
 Single images and ``--content_dir`` jobs run on the card (``--device``).
-``--spatial > 1``, ``--precision int8``, ``--style_index``/``--style_blend``
-and ``--data_parallel`` are not yet ported and exit with a message.
+``--style_index`` / ``--style_blend`` pick or blend the styles of a
+multi-style checkpoint. ``--spatial > 1``, ``--precision int8`` and
+``--data_parallel`` are not yet ported and exit with a message.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import argparse
 import os
 
+from fast_neural_style_transfer_tpu_torch.cli import resolve_style_flags
 from fast_neural_style_transfer_tpu_torch.cli.config import (
     inference_content_image,
     output_dir,
@@ -51,9 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spatial", type=int, default=1,
                    help="Shard image height over N devices (not yet ported)")
     p.add_argument("--style_index", type=int, default=None,
-                   help="Multi-style checkpoints (not yet ported)")
+                   help="Multi-style checkpoints: which trained style to use")
     p.add_argument("--style_blend", type=float, nargs="+", default=None,
-                   metavar="W", help="Multi-style blend (not yet ported)")
+                   metavar="W",
+                   help="Multi-style checkpoints: length-S weights that "
+                        "convexly blend the trained styles (e.g. 0.5 0.5)")
     p.add_argument("--preserve_color", default="off", choices=["off", "luma"],
                    help="'luma' keeps only the stylized luminance and takes "
                         "chrominance from the content")
@@ -68,9 +72,6 @@ def main(argv=None) -> None:
         raise SystemExit("--spatial > 1: spatial sharding is not yet ported")
     if args.precision == "int8":
         raise SystemExit("--precision int8: int8 inference is not yet ported")
-    if args.style_index is not None or args.style_blend is not None:
-        raise SystemExit("--style_index/--style_blend: multi-style "
-                         "checkpoints are not yet ported")
     if args.data_parallel:
         raise SystemExit("--data_parallel: multi-card inference is not yet ported")
 
@@ -79,13 +80,17 @@ def main(argv=None) -> None:
         stylize_image_file,
     )
 
+    try:
+        style = resolve_style_flags(args.style_index, args.style_blend)
+    except ValueError as e:
+        raise SystemExit(str(e))
     size = tuple(args.size) if args.size else None
     os.makedirs(args.output_dir, exist_ok=True)
     if args.content_dir:
         written = stylize_directory(
             args.model_path, args.content_dir, args.output_dir,
             size=size, batch_size=args.batch_size, precision=args.precision,
-            skip_bad_images=args.skip_bad_images,
+            style=style, skip_bad_images=args.skip_bad_images,
             preserve_color=args.preserve_color, device=args.device)
         done = [w for w in written if w]
         print(f"saved {len(done)} stylized images to {args.output_dir}"
@@ -95,7 +100,7 @@ def main(argv=None) -> None:
     out_path = stylize_image_file(
         args.model_path, args.content_image,
         os.path.join(args.output_dir, args.output_name),
-        size=size, precision=args.precision,
+        size=size, precision=args.precision, style=style,
         preserve_color=args.preserve_color, device=args.device)
     print(f"saved {out_path}")
 

@@ -5,10 +5,12 @@
         --total_steps 80000 --output_dir training_output
 
 Runs on the card (``--device cpu`` for the CPU). Several ``--style_image``
-paths (ROADMAP row 10), ``--spatial > 1`` (row 15), ``--in_stats onepass``
-and a reference training ``.pth`` as ``--checkpoint_path`` (full resume,
-row 6) are not yet ported and exit with a message. ``--profile_start`` /
-``--profile_stop`` trace with ``torch.profiler``.
+paths train one multi-style net (conditional IN); ``--in_stats onepass``
+trains with one-pass IN statistics; a reference training ``.pth`` as
+``--checkpoint_path`` resumes fully (Adam state, schedule, iteration).
+``--spatial > 1`` (ROADMAP row 15) is not yet ported and exits with a
+message. ``--profile_start`` / ``--profile_stop`` trace with
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="train fast neural style transfer (PyTorch/CUDA)")
     p.add_argument("--style_image", type=str, nargs="+", default=style_image,
-                   help="Path to the style image (several: multi-style, not "
-                        "yet ported)")
+                   help="Path to the style image; several train one "
+                        "multi-style net (conditional instance norm)")
     p.add_argument("--training_monitor_content_image", type=str,
                    default=training_monitor_content_image,
                    help="Path to content image to monitor training")
@@ -58,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=training_config["LEARNING_RATE"],
                    help="Learning rate (cosine-annealed to 1e-7)")
     p.add_argument("--checkpoint_path", type=str, default=None,
-                   help="Warm start: stylizer weights (.npz or reference .pth)")
+                   help="Warm start: stylizer weights (.npz or reference .pth); "
+                        "a reference training .pth resumes fully")
     p.add_argument("--vgg_weights", type=str, default=vgg19_weights,
                    help="VGG19 ImageNet weights (.npz or torchvision .pth)")
     p.add_argument("--precision", type=str, default="f32", choices=["f32", "bf16"],
@@ -75,8 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Recompute the stylizer and the stylized-branch VGG in "
                         "the backward (torch.utils.checkpoint)")
     p.add_argument("--in_stats", choices=("stable", "onepass"), default="stable",
-                   help="Instance-norm statistics ('onepass' is not yet ported "
-                        "for training)")
+                   help="Instance-norm statistics: 'onepass' computes mean and "
+                        "E[x^2] from one read")
     p.add_argument("--pad_batch", action="store_true",
                    help="Pad the batch to a multiple of 8 with loss-masked "
                         "copies (gradients stay the real batch's)")
@@ -100,15 +103,10 @@ def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
     style = args.style_image
     if isinstance(style, list):
-        if len(style) > 1:
-            raise SystemExit("several --style_image paths: multi-style training "
-                             "is not yet ported (ROADMAP row 10)")
-        style = style[0]
+        style = style[0] if len(style) == 1 else tuple(style)
     if args.spatial > 1:
         raise SystemExit("--spatial > 1: spatial sharding is not yet ported "
                          "(ROADMAP row 15)")
-    if args.in_stats != "stable":
-        raise SystemExit("--in_stats onepass: not yet ported for training")
 
     from fast_neural_style_transfer_tpu_torch.train.loop import (
         TrainConfig,
@@ -140,6 +138,7 @@ def main(argv=None) -> str:
         seed=args.seed,
         num_workers=args.num_workers,
         remat=args.remat,
+        in_stats=args.in_stats,
         pad_batch=args.pad_batch,
         init_checkpoint=args.checkpoint_path,
         profile_start=args.profile_start,

@@ -7,9 +7,13 @@
 // NHWC activation x it computes the f32 mean and biased variance over H*W,
 // inv = rsqrt(var + eps), y = x * (inv * gamma) + (beta - mean * inv *
 // gamma), then an optional ReLU. y is written in x's dtype; mean and inv
-// are written as (N, C) f32 residuals. The statistics are "stable" by
-// default, or one-pass on request: var = max(E[x^2] - mean^2, 0), the TPU
-// kernel's own arithmetic.
+// are written as (N, C) f32 residuals. The affine (gamma, beta) is one (C,)
+// row for every sample, or an (N, C) row per sample (conditional instance
+// norm: multi-style training conditions each example on its own style);
+// every kernel reads sample s's row at gamma + s * gstride, gstride 0 or C.
+// The per-sample rows add N * C * 8 bytes to a call that moves MBs. The
+// statistics are "stable" by default, or one-pass on request: var =
+// max(E[x^2] - mean^2, 0), the TPU kernel's own arithmetic.
 //
 // Bound: bytes. The work is ~8 flops per element against 2 bytes (bf16) or
 // 4 bytes (f32) read and the same written, far below the card's ~295
@@ -89,8 +93,9 @@
 // the affine (gamma, beta):
 //   xhat = (x - mean) * inv;  with ReLU, g <- g * [xhat * gamma + beta > 0]
 //   dx   = gamma * inv * (g - sum(g) / HW - xhat * sum(g * xhat) / HW)
-//   per-sample dgamma = sum(g * xhat), dbeta = sum(g)  ((N, C) f32; the
-//   wrapper sums them over N).
+//   per-sample dgamma = sum(g * xhat), dbeta = sum(g)  ((N, C) f32; for a
+//   (C,) affine the wrapper sums them over N).
+// gamma and beta are sample s's row, as in the forward (gstride 0 or C).
 // The ReLU mask is rebuilt from x in f32 with every operation rounded on its
 // own (__fsub_rn, __fmul_rn, __fadd_rn: no FMA contraction), so it equals the
 // plain PyTorch version's mask bit for bit on the same inputs. y is never
@@ -408,23 +413,24 @@ __device__ __forceinline__ void sum_chunks(const float* part_s, int c, int ch,
 
 // Merges one sample's chunk partials part_s (chunks, 2, c) for the channels
 // [c0, c1) and writes their mean, inv, scale (ss_s[ch]) and shift
-// (ss_s[c + ch]). Thread t takes channel t % width of a group of at most
-// 256 and chunk lane t / width; a lane sums its chunks (sum_chunks: about
-// chunk 0's mean; one-pass: plain sums), and the lanes fold in a fixed
-// tree. red holds 2 * kThreads floats.
+// (ss_s[c + ch]), with the sample's affine row gamma_s, beta_s. Thread t
+// takes channel t % width of a group of at most 256 and chunk lane t /
+// width; a lane sums its chunks (sum_chunks: about chunk 0's mean; one-pass:
+// plain sums), and the lanes fold in a fixed tree. red holds 2 * kThreads
+// floats.
 template <bool kOnePass>
 __device__ __forceinline__ void merge_chunks(
     const float* part_s, float* red, int c0, int c1, int c, int hw, int chunk,
-    int chunks, float eps, const float* __restrict__ gamma,
-    const float* __restrict__ beta, float* mean_s, float* inv_s, float* ss_s) {
+    int chunks, float eps, const float* __restrict__ gamma_s,
+    const float* __restrict__ beta_s, float* mean_s, float* inv_s, float* ss_s) {
   for (int g0 = c0; g0 < c1; g0 += kThreads) {
     const int width = min(c1 - g0, kThreads);
     const int lanes = kThreads / width;
     const int lane = threadIdx.x / width;
     const int ch = g0 + threadIdx.x % width;
     // every load of the group goes out before the first is used
-    const float ga = gamma[ch];
-    const float be = beta[ch];
+    const float ga = gamma_s[ch];
+    const float be = beta_s[ch];
     const float k = kOnePass ? 0.f : __ldcg(part_s + ch);
     float s1, s2;
     sum_chunks<!kOnePass>(part_s, c, ch, lane, lanes, chunks, chunk, hw, k, s1,
@@ -491,14 +497,19 @@ __device__ __forceinline__ void apply_chunk(const T* src, T* __restrict__ dst,
 // part[s][j][0 | 1][c]. Sums are shifted by K, the chunk's first pixel, so
 // that M2 = S2 - S1^2 / n loses nothing to cancellation near the mean. The
 // sample's last block to publish merges all its partials into mean, inv
-// and ss[s] = (scale, shift).
+// and ss[s] = (scale, shift). At most 51 registers a thread (65,536 / (5 *
+// 256)), so that five blocks fit an SM: the planner's grid of about four
+// blocks per SM rounds up past four (540 blocks at the B=20 training
+// shapes), and at four an SM (63 registers) the f32 kernel ran 14 %
+// slower.
 template <typename T, int VEC, bool kOnePass>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 5)
     in_fwd_partial(const T* __restrict__ x, const float* __restrict__ gamma,
                    const float* __restrict__ beta, float* __restrict__ mean_out,
                    float* __restrict__ inv_out, float* __restrict__ part,
                    float* __restrict__ ss, unsigned* __restrict__ counters,
-                   int hw, int c, int chunk, int chunks, float eps) {
+                   int hw, int c, int gstride, int chunk, int chunks,
+                   float eps) {
   // two lane-sum arrays, which merge_chunks takes as one of 2 * kThreads
   __shared__ __align__(16) float red[2 * kThreads * VEC];
   __shared__ int s_last;
@@ -551,9 +562,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (s_last) {
     merge_chunks<kOnePass>(part + (size_t)s * chunks * 2 * c, red, 0, c, c, hw,
-                           chunk, chunks, eps, gamma, beta,
-                           mean_out + (size_t)s * c, inv_out + (size_t)s * c,
-                           ss + (size_t)s * 2 * c);
+                           chunk, chunks, eps, gamma + (size_t)s * gstride,
+                           beta + (size_t)s * gstride, mean_out + (size_t)s * c,
+                           inv_out + (size_t)s * c, ss + (size_t)s * 2 * c);
   }
 }
 
@@ -580,7 +591,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                     float* __restrict__ mean_out, float* __restrict__ inv_out,
                     float* __restrict__ part, float* __restrict__ ss,
                     unsigned* __restrict__ counters, int n, int hw, int c,
-                    int chunk, int chunks, float eps, int relu) {
+                    int gstride, int chunk, int chunks, float eps, int relu) {
   extern __shared__ __align__(16) unsigned char resident_smem_raw[];
   T* xs = reinterpret_cast<T*>(resident_smem_raw);
   float* red = reinterpret_cast<float*>(
@@ -670,8 +681,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   while (per * chunks < c) per *= 2;
   const int c0 = min(c, j * per);
   merge_chunks<kOnePass>(part + (size_t)s * chunks * 2 * c, red, c0,
-                         min(c, c0 + per), c, hw, chunk, chunks, eps, gamma,
-                         beta, mean_out + (size_t)s * c,
+                         min(c, c0 + per), c, hw, chunk, chunks, eps,
+                         gamma + (size_t)s * gstride,
+                         beta + (size_t)s * gstride, mean_out + (size_t)s * c,
                          inv_out + (size_t)s * c, ss_s);
   __syncthreads();
   if (tid == 0) {
@@ -697,7 +709,7 @@ struct FwdArgs {
   float* inv;
   float* work;
   unsigned* counters;
-  int n, hw, c, chunk, chunks;
+  int n, hw, c, gstride, chunk, chunks;
   float eps;
   int relu, onepass, is_bf16, vec, resident;
   cudaStream_t stream;
@@ -719,7 +731,7 @@ cudaError_t launch_two(const FwdArgs& a) {
   if (err != cudaSuccess) return err;
   in_fwd_partial<T, VEC, kOnePass><<<grid, kThreads, 0, a.stream>>>(
           x, a.gamma, a.beta, a.mean, a.inv, a.work, ss, a.counters, a.hw, a.c,
-          a.chunk, a.chunks, a.eps);
+          a.gstride, a.chunk, a.chunks, a.eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   in_fwd_apply<T, VEC><<<grid, kThreads, 0, a.stream>>>(
@@ -789,8 +801,8 @@ cudaError_t launch_resident(const FwdArgs& a) {
   in_fwd_resident<T, VEC, kOnePass>
       <<<a.n * a.chunks, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.x), a.gamma, a.beta, static_cast<T*>(a.y), a.mean,
-      a.inv, a.work, ss, a.counters, a.n, a.hw, a.c, a.chunk, a.chunks, a.eps,
-      a.relu);
+      a.inv, a.work, ss, a.counters, a.n, a.hw, a.c, a.gstride, a.chunk,
+      a.chunks, a.eps, a.relu);
   return cudaGetLastError();
 }
 
@@ -846,7 +858,8 @@ __global__ void __launch_bounds__(kTileC * kLanes)
                    const float* __restrict__ inv,
                    const float* __restrict__ gamma,
                    const float* __restrict__ beta, float* __restrict__ work,
-                   int n, int hw, int c, int chunk, int chunks, int relu) {
+                   int n, int hw, int c, int gstride, int chunk, int chunks,
+                   int relu) {
   const int cx = threadIdx.x;
   const int ly = threadIdx.y;
   const int ch = blockIdx.y * kTileC + cx;
@@ -858,8 +871,8 @@ __global__ void __launch_bounds__(kTileC * kLanes)
   if (ch < c) {
     const float m = mean[(size_t)s * c + ch];
     const float iv = inv[(size_t)s * c + ch];
-    const float ga = gamma[ch];
-    const float be = beta[ch];
+    const float ga = gamma[(size_t)s * gstride + ch];
+    const float be = beta[(size_t)s * gstride + ch];
     const size_t base = (size_t)s * hw * c + ch;
 #pragma unroll 4
     for (int p = p0 + ly; p < p1; p += kLanes) {
@@ -894,7 +907,7 @@ __global__ void __launch_bounds__(kTileC * kLanes)
                  const float* __restrict__ beta,
                  const float* __restrict__ work, T* __restrict__ dx,
                  float* __restrict__ dgamma, float* __restrict__ dbeta, int n,
-                 int hw, int c, int chunk, int chunks, int relu) {
+                 int hw, int c, int gstride, int chunk, int chunks, int relu) {
   const int cx = threadIdx.x;
   const int ly = threadIdx.y;
   const int ch = blockIdx.y * kTileC + cx;
@@ -934,8 +947,8 @@ __global__ void __launch_bounds__(kTileC * kLanes)
 
   const float m = mean[(size_t)s * c + ch];
   const float iv = inv[(size_t)s * c + ch];
-  const float ga = gamma[ch];
-  const float be = beta[ch];
+  const float ga = gamma[(size_t)s * gstride + ch];
+  const float be = beta[(size_t)s * gstride + ch];
   const float scale = ga * iv;
   const float a = s_a[cx];
   const float b = s_b[cx];
@@ -952,8 +965,8 @@ __global__ void __launch_bounds__(kTileC * kLanes)
 }
 
 // The one-launch backward block's per-channel constants in shared memory:
-// mean, inv, gamma, beta of its sample, then a and b (after the hand-off),
-// c floats each.
+// mean, inv, gamma, beta of its sample (its own affine row), then a and b
+// (after the hand-off), c floats each.
 constexpr int kBwdConsts = 6;
 
 // Floats of the one-launch backward block's lane sums: two arrays of
@@ -1059,7 +1072,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                     const float* __restrict__ beta, T* __restrict__ dx,
                     float* __restrict__ dgamma, float* __restrict__ dbeta,
                     float* __restrict__ part, unsigned* __restrict__ counters,
-                    int n, int hw, int c, int chunk, int chunks) {
+                    int n, int hw, int c, int gstride, int chunk, int chunks) {
   extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
   constexpr int kReg = bwd_reg_packs<VEC>();
   const int rp = kReg > 0 ? bwd_reg_pixels<VEC>(c) : 0;  // pixels in registers
@@ -1112,8 +1125,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int k = tid; k < c; k += kThreads) {
     cst[k] = mean[(size_t)s * c + k];
     cst[c + k] = inv[(size_t)s * c + k];
-    cst[2 * c + k] = gamma[k];
-    cst[3 * c + k] = beta[k];
+    cst[2 * c + k] = gamma[(size_t)s * gstride + k];
+    cst[3 * c + k] = beta[(size_t)s * gstride + k];
   }
   if constexpr (VEC > 1) asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
@@ -1260,7 +1273,7 @@ struct BwdArgs {
   float* dbeta;
   float* work;
   unsigned* counters;
-  int n, hw, c, chunk, chunks, relu, resident;
+  int n, hw, c, gstride, chunk, chunks, relu, resident;
   cudaStream_t stream;
 };
 
@@ -1271,13 +1284,13 @@ cudaError_t launch_bwd_two(const BwdArgs& a) {
   const T* xt = static_cast<const T*>(a.x);
   const T* gt = static_cast<const T*>(a.g);
   in_bwd_partial<T><<<grid, block, 0, a.stream>>>(
-      xt, gt, a.mean, a.inv, a.gamma, a.beta, a.work, a.n, a.hw, a.c, a.chunk,
-      a.chunks, a.relu);
+      xt, gt, a.mean, a.inv, a.gamma, a.beta, a.work, a.n, a.hw, a.c, a.gstride,
+      a.chunk, a.chunks, a.relu);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   in_bwd_apply<T><<<grid, block, 0, a.stream>>>(
       xt, gt, a.mean, a.inv, a.gamma, a.beta, a.work, static_cast<T*>(a.dx),
-      a.dgamma, a.dbeta, a.n, a.hw, a.c, a.chunk, a.chunks, a.relu);
+      a.dgamma, a.dbeta, a.n, a.hw, a.c, a.gstride, a.chunk, a.chunks, a.relu);
   return cudaGetLastError();
 }
 
@@ -1315,7 +1328,7 @@ cudaError_t launch_bwd_resident(const BwdArgs& a) {
   kernel<<<a.n * a.chunks, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.mean, a.inv,
       a.gamma, a.beta, static_cast<T*>(a.dx), a.dgamma, a.dbeta, a.work,
-      a.counters, a.n, a.hw, a.c, a.chunk, a.chunks);
+      a.counters, a.n, a.hw, a.c, a.gstride, a.chunk, a.chunks);
   return cudaGetLastError();
 }
 
@@ -1336,10 +1349,11 @@ struct BwdCapacityOp {
 
 }  // namespace
 
-// x, y: (n, hw, c) NHWC, f32 or bf16 (is_bf16). gamma, beta: (c,) f32.
-// mean, inv: (n, c) f32 out. work: f32 scratch of (n, chunks, 2, c) chunk
-// partials + (n, 2, c) scale and shift. counters: 1 + 2n unsigned ints,
-// zeroed here.
+// x, y: (n, hw, c) NHWC, f32 or bf16 (is_bf16). gamma, beta: f32, sample
+// s's row at s * gstride: one (c,) row for all (gstride 0) or (n, c) rows
+// (gstride c). mean, inv: (n, c) f32 out. work: f32 scratch of (n,
+// chunks, 2, c) chunk partials + (n, 2, c) scale and shift. counters: 1 +
+// 2n unsigned ints, zeroed here.
 // chunk: pixels per block; chunks = ceil(hw / chunk). vec: channels per
 // access, 16 / itemsize (c * itemsize a multiple of 16, x and y 16-byte
 // aligned) or 1. resident: the one-launch kernel, which needs chunks <=
@@ -1349,20 +1363,20 @@ struct BwdCapacityOp {
 extern "C" int fnst_instance_norm_fwd(const void* x, const void* gamma,
                                       const void* beta, void* y, void* mean,
                                       void* inv, void* work, void* counters,
-                                      int n, int hw, int c, int chunk,
-                                      int chunks, float eps, int relu,
+                                      int n, int hw, int c, int gstride,
+                                      int chunk, int chunks, float eps, int relu,
                                       int onepass, int is_bf16, int vec,
                                       int resident, void* stream) {
   if (n < 1 || hw < 1 || c < 1 || chunk < 1 || c % vec != 0 ||
-      chunks != (hw + chunk - 1) / chunk) {
+      (gstride != 0 && gstride != c) || chunks != (hw + chunk - 1) / chunk) {
     return cudaErrorInvalidValue;
   }
   const FwdArgs a{x, static_cast<const float*>(gamma),
                   static_cast<const float*>(beta), y,
                   static_cast<float*>(mean), static_cast<float*>(inv),
                   static_cast<float*>(work), static_cast<unsigned*>(counters),
-                  n, hw, c, chunk, chunks, eps, relu, onepass, is_bf16, vec,
-                  resident, static_cast<cudaStream_t>(stream)};
+                  n, hw, c, gstride, chunk, chunks, eps, relu, onepass,
+                  is_bf16, vec, resident, static_cast<cudaStream_t>(stream)};
   return dispatch<FwdOp>(is_bf16, vec, onepass, a);
 }
 
@@ -1376,7 +1390,8 @@ extern "C" int fnst_instance_norm_fwd_capacity(int is_bf16, int vec,
 }
 
 // x, g, dx: (n, hw, c) NHWC in one dtype, f32 or bf16 (is_bf16). mean, inv:
-// (n, c) f32 residuals of the forward. gamma, beta: (c,) f32. dgamma, dbeta:
+// (n, c) f32 residuals of the forward. gamma, beta: f32, sample s's row at
+// s * gstride, gstride 0 ((c,)) or c ((n, c)). dgamma, dbeta:
 // (n, c) f32 out, per sample. work: f32 scratch of 2 * n * chunks * c
 // chunk partials. counters: 1 + n (1 + 2c) unsigned ints, zeroed here (the
 // one-launch kernel's hand-off). chunk: pixels per block; chunks = ceil(hw /
@@ -1391,14 +1406,15 @@ extern "C" int fnst_instance_norm_bwd(const void* x, const void* g,
                                       const void* gamma, const void* beta,
                                       void* dx, void* dgamma, void* dbeta,
                                       void* work, void* counters, int n,
-                                      int hw, int c, int chunk, int chunks,
-                                      int relu, int is_bf16, int vec,
+                                      int hw, int c, int gstride, int chunk,
+                                      int chunks, int relu, int is_bf16, int vec,
                                       int resident, void* stream) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(dx);
   if (n < 1 || hw < 1 || c < 1 || chunk < 1 || vec < 1 || c % vec != 0 ||
-      (vec > 1 && ptrs % 16 != 0) || chunks != (hw + chunk - 1) / chunk) {
+      (gstride != 0 && gstride != c) || (vec > 1 && ptrs % 16 != 0) ||
+      chunks != (hw + chunk - 1) / chunk) {
     return cudaErrorInvalidValue;
   }
   const BwdArgs a{x, g, static_cast<const float*>(mean),
@@ -1407,7 +1423,7 @@ extern "C" int fnst_instance_norm_bwd(const void* x, const void* g,
                   static_cast<const float*>(beta), dx,
                   static_cast<float*>(dgamma), static_cast<float*>(dbeta),
                   static_cast<float*>(work), static_cast<unsigned*>(counters),
-                  n, hw, c, chunk, chunks, relu, resident,
+                  n, hw, c, gstride, chunk, chunks, relu, resident,
                   static_cast<cudaStream_t>(stream)};
   return dispatch<BwdOp>(is_bf16, vec, 0, a);
 }

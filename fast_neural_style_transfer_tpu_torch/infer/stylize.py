@@ -21,7 +21,12 @@ from fast_neural_style_transfer_tpu_torch.core.shapes import (
     pad_to_multiple_reflect,
     resolve_device,
 )
-from fast_neural_style_transfer_tpu_torch.models.transformer import TransformerNet
+from fast_neural_style_transfer_tpu_torch.models.transformer import (
+    TransformerNet,
+    bake_style,
+    num_styles,
+    require_single_style,
+)
 from fast_neural_style_transfer_tpu_torch.models.weights import load_checkpoint
 from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
 from fast_neural_style_transfer_tpu_torch.utils.image_io import (
@@ -39,8 +44,9 @@ from fast_neural_style_transfer_tpu_torch.utils.image_io import (
 class Stylizer:
     """A stylizer network on one device, with the u8 and network-space APIs.
 
-    ``params``: a reference-layout state_dict (``load_params``,
-    ``models.weights.params_from_jax``, ``TransformerNet().state_dict()``).
+    ``params``: a single-style reference-layout state_dict (``load_params``,
+    ``models.weights.params_from_jax``, ``TransformerNet().state_dict()``);
+    ``from_checkpoint(style=...)`` bakes a multi-style one.
     ``device``: ``None`` means the card ("cuda"); with no card that raises.
     Pass ``device="cpu"`` to run on the CPU.
     ``precision``: "f32" or "bf16" compute; parameters stay float32 and IN
@@ -73,6 +79,7 @@ class Stylizer:
         self.precision = canonical_compute_dtype(precision)
         self.preserve_color = preserve_color
         self.bucket_multiple = bucket_multiple
+        require_single_style(params, "Stylizer")
         net = TransformerNet()
         net.load_state_dict(params, strict=True)
         self.net = net.eval().to(self.device, memory_format=torch.channels_last)
@@ -85,15 +92,28 @@ class Stylizer:
 
     @staticmethod
     def load_params(path: str) -> Dict[str, torch.Tensor]:
-        """Reference-layout state_dict from a ``.pth`` or a JAX ``.npz``."""
+        """Reference-layout state_dict from a ``.pth`` or a JAX ``.npz``;
+        a multi-style checkpoint keeps its (S, C) IN banks."""
         return load_checkpoint(path)
 
     @classmethod
     def from_checkpoint(cls, path: str, *, style=None, **kw) -> "Stylizer":
-        if style is not None:
-            raise NotImplementedError(
-                "style selection for multi-style checkpoints is not yet ported")
-        return cls(cls.load_params(path), **kw)
+        """Load a checkpoint and build a Stylizer. ``style``: an int style
+        index or a length-S convex blend, baked into single-style params
+        (``bake_style``); required for a multi-style checkpoint, refused
+        for a single-style one."""
+        params = cls.load_params(path)
+        s = num_styles(params)
+        if s > 1:
+            if style is None:
+                raise ValueError(
+                    f"{path} is a {s}-style checkpoint: pass style=<index "
+                    f"0..{s - 1}> or a length-{s} blend-weight vector")
+            params = bake_style(params, style)
+        elif style is not None:
+            raise ValueError(
+                f"style={style!r} given but {path} is a single-style checkpoint")
+        return cls(params, **kw)
 
     # -- forward ------------------------------------------------------------
 
@@ -163,7 +183,8 @@ def stylize_image_file(
     preserve_color: str = "off",
     device: Optional[Union[str, torch.device]] = None,
 ) -> str:
-    """File in, file out, through the uint8 device roundtrip."""
+    """File in, file out, through the uint8 device roundtrip. ``style``:
+    index or blend for a multi-style checkpoint (``from_checkpoint``)."""
     from PIL import Image
 
     stylizer = Stylizer.from_checkpoint(model_path, precision=precision,
@@ -192,8 +213,9 @@ def stylize_directory(
     device: Optional[Union[str, torch.device]] = None,
 ) -> list:
     """Stylize every image under ``content_dir`` into ``output_dir``,
-    mirroring relative paths as ``<relpath>_stylized.jpg``. Returns the
-    written paths (``None`` where a bad image was skipped)."""
+    mirroring relative paths as ``<relpath>_stylized.jpg``; ``style`` as
+    for ``stylize_image_file``. Returns the written paths (``None`` where a
+    bad image was skipped)."""
     if data_parallel:
         raise NotImplementedError("data-parallel stylization is not yet ported")
     files = scan_image_files(content_dir)

@@ -1,8 +1,10 @@
 """Perceptual losses with the reference's reductions (the JAX package's
-``losses/perceptual.py``), single-style.
+``losses/perceptual.py``).
 
 - style: per layer, the sum of squared differences between the batch Grams
-  and the style image's Gram, times ``layer_weight / c^2``;
+  and the style image's Gram, times ``layer_weight / c^2``; in a
+  multi-style run each target is an (S, c, c) bank and each example's
+  target is its row of ``style_select`` (B, S) times the bank;
 - content: the sum of squared differences at one tap over c*h*w (not over
   the batch);
 - TV: anisotropic squared differences, summed, over b*c*h*w.
@@ -10,7 +12,6 @@
 ``batch_mask`` ((B,) 0/1 floats) zeroes padding examples out of every sum,
 and TV's batch count uses the real examples only, so a padded batch gives
 the real batch's loss exactly. Features are NHWC; every sum is float32.
-Multi-style (S, c, c) Gram banks are not ported yet (ROADMAP row 10).
 """
 
 from __future__ import annotations
@@ -71,19 +72,29 @@ def style_loss(
     style_feats: Sequence[torch.Tensor],
     target_grams: Sequence[torch.Tensor],
     weights: Sequence[float],
+    style_select: Optional[torch.Tensor] = None,
     batch_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Sum over layers of ``w * sum((G - G_target)^2) / c^2``, one (c, c)
-    target broadcast over the batch."""
+    """Sum over layers of ``w * sum((G - G_target)^2) / c^2``: one (c, c)
+    target broadcast over the batch, or (S, c, c) banks with
+    ``style_select`` (B, S) picking (or blending) each example's target."""
     if not (len(style_feats) == len(target_grams) == len(weights)):
         raise ValueError("style taps / targets / weights length mismatch")
-    if target_grams[0].dim() == 3:
-        raise NotImplementedError(
-            "(S, c, c) multi-style Gram banks are not yet ported (ROADMAP row 10)")
+    multi = target_grams[0].dim() == 3
+    if multi and style_select is None:
+        raise ValueError("(S, c, c) style-target banks need style_select")
+    if style_select is not None and not multi:
+        raise ValueError(
+            "style_select given but target_grams are single-style (c, c); "
+            "stack per-style targets into (S, c, c) banks")
     total = None
     for feat, tgt, w in zip(style_feats, target_grams, weights):
         c = tgt.shape[-1]
-        sq = torch.square(gram_matrix(feat) - tgt.float()[None])
+        if multi:  # (b, s) @ (s, c, c) -> each example's (c, c) target
+            tgt = torch.einsum("bs,sij->bij", style_select.float(), tgt.float())
+        else:
+            tgt = tgt.float()[None]
+        sq = torch.square(gram_matrix(feat) - tgt)
         if batch_mask is not None:
             sq = sq * _mask(batch_mask, 3)
         term = (w * torch.sum(sq)) / (c * c)

@@ -2,6 +2,9 @@ from fast_neural_style_transfer_tpu_torch.models.transformer import (
     NUM_IN_SITES,
     NUM_RES_BLOCKS,
     TransformerNet,
+    bake_style,
+    num_styles,
+    require_single_style,
 )
 from fast_neural_style_transfer_tpu_torch.models.vgg import VGG19Features
 from fast_neural_style_transfer_tpu_torch.models.weights import (
@@ -15,7 +18,10 @@ __all__ = [
     "NUM_RES_BLOCKS",
     "TransformerNet",
     "VGG19Features",
+    "bake_style",
     "load_checkpoint",
+    "num_styles",
     "params_from_jax",
+    "require_single_style",
     "save_params_npz",
 ]

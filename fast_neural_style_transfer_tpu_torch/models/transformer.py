@@ -21,15 +21,23 @@ NHWC tensor is an NCHW tensor in ``torch.channels_last`` memory format at no
 cost, and every activation stays channels_last: cuDNN runs NHWC and the
 instance-norm kernel sees the physical NHWC layout. Parameters stay float32;
 convs cast them to the compute dtype. Init is PyTorch's default.
+``in_stats="onepass"`` normalizes with one-pass statistics (var = max(E[x^2]
+- mean^2, 0), the JAX package's ``norm_method="onepass"``).
 
-Multi-style (S, C) banks, IN statistics capture/inject and the choice of
-statistics method are not ported yet.
+Multi-style (conditional instance norm, the JAX package's ``num_styles``):
+``TransformerNet(num_styles=S)`` keeps every IN affine as an (S, C) bank
+under the same ``weight``/``bias`` keys, and ``forward(...,
+style_weights=w)`` selects or blends rows: w is (S,) for the whole batch or
+(B, S) per example, applied as ``w @ bank`` (training one-hots a style per
+example). ``bake_style`` collapses a multi-style state_dict into a
+single-style one. IN statistics capture/inject (video) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -73,67 +81,100 @@ class UpsampleConv(nn.Module):
 
 class InstanceNorm(nn.Module):
     """Affine instance norm with the ``weight``/``bias`` keys of
-    ``nn.InstanceNorm2d(affine=True)``; ReLU fuses into the same pass."""
+    ``nn.InstanceNorm2d(affine=True)``: (C,), or an (S, C) bank for S
+    styles; ReLU fuses into the same pass."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, num_styles: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
+        shape = (c,) if num_styles == 1 else (num_styles, c)
+        self.weight = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-        return instance_norm(x, self.weight, self.bias, relu=relu)
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                style_weights: Optional[torch.Tensor] = None,
+                onepass: bool = False) -> torch.Tensor:
+        """``style_weights`` (a bank only): (S,) -> a (C,) affine, (N, S) ->
+        an (N, C) affine, one row per sample."""
+        gamma, beta = self.weight, self.bias
+        if style_weights is not None:
+            gamma, beta = style_weights @ gamma, style_weights @ beta
+        return instance_norm(x, gamma, beta, relu=relu, onepass=onepass)
 
 
 class ResidualBlock(nn.Module):
-    def __init__(self, c: int = 256):
+    def __init__(self, c: int = 256, num_styles: int = 1):
         super().__init__()
         self.conv1 = ConvLayer(c, c, 3)
-        self.in1 = InstanceNorm(c)
+        self.in1 = InstanceNorm(c, num_styles)
         self.conv2 = ConvLayer(c, c, 3)
-        self.in2 = InstanceNorm(c)
+        self.in2 = InstanceNorm(c, num_styles)
 
-    def forward(self, x: torch.Tensor,
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``keep``: an (N, C, 1, 1) bool Dropout2d mask, or None."""
-        y = self.in1(self.conv1(x), relu=True)
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                **norm) -> torch.Tensor:
+        """``keep``: an (N, C, 1, 1) bool Dropout2d mask, or None; ``norm``:
+        ``InstanceNorm``'s ``style_weights`` and ``onepass``."""
+        y = self.in1(self.conv1(x), relu=True, **norm)
         if keep is not None:
             y = torch.where(keep, y / (1.0 - DROPOUT_RATE),
                             torch.zeros((), dtype=y.dtype, device=y.device)).to(y.dtype)
-        return x + self.in2(self.conv2(y))
+        return x + self.in2(self.conv2(y), **norm)
 
 
 class TransformerNet(nn.Module):
-    """The single-style stylizer; registration order follows the reference
-    (conv1, norm1, conv2, norm2, res_blocks, up1, norm3, up2, norm4,
-    final_conv), so ``state_dict()`` keys come out in the reference's order."""
+    """The stylizer, single-style or with (S, C) IN banks for
+    ``num_styles`` S; registration order follows the reference (conv1,
+    norm1, conv2, norm2, res_blocks, up1, norm3, up2, norm4, final_conv), so
+    ``state_dict()`` keys come out in the reference's order and
+    ``parameters()`` in the order torch Adam's state ids index."""
 
-    def __init__(self):
+    def __init__(self, num_styles: int = 1):
         super().__init__()
+        if num_styles < 1:
+            raise ValueError(f"num_styles must be >= 1, got {num_styles}")
+        self.num_styles = num_styles
+        s = num_styles
         self.conv1 = ConvLayer(3, 64, 9, stride=2)
-        self.norm1 = InstanceNorm(64)
+        self.norm1 = InstanceNorm(64, s)
         self.conv2 = ConvLayer(64, 256, 3, stride=2)
-        self.norm2 = InstanceNorm(256)
+        self.norm2 = InstanceNorm(256, s)
         self.res_blocks = nn.ModuleList(
-            ResidualBlock(256) for _ in range(NUM_RES_BLOCKS))
+            ResidualBlock(256, s) for _ in range(NUM_RES_BLOCKS))
         self.up1 = UpsampleConv(256, 64)
-        self.norm3 = InstanceNorm(64)
+        self.norm3 = InstanceNorm(64, s)
         self.up2 = UpsampleConv(64, 32)
-        self.norm4 = InstanceNorm(32)
+        self.norm4 = InstanceNorm(32, s)
         self.final_conv = ConvLayer(32, 3, 9)
 
     def forward(self, x: torch.Tensor,
                 precision: Precision = Precision.f32(), *,
                 generator: Optional[torch.Generator] = None,
-                dropout: bool = True) -> torch.Tensor:
+                dropout: bool = True,
+                style_weights=None,
+                in_stats: str = "stable") -> torch.Tensor:
         """NHWC in, NHWC out (same dtype). H and W must be multiples of 4
         for an exact round trip. Dropout runs in training mode with
         ``dropout``, its masks drawn from ``generator`` (None: the default
-        generator of x's device)."""
+        generator of x's device). ``style_weights``: (S,) or (B, S), needed
+        by a multi-style net and refused by a single-style one.
+        ``in_stats``: "stable" or "onepass" IN statistics."""
+        multi = self.num_styles > 1
+        if multi and style_weights is None:
+            raise ValueError(
+                f"multi-style params ({self.num_styles} styles) need "
+                "style_weights — or bake_style() them first")
+        if not multi and style_weights is not None:
+            raise ValueError("style_weights given but params are single-style")
+        if in_stats not in ("stable", "onepass"):
+            raise ValueError(f"unknown in_stats {in_stats!r}")
+        if multi:
+            style_weights = torch.as_tensor(style_weights, dtype=torch.float32,
+                                            device=x.device)
+        norm = {"style_weights": style_weights, "onepass": in_stats == "onepass"}
         in_dtype = x.dtype
         h = x.permute(0, 3, 1, 2).to(precision.compute_dtype)
         h = h.contiguous(memory_format=torch.channels_last)
-        h = self.norm1(self.conv1(h), relu=True)
-        h = self.norm2(self.conv2(h), relu=True)
+        h = self.norm1(self.conv1(h), relu=True, **norm)
+        h = self.norm2(self.conv2(h), relu=True, **norm)
         drop = self.training and dropout
         for block in self.res_blocks:
             keep = None
@@ -141,8 +182,56 @@ class TransformerNet(nn.Module):
                 u = torch.rand((h.shape[0], h.shape[1], 1, 1), generator=generator,
                                device=h.device)
                 keep = u < 1.0 - DROPOUT_RATE
-            h = block(h, keep)
-        h = self.norm3(self.up1(h), relu=True)
-        h = self.norm4(self.up2(h), relu=True)
+            h = block(h, keep, **norm)
+        h = self.norm3(self.up1(h), relu=True, **norm)
+        h = self.norm4(self.up2(h), relu=True, **norm)
         out = self.final_conv(h)
         return out.permute(0, 2, 3, 1).to(in_dtype)
+
+
+def num_styles(state_dict: Mapping[str, torch.Tensor]) -> int:
+    """1 for a single-style state_dict, S for one with (S, C) IN banks."""
+    g = state_dict["norm1.weight"]
+    return int(g.shape[0]) if g.dim() == 2 else 1
+
+
+def bake_style(state_dict: Mapping[str, torch.Tensor],
+               style_weights: Union[int, Sequence[float], np.ndarray, torch.Tensor]
+               ) -> dict:
+    """Collapse a multi-style state_dict into a single-style one: every
+    (S, C) IN bank becomes ``w @ bank``, w the one-hot of an int style
+    index or a length-S convex blend (weights >= 0 summing to 1 within
+    1e-3). The result loads into ``TransformerNet()``."""
+    s = num_styles(state_dict)
+    if s == 1:
+        raise ValueError("bake_style: params are already single-style")
+    if isinstance(style_weights, bool):
+        raise TypeError("style index must be an integer, not bool")
+    if isinstance(style_weights, (int, np.integer)):
+        idx = int(style_weights)
+        if not 0 <= idx < s:
+            raise ValueError(f"style index {idx} out of range [0, {s})")
+        w = torch.zeros(s)
+        w[idx] = 1.0
+    else:
+        w = torch.as_tensor(np.asarray(style_weights, np.float32))
+        if tuple(w.shape) != (s,):
+            raise ValueError(f"style_weights shape {tuple(w.shape)} != ({s},) "
+                             f"for a {s}-style net")
+        if (w < 0).any() or abs(float(w.sum()) - 1.0) > 1e-3:
+            raise ValueError(
+                f"style blend weights must be convex (>= 0, sum to 1); got "
+                f"{w.tolist()} with sum {float(w.sum()):.4f}")
+    # only the IN banks are 2-D; conv weights are 4-D, biases 1-D
+    return {k: (w.to(v.device) @ v.float() if v.dim() == 2 else v)
+            for k, v in state_dict.items()}
+
+
+def require_single_style(state_dict: Mapping[str, torch.Tensor], what: str) -> None:
+    """Raise, with the fix, where a path takes single-style params only."""
+    s = num_styles(state_dict)
+    if s > 1:
+        raise ValueError(
+            f"{what} needs single-style params, but this net has {s} "
+            "conditional-IN styles — bake_style(params, <index or blend>) "
+            "first (the CLIs' --style_index/--style_blend do this)")

@@ -9,7 +9,8 @@ that tree of numpy arrays onto the state_dict:
 
     HWIO -> OIHW  for Conv2d          (conv1, conv2, res convs, final_conv)
     HWIO -> IOHW  for ConvTranspose2d (up1, up2)
-    gamma/beta -> weight/bias         (norm1..4, res in1/in2)
+    gamma/beta -> weight/bias         (norm1..4, res in1/in2; (C,), or an
+                                       (S, C) bank in a multi-style net)
 
 Its ``.npz`` files store the same tree flat, under keys such as
 ``res_blocks/0/conv1/w``; ``save_params_npz`` writes a state_dict in that
@@ -57,17 +58,9 @@ def _get(tree: Any, path) -> Any:
     return tree
 
 
-def _single_style(name: str, gamma_shape) -> None:
-    if len(gamma_shape) != 1:
-        raise NotImplementedError(
-            f"{name} holds a multi-style (S, C) conditional-IN bank of shape "
-            f"{tuple(gamma_shape)}; multi-style checkpoints are not yet ported")
-
-
 def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
     """JAX-package params (a tree of numpy arrays) -> reference state_dict
-    of float32 CPU tensors."""
-    _single_style("norm1/gamma", np.shape(tree["norm1"]["gamma"]))
+    of float32 CPU tensors, multi-style (S, C) banks as they are."""
     sd: StateDict = {}
     for path, prefix, transpose in _CONV_MAP:
         node = _get(tree, path)
@@ -138,7 +131,6 @@ def load_checkpoint(path: str) -> StateDict:
             obj = obj["model_state_dict"]
         if not isinstance(obj, Mapping) or "norm1.weight" not in obj:
             raise ValueError(f"{path} holds no stylizer state_dict")
-        _single_style("norm1.weight", tuple(obj["norm1.weight"].shape))
         return {k: v.detach().to(torch.float32) for k, v in obj.items()}
     if os.path.isdir(path):
         raise NotImplementedError(

@@ -13,8 +13,12 @@ rules). Every IN site of the stylizer runs on the kernels at every batch
 size, with no fallback.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory format, i.e.
-physically NHWC, the layout the TPU kernels saw. ``mean`` and ``inv`` come
-back as (N, C) float32, and so do the per-sample ``dgamma`` and ``dbeta``.
+physically NHWC, the layout the TPU kernels saw. The affine (gamma, beta) is
+(C,), one row for the batch, or (N, C), a row per sample (conditional
+instance norm: multi-style training conditions each example on its own
+style; the JAX package sends that shape to XLA, the port's kernels read it
+per sample). ``mean`` and ``inv`` come back as (N, C) float32, and so do the
+per-sample ``dgamma`` and ``dbeta``.
 """
 
 from __future__ import annotations
@@ -55,12 +59,12 @@ def _kernels() -> _Lib:
     if _fns is None:
         lib = _build.load("instance_norm")
         fwd = lib.fnst_instance_norm_fwd
-        fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                         + [ctypes.c_float] + [ctypes.c_int] * 5
                         + [ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         bwd = lib.fnst_instance_norm_bwd
-        bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+        bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                         + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         fwd_cap = lib.fnst_instance_norm_fwd_capacity
@@ -92,9 +96,10 @@ def instance_norm_fwd_reference(
     relu: bool = False,
     onepass: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: same outputs, f32 statistics.
-    ``onepass`` selects var = max(E[x^2] - mean^2, 0) (the TPU kernel's
-    arithmetic) over the two-pass variance around the mean."""
+    """Plain PyTorch version of the kernel: same outputs, f32 statistics;
+    gamma and beta (C,) or (N, C). ``onepass`` selects var = max(E[x^2] -
+    mean^2, 0) (the TPU kernel's arithmetic) over the two-pass variance
+    around the mean."""
     xf = x.float()
     mean, var = _moments(xf, onepass)
     inv = torch.rsqrt(var + eps)
@@ -202,6 +207,8 @@ def _capacity(device: torch.device, query: str, *variant: int) -> Tuple[int, int
 
 
 def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> None:
+    """Raises unless x is a non-empty channels_last (N, C, H, W) float32 or
+    bfloat16 tensor and gamma, beta are (C,) or (N, C) on x's device."""
     if x.dim() != 4:
         raise ValueError(f"the IN kernels want (N, C, H, W), got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -212,8 +219,9 @@ def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> None:
     if n * h * w == 0 or c == 0:
         raise ValueError(f"the IN kernels got an empty tensor {tuple(x.shape)}")
     for name, p in (("gamma", gamma), ("beta", beta)):
-        if p.shape != (c,):
-            raise ValueError(f"{name} shape {tuple(p.shape)} != ({c},)")
+        if p.shape not in ((c,), (n, c)):
+            raise ValueError(f"{name} shape {tuple(p.shape)} is neither ({c},) "
+                             f"nor ({n}, {c})")
         if p.device != x.device:
             raise ValueError(f"{name} is on {p.device}, x on {x.device}")
 
@@ -227,7 +235,8 @@ def instance_norm_fwd(
     relu: bool = False,
     onepass: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Instance norm + affine (+ReLU) -> (y, mean, inv).
+    """Instance norm + affine (+ReLU) -> (y, mean, inv); gamma, beta (C,)
+    or (N, C).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     that ``plan_fwd`` picks, or raises: wrong dtype or layout, a failed
@@ -254,6 +263,18 @@ def fwd_plan(x: torch.Tensor, *, onepass: bool = False,
                     blocks_per_sm=per_sm, one_launch=one_launch)
 
 
+def _affine_rows(gamma: torch.Tensor, beta: torch.Tensor, c: int):
+    """(gamma, beta) as contiguous float32 for the kernels, and the
+    per-sample stride of their rows: 0 for (C,), C for (N, C)."""
+    g = gamma.detach().to(torch.float32).contiguous()
+    b = beta.detach().to(torch.float32).contiguous()
+    return g, b, (0 if g.dim() == 1 else c)
+
+
+def _count_affine(fn, gstride: int) -> None:
+    fn.launches_by_affine["sample" if gstride else "channel"] += 1
+
+
 def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                 plan: FwdPlan, *, eps: float, relu: bool,
                 onepass: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -268,13 +289,13 @@ def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     # the ticket counter, then per sample its arrivals and its flag (the C
     # call zeroes them)
     counters = torch.empty(1 + 2 * n, dtype=torch.int32, device=x.device)
-    g = gamma.detach().to(torch.float32).contiguous()
-    b = beta.detach().to(torch.float32).contiguous()
+    g, b, gstride = _affine_rows(gamma, beta, c)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernels().fwd(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
         mean.data_ptr(), inv.data_ptr(), work.data_ptr(),
-        counters.data_ptr(), n, h * w, c, plan.chunk, plan.chunks, float(eps),
+        counters.data_ptr(), n, h * w, c, gstride, plan.chunk, plan.chunks,
+        float(eps),
         int(relu), int(onepass), int(x.dtype == torch.bfloat16), plan.vec,
         int(plan.route == "one_launch"), stream)
     if err != 0:
@@ -282,12 +303,15 @@ def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                            f"({plan})")
     instance_norm_fwd.launches += 1
     instance_norm_fwd.launches_by_route[plan.route] += 1
+    _count_affine(instance_norm_fwd, gstride)
     return y, mean, inv
 
 
-# calls that launched a forward kernel: in all, and by route
+# calls that launched a forward kernel: in all, by route, and by affine
+# ("channel": one (C,) row; "sample": an (N, C) row per sample)
 instance_norm_fwd.launches = 0
 instance_norm_fwd.launches_by_route = {"one_launch": 0, "two_launch": 0}
+instance_norm_fwd.launches_by_affine = {"channel": 0, "sample": 0}
 
 
 def instance_norm_bwd_reference(
@@ -303,15 +327,18 @@ def instance_norm_bwd_reference(
     """Plain PyTorch version of the backward kernel, the TPU kernel's
     formula: xhat = (x - mean) * inv; with ``relu`` the gradient is gated by
     xhat * gamma + beta > 0 in f32 (not by y); dx = gamma * inv * (g -
-    mean(g) - xhat * mean(g * xhat)). Returns (dx in x's dtype, per-sample
-    dgamma (N, C) f32, per-sample dbeta (N, C) f32)."""
+    mean(g) - xhat * mean(g * xhat)); gamma, beta (C,) or (N, C). Returns
+    (dx in x's dtype, per-sample dgamma (N, C) f32, per-sample dbeta (N, C)
+    f32)."""
     hw = x.shape[2] * x.shape[3]
     col = lambda t: t.float()[:, :, None, None]
+    # (C,) -> (1, C, 1, 1); (N, C) -> (N, C, 1, 1)
+    aff = lambda t: t.float().reshape(-1, x.shape[1])[:, :, None, None]
     xhat = (x.float() - col(mean)) * col(inv)
     gf = g.float()
-    gam = gamma.float()[None, :, None, None]
+    gam = aff(gamma)
     if relu:
-        gf = torch.where(xhat * gam + beta.float()[None, :, None, None] > 0,
+        gf = torch.where(xhat * gam + aff(beta) > 0,
                          gf, torch.zeros((), device=gf.device))
     g_sum = gf.sum(dim=(2, 3))
     gx_sum = (gf * xhat).sum(dim=(2, 3))
@@ -425,7 +452,7 @@ def instance_norm_bwd(
     relu: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """IN (+ReLU) backward -> (dx, dgamma (N, C) f32, dbeta (N, C) f32);
-    g must already be in x's dtype and layout.
+    g must already be in x's dtype and layout; gamma, beta (C,) or (N, C).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     that ``plan_bwd`` picks, or raises: wrong dtype or layout, a failed
@@ -463,38 +490,42 @@ def _launch_bwd(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     # its blocks that have published, then each sample's coefficients (n, 2,
     # c) (the C call zeroes them all)
     counters = torch.empty(1 + n * (1 + 2 * c), dtype=torch.int32, device=x.device)
-    gm = gamma.detach().to(torch.float32).contiguous()
-    bt = beta.detach().to(torch.float32).contiguous()
+    gm, bt, gstride = _affine_rows(gamma, beta, c)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernels().bwd(
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(),
         gm.data_ptr(), bt.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
         dbeta.data_ptr(), work.data_ptr(), counters.data_ptr(), n, h * w, c,
-        plan.chunk, plan.chunks, int(relu), int(x.dtype == torch.bfloat16),
-        plan.vec, int(plan.route == "one_launch"), stream)
+        gstride, plan.chunk, plan.chunks, int(relu),
+        int(x.dtype == torch.bfloat16), plan.vec, int(plan.route == "one_launch"),
+        stream)
     if err != 0:
         raise RuntimeError(f"instance-norm backward kernel launch failed: CUDA "
                            f"error {err} ({plan})")
     instance_norm_bwd.launches += 1
     instance_norm_bwd.launches_by_route[plan.route] += 1
+    _count_affine(instance_norm_bwd, gstride)
     return dx, dgamma, dbeta
 
 
-# calls that launched a backward kernel: in all, and by route
+# calls that launched a backward kernel: in all, by route, and by affine
 instance_norm_bwd.launches = 0
 instance_norm_bwd.launches_by_route = {"one_launch": 0, "two_launch": 0}
+instance_norm_bwd.launches_by_affine = {"channel": 0, "sample": 0}
 
 
 class InstanceNormFn(torch.autograd.Function):
     """IN + affine (+ReLU) under autograd: forward ``instance_norm_fwd``
-    (saving the input x, gamma, beta and the (mean, inv) residuals, never
-    y), backward ``instance_norm_bwd`` with the upstream gradient cast to
-    x's dtype and made channels_last first, and dgamma / dbeta summed over
-    the batch."""
+    with stable or ``onepass`` statistics (saving the input x, gamma, beta
+    and the (mean, inv) residuals, never y), backward ``instance_norm_bwd``
+    (one formula for both statistics) with the upstream gradient cast to
+    x's dtype and made channels_last first. dgamma / dbeta come back per
+    sample for an (N, C) affine and summed over the batch for a (C,) one."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, relu):
-        y, mean, inv = instance_norm_fwd(x, gamma, beta, eps=eps, relu=relu)
+    def forward(ctx, x, gamma, beta, eps, relu, onepass=False):
+        y, mean, inv = instance_norm_fwd(x, gamma, beta, eps=eps, relu=relu,
+                                         onepass=onepass)
         ctx.save_for_backward(x, gamma, beta, mean, inv)
         ctx.relu = relu
         return y
@@ -505,5 +536,6 @@ class InstanceNormFn(torch.autograd.Function):
         g = gy.to(x.dtype).contiguous(memory_format=torch.channels_last)
         dx, dgn, dbn = instance_norm_bwd(x, g, mean, inv, gamma, beta,
                                          relu=ctx.relu)
-        return (dx, dgn.sum(dim=0).to(gamma.dtype),
-                dbn.sum(dim=0).to(beta.dtype), None, None)
+        if gamma.dim() == 1:
+            dgn, dbn = dgn.sum(dim=0), dbn.sum(dim=0)
+        return dx, dgn.to(gamma.dtype), dbn.to(beta.dtype), None, None, None

@@ -5,8 +5,10 @@ channel) mean and *biased* variance over the spatial dims, eps=1e-5, then
 the learned scale and shift. Statistics are always float32.
 
 Tensors are (N, C, H, W), kept in ``torch.channels_last`` memory format by
-the model. ``instance_norm`` runs the hand-written kernels for a CUDA tensor
-and their plain PyTorch versions for a CPU tensor (``ops/cuda_norm.py``):
+the model. The affine is (C,), or (N, C) per sample (conditional instance
+norm, multi-style training). ``instance_norm`` runs the hand-written kernels
+for a CUDA tensor and their plain PyTorch versions for a CPU tensor
+(``ops/cuda_norm.py``):
 under autograd through ``InstanceNormFn`` (forward kernel, backward kernel),
 otherwise (``no_grad``, ``inference_mode``) as one forward call.
 """
@@ -36,15 +38,21 @@ def instance_norm_stats(
     return mean[:, :, None, None], var[:, :, None, None]
 
 
+def _affine_f32(p: torch.Tensor) -> torch.Tensor:
+    """(C,) or (N, C) affine -> float32, broadcastable against (N, C, H, W)."""
+    return p.float()[..., None, None]
+
+
 def apply_instance_norm_stats(x, mean, var, gamma, beta, *,
                               eps: float = 1e-5, relu: bool = False):
     """Normalize ``x`` with supplied moments (broadcastable against
-    (N, C, H, W)) and the learned (C,) affine; output in x's dtype. With
-    ``instance_norm_stats(x)`` this composes to ``instance_norm(x, ...)``."""
+    (N, C, H, W)) and the learned (C,) or (N, C) affine; output in x's
+    dtype. With ``instance_norm_stats(x)`` this composes to
+    ``instance_norm(x, ...)``."""
     xf = x.float()
     inv = torch.rsqrt(var.float() + eps)
     out = (xf - mean.float()) * inv
-    out = out * gamma.float()[:, None, None] + beta.float()[:, None, None]
+    out = out * _affine_f32(gamma) + _affine_f32(beta)
     if relu:
         out = torch.relu(out)
     return out.to(x.dtype)
@@ -57,11 +65,14 @@ def instance_norm(
     *,
     eps: float = 1e-5,
     relu: bool = False,
+    onepass: bool = False,
 ) -> torch.Tensor:
-    """Instance norm + affine (+ReLU) with "stable" statistics, the JAX
-    package's ``method="auto"``; differentiable in x, gamma and beta."""
+    """Instance norm + affine (+ReLU); differentiable in x, gamma and beta.
+    Statistics are "stable" (the JAX package's ``method="auto"``) or, with
+    ``onepass``, var = max(E[x^2] - mean^2, 0) (``method="onepass"``)."""
     if torch.is_grad_enabled() and (
             x.requires_grad or gamma.requires_grad or beta.requires_grad):
-        return InstanceNormFn.apply(x, gamma, beta, eps, relu)
-    y, _, _ = instance_norm_fwd(x, gamma, beta, eps=eps, relu=relu)
+        return InstanceNormFn.apply(x, gamma, beta, eps, relu, onepass)
+    y, _, _ = instance_norm_fwd(x, gamma, beta, eps=eps, relu=relu,
+                                onepass=onepass)
     return y

@@ -188,8 +188,8 @@ def main(argv: Optional[list] = None) -> None:
         description="Online stylization HTTP service with micro-batching")
     p.add_argument("--model", help="stylizer checkpoint (.pth/.npz)")
     p.add_argument("--style_index", type=int, default=None,
-                   help="style selection for multi-style checkpoints "
-                        "(not yet ported)")
+                   help="which trained style of a multi-style checkpoint "
+                        "to serve")
     p.add_argument("--adain-decoder", help="AdaIN decoder (not yet ported)")
     p.add_argument("--precision", default="bf16", choices=["f32", "bf16", "int8"],
                    help="serving compute dtype (int8 is not yet ported)")

@@ -1,19 +1,22 @@
-"""The training loop (the JAX package's ``train/loop.py``), single-style, on
-one device.
+"""The training loop (the JAX package's ``train/loop.py``) on one device.
 
 The reference's cadences are kept: log every ``log_every`` steps, a monitor
 sample every ``monitor_every``, a checkpoint every ``checkpoint_every``, the
-final ``style_transfer_final.npz`` at the end. The style image's Gram
+final ``style_transfer_final.npz`` at the end. The style images' Gram
 targets are computed once. SIGTERM (installed on the main thread only)
 finishes the step in flight, then the ``finally`` block flushes the metrics
 and leaves a restorable checkpoint. A resumed run continues from the
 latest checkpoint's label.
 
-Not ported yet, each raising with its ROADMAP row: several style images
-(row 10), ``spatial > 1`` (row 15), a reference training ``.pth`` for a
-full resume (row 6). Loss-curve PNGs wait for row 16. ``profile_start`` /
-``profile_stop`` trace those steps with ``torch.profiler`` into
-``<output_dir>/profile``.
+Several style images train one multi-style net (conditional IN): per-layer
+(S, c, c) Gram banks, ``TransformerNet(num_styles=S)``, a style drawn per
+example each step, one monitor sample per style. ``init_checkpoint`` warm
+starts the params (the style counts must match), or, for a reference
+training ``.pth``, resumes fully (params, Adam state, schedule, step;
+single-style only). ``in_stats="onepass"`` trains with one-pass IN
+statistics. ``spatial > 1`` is not ported yet (ROADMAP row 15); loss-curve
+PNGs wait for row 16. ``profile_start`` / ``profile_stop`` trace those
+steps with ``torch.profiler`` into ``<output_dir>/profile``.
 """
 
 from __future__ import annotations
@@ -31,12 +34,20 @@ from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_d
 from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
 from fast_neural_style_transfer_tpu_torch.data import ImageFolderDataset, InputPipeline
 from fast_neural_style_transfer_tpu_torch.losses import LossTaps, style_targets_from_features
-from fast_neural_style_transfer_tpu_torch.models.transformer import TransformerNet
+from fast_neural_style_transfer_tpu_torch.models.transformer import (
+    TransformerNet,
+    bake_style,
+    num_styles,
+)
 from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
 from fast_neural_style_transfer_tpu_torch.models.weights import load_checkpoint, save_params_npz
 from fast_neural_style_transfer_tpu_torch.train.checkpoint import CheckpointManager
 from fast_neural_style_transfer_tpu_torch.train.schedule import LossWeightSchedule
-from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+from fast_neural_style_transfer_tpu_torch.train.state import (
+    create_train_state,
+    is_reference_training_checkpoint,
+    state_from_reference_checkpoint,
+)
 from fast_neural_style_transfer_tpu_torch.train.step import (
     exact_f32,
     make_eval_forward,
@@ -94,35 +105,24 @@ class TrainConfig:
     device: Optional[str] = None
 
 
-def _is_reference_training_checkpoint(path: str) -> bool:
-    if not path.endswith((".pth", ".bin")):
-        return False
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    return isinstance(obj, dict) and "optimizer_state_dict" in obj
-
-
 def _check_config(cfg: TrainConfig) -> None:
     if cfg.image_size[0] % 4 or cfg.image_size[1] % 4:
         raise ValueError(
             f"image_size {cfg.image_size} must be a multiple of 4 in both "
             "dims (stylizer downsamples 4x and upsamples back)")
-    if cfg.in_stats != "stable":
-        raise NotImplementedError(
-            f"in_stats={cfg.in_stats!r}: only 'stable' statistics train on the "
-            "port (the IN kernel's one-pass mode is not wired into training)")
+    if cfg.in_stats not in ("stable", "onepass"):
+        raise ValueError(f"unknown in_stats {cfg.in_stats!r}")
     if cfg.spatial > 1:
         raise NotImplementedError(
             "spatial > 1: spatial sharding is not yet ported (ROADMAP row 15)")
-    if not isinstance(cfg.style_image, str) and len(cfg.style_image) > 1:
-        raise NotImplementedError(
-            "several style images (multi-style conditional IN) are not yet "
-            "ported (ROADMAP row 10)")
 
 
 def train_style_transfer(cfg: TrainConfig) -> str:
     """Run training; returns the path of the final params artifact."""
     _check_config(cfg)
-    style_path = cfg.style_image if isinstance(cfg.style_image, str) else cfg.style_image[0]
+    style_paths = ([cfg.style_image] if isinstance(cfg.style_image, str)
+                   else list(cfg.style_image))
+    styles = len(style_paths)
     device = resolve_device(cfg.device)
     os.makedirs(cfg.output_dir, exist_ok=True)
     prec = canonical_compute_dtype(cfg.precision)
@@ -136,23 +136,43 @@ def train_style_transfer(cfg: TrainConfig) -> str:
 
     # frozen VGG19 and the style targets, once
     vgg = make_vgg(resolve_params(cfg.vgg_weights, seed=cfg.seed), device)
-    style = torch.from_numpy(load_image(style_path, cfg.image_size)).to(device)
-    with torch.no_grad():
-        style_grams = [g.detach() for g in style_targets_from_features(
-            vgg(style, taps.style_taps, precision=prec))]
+    per_style = []
+    for path in style_paths:
+        style = torch.from_numpy(load_image(path, cfg.image_size)).to(device)
+        with torch.no_grad():
+            per_style.append([g.detach() for g in style_targets_from_features(
+                vgg(style, taps.style_taps, precision=prec))])
+    if styles == 1:
+        style_grams = per_style[0]
+    else:  # per-layer (S, c, c) banks for the per-example selection
+        style_grams = [torch.stack(layer) for layer in zip(*per_style)]
+        print(f"multi-style run: {styles} styles via conditional IN", flush=True)
 
     torch.manual_seed(cfg.seed)  # PyTorch-default init of the stylizer
-    net = TransformerNet()
-    if cfg.init_checkpoint:
-        if _is_reference_training_checkpoint(cfg.init_checkpoint):
-            raise NotImplementedError(
-                "full resume from a reference training .pth (optimizer state) "
-                "is not yet ported (ROADMAP row 6); pass the bare weights to "
-                "warm-start instead")
-        net.load_state_dict(load_checkpoint(cfg.init_checkpoint), strict=True)
+    net = TransformerNet(num_styles=styles)
+    # a reference training .pth resumes fully; any other file warm-starts
+    full_resume = bool(cfg.init_checkpoint) and is_reference_training_checkpoint(
+        cfg.init_checkpoint)
+    if full_resume and styles > 1:
+        raise ValueError(
+            f"cannot resume a reference training checkpoint into a {styles}-style "
+            "run: reference checkpoints are single-style")
+    if cfg.init_checkpoint and not full_resume:
+        loaded = load_checkpoint(cfg.init_checkpoint)
+        if num_styles(loaded) != styles:
+            raise ValueError(
+                f"init_checkpoint has {num_styles(loaded)} style(s) but this run "
+                f"trains {styles} — style counts must match to warm-start")
+        net.load_state_dict(loaded, strict=True)
         print(f"warm-started params from {cfg.init_checkpoint}", flush=True)
     net = net.to(device, memory_format=torch.channels_last)
-    state = create_train_state(net, cfg.lr, cfg.total_steps, grad_accum=cfg.grad_accum)
+    if full_resume:
+        state = state_from_reference_checkpoint(
+            cfg.init_checkpoint, net, cfg.lr, cfg.total_steps, grad_accum=cfg.grad_accum)
+        print(f"fully resumed reference training checkpoint {cfg.init_checkpoint} "
+              f"at iteration {state.step}", flush=True)
+    else:
+        state = create_train_state(net, cfg.lr, cfg.total_steps, grad_accum=cfg.grad_accum)
 
     ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
                              max_to_keep=cfg.max_checkpoints)
@@ -169,7 +189,8 @@ def train_style_transfer(cfg: TrainConfig) -> str:
             content=cfg.content_weight, style=cfg.style_weight,
             tv=cfg.tv_weight, decay_every=cfg.weight_decay_every),
         precision=prec, lr=cfg.lr, total_steps=cfg.total_steps,
-        grad_accum=cfg.grad_accum, remat=cfg.remat)
+        grad_accum=cfg.grad_accum, remat=cfg.remat, num_styles=styles,
+        in_stats=cfg.in_stats)
     eval_forward = make_eval_forward(precision=prec)
 
     dataset = ImageFolderDataset(cfg.dataset_dir, cfg.image_size, seed=cfg.seed)
@@ -230,10 +251,8 @@ def train_style_transfer(cfg: TrainConfig) -> str:
             if logger.should_log(step):
                 logger.flush(step)
             if monitor_img is not None and step % cfg.monitor_every == 0:
-                out = eval_forward(state.net, monitor_img)
-                path = os.path.join(cfg.output_dir, f"sample_step_{step}.jpg")
-                save_image(out.float().cpu().numpy(), path)
-                print(f"saved monitor sample {path}", flush=True)
+                _monitor_samples(state.net, eval_forward, monitor_img,
+                                 cfg.output_dir, step)
             if step % cfg.checkpoint_every == 0:
                 ckpt.save(step, state.state_dict())
                 print(f"checkpoint saved at step {step}", flush=True)
@@ -266,6 +285,26 @@ def train_style_transfer(cfg: TrainConfig) -> str:
     save_params_npz(state.net.state_dict(), final_path)
     print(f"final params saved to {final_path}", flush=True)
     return final_path
+
+
+def _monitor_samples(net, eval_forward, img, output_dir: str, step: int) -> None:
+    """One monitor sample, or one per style through ``bake_style`` (a
+    single-style copy of the net for each)."""
+    styles = net.num_styles
+    if styles == 1:
+        path = os.path.join(output_dir, f"sample_step_{step}.jpg")
+        save_image(eval_forward(net, img).float().cpu().numpy(), path)
+        print(f"saved monitor sample {path}", flush=True)
+        return
+    params = net.state_dict()
+    for s in range(styles):
+        baked = TransformerNet()
+        baked.load_state_dict(bake_style(params, s), strict=True)
+        baked = baked.to(img.device, memory_format=torch.channels_last)
+        out = eval_forward(baked, img)
+        save_image(out.float().cpu().numpy(),
+                   os.path.join(output_dir, f"sample_step_{step}_style{s}.jpg"))
+    print(f"saved {styles} monitor samples at step {step}", flush=True)
 
 
 def _stop_profiler(profiler, output_dir: str) -> None:

@@ -14,13 +14,16 @@ updates applied so far, which is optax's schedule count. With ``grad_accum
 ``optax.MultiSteps`` does (running mean ``acc + (g - acc) / (i + 1)``), and
 one update is made on the k-th.
 
-The reference training ``.pth`` full resume (``state_from_reference_checkpoint``)
-is not ported yet.
+``state_from_reference_checkpoint`` resumes a reference training ``.pth``
+(``model_state_dict``, ``optimizer_state_dict``, ``iteration``) fully: the
+params, Adam's moments and bias-correction count, the schedule position and
+the step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -129,3 +132,71 @@ def create_train_state(
     """A TrainState whose optimizer holds ``net``'s parameters."""
     opt = StyleOptimizer(net.parameters(), lr, total_steps, grad_accum=grad_accum)
     return TrainState(net=net, optimizer=opt, step=step)
+
+
+def _load_reference(path: str):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def is_reference_training_checkpoint(path: str) -> bool:
+    """True iff ``path`` is a torch-loadable reference training checkpoint
+    (it carries ``optimizer_state_dict``), not a bare state_dict ``.pth``,
+    an ``.npz`` or a directory."""
+    if not (os.path.isfile(path) and path.endswith((".pth", ".pt", ".bin"))):
+        return False
+    try:
+        obj = _load_reference(path)
+    except Exception:  # not a torch file, or not one weights_only reads
+        return False
+    return isinstance(obj, dict) and "optimizer_state_dict" in obj
+
+
+def state_from_reference_checkpoint(
+    path: str,
+    net: nn.Module,
+    lr: float = 1e-3,
+    total_steps: int = 80_000,
+    *,
+    grad_accum: int = 1,
+) -> TrainState:
+    """Full resume from a reference training ``.pth`` into ``net`` (a
+    single-style ``TransformerNet``, on the device it will train on).
+
+    Restores the params, Adam's ``exp_avg`` / ``exp_avg_sq``, the
+    bias-correction count and the cosine schedule's position (``applied``),
+    and ``step = iteration * grad_accum`` (the reference's iterations are
+    applied updates; it has no accumulation), with no micro-batch in
+    flight. Torch Adam's integer state ids index ``model.parameters()``,
+    which follows the reference's registration order, as the port's
+    ``parameters()`` and ``state_dict()`` do: id i is the i-th key. The
+    count is the first param's Adam ``step`` (the JAX package keeps one
+    global count), ``iteration`` where it has none; a param with no Adam
+    state (never stepped) gets zero moments."""
+    obj = _load_reference(path)
+    if not (isinstance(obj, dict) and "optimizer_state_dict" in obj):
+        raise ValueError(f"{path} is not a reference training checkpoint "
+                         "(no optimizer_state_dict)")
+    msd = obj["model_state_dict"]
+    net.load_state_dict(msd, strict=True)
+    iteration = int(obj.get("iteration", 0))
+    osd = obj["optimizer_state_dict"]
+    ids = list(osd["param_groups"][0]["params"])
+    params = list(net.parameters())
+    if len(ids) != len(params):
+        raise ValueError(f"optimizer has {len(ids)} params but model has "
+                         f"{len(params)}")
+    found = [osd["state"].get(pid, osd["state"].get(str(pid))) for pid in ids]
+    count = int(found[0]["step"]) if found[0] is not None else iteration
+    state = create_train_state(net, lr, total_steps, grad_accum=grad_accum,
+                               step=iteration * grad_accum)
+    opt = state.optimizer
+    for p, st in zip(params, found):
+        moments = ((torch.zeros_like(p), torch.zeros_like(p)) if st is None else
+                   (st["exp_avg"], st["exp_avg_sq"]))
+        opt.adam.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": moments[0].to(p.device, torch.float32).reshape(p.shape).clone(),
+            "exp_avg_sq": moments[1].to(p.device, torch.float32).reshape(p.shape).clone(),
+        }
+    opt.applied = count
+    return state

@@ -11,7 +11,14 @@ Semantics kept from the JAX step:
   reads the loss on the host, one sync per step (the JAX step selects on the
   device instead);
 - metrics ``loss``, ``content_loss``, ``style_loss``, ``tv_loss``,
-  ``grad_norm``, ``lr``, ``skipped_nonfinite``.
+  ``grad_norm``, ``lr``, ``skipped_nonfinite``;
+- multi-style (``num_styles`` S > 1): each step draws one style index per
+  example, one-hot (B, S), which conditions the stylizer's instance norms
+  and picks each example's row of the (S, c, c) Gram banks. The draw comes
+  from the step's ``torch.Generator`` (JAX's from its key: the two cannot
+  match, so parity runs pass ``style_select`` in);
+- ``in_stats="onepass"``: one-pass IN statistics in the stylizer (JAX
+  ``norm_method="onepass"``).
 
 On the card the stylizer's 14 instance norms run the IN forward and
 backward kernels and VGG conv1_1's input gradient the conv backward kernel.
@@ -72,9 +79,14 @@ def loss_fn(
     dropout: bool = True,
     remat: bool = False,
     batch_mask: Optional[torch.Tensor] = None,
+    style_select: Optional[torch.Tensor] = None,
+    in_stats: str = "stable",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted perceptual loss of one batch -> (total, metrics).
 
+    ``style_select`` (multi-style only): (B, S) rows pairing each example
+    with a style, for the stylizer's IN affines and the Gram banks alike.
+    ``in_stats``: the stylizer's IN statistics, "stable" or "onepass".
     ``remat``: recompute the stylizer and the stylized-branch VGG in the
     backward (``torch.utils.checkpoint``) instead of keeping their
     activations; the dropout generator is rewound for the recomputation, so
@@ -90,7 +102,8 @@ def loss_fn(
     def net_fwd(b):
         if gen_state is not None:
             generator.set_state(gen_state)
-        out = net(b, precision, generator=generator, dropout=dropout)
+        out = net(b, precision, generator=generator, dropout=dropout,
+                  style_weights=style_select, in_stats=in_stats)
         return torch.clamp(out, -ACTIVATION_CLAMP, ACTIVATION_CLAMP)
 
     def vgg_fwd(s):
@@ -111,7 +124,7 @@ def loss_fn(
     _, c_feat_target = taps.split(content_feats)
     c_loss = cw * content_loss(c_feat_stylized, c_feat_target, batch_mask=batch_mask)
     s_loss = sw * style_loss(s_feats, style_grams, taps.style_weights,
-                             batch_mask=batch_mask)
+                             style_select=style_select, batch_mask=batch_mask)
     t_loss = tw * total_variation_loss(stylized, batch_mask=batch_mask)
     total = c_loss + s_loss + t_loss
     metrics = {"loss": total.detach(), "content_loss": c_loss.detach(),
@@ -129,24 +142,34 @@ def make_train_step(
     grad_accum: int = 1,
     remat: bool = False,
     dropout: bool = True,
+    num_styles: int = 1,
+    in_stats: str = "stable",
 ) -> Callable:
     """Build ``step(state, vgg, batch, style_grams, generator=None,
-    batch_mask=None) -> metrics``, which updates ``state`` in place.
-    ``lr``, ``total_steps`` and ``grad_accum`` give the logged LR; they must
-    be the optimizer's."""
+    batch_mask=None, style_select=None) -> metrics``, which updates
+    ``state`` in place. ``lr``, ``total_steps`` and ``grad_accum`` give the
+    logged LR; they must be the optimizer's. With ``num_styles`` > 1 the
+    step draws ``style_select`` from ``generator`` (one uniform index per
+    example, one-hot) unless the caller passes one."""
     lr_schedule = cosine_lr_schedule(lr, max(total_steps // grad_accum, 1))
 
     def step_fn(state: TrainState, vgg, batch: torch.Tensor, style_grams,
                 generator: Optional[torch.Generator] = None,
-                batch_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                batch_mask: Optional[torch.Tensor] = None,
+                style_select: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         exact_f32(batch.device, precision)
         applied_step = state.step // grad_accum
+        if num_styles > 1 and style_select is None:
+            idx = torch.randint(0, num_styles, (batch.shape[0],),
+                                generator=generator, device=batch.device)
+            style_select = torch.nn.functional.one_hot(idx, num_styles).float()
         state.net.train()
         params = list(state.net.parameters())
         total, metrics = loss_fn(
             state.net, vgg, batch, style_grams, weight_schedule(applied_step),
             taps=taps, precision=precision, generator=generator,
-            dropout=dropout, remat=remat, batch_mask=batch_mask)
+            dropout=dropout, remat=remat, batch_mask=batch_mask,
+            style_select=style_select, in_stats=in_stats)
         grads = torch.autograd.grad(total, params)
         finite = bool(torch.isfinite(total))
         if finite:

@@ -16,7 +16,10 @@ import pytest
 import torch
 from PIL import Image
 
-from fast_neural_style_transfer_tpu.export.torch_convert import save_torch_checkpoint
+from fast_neural_style_transfer_tpu.export.torch_convert import (
+    save_torch_checkpoint,
+    to_torch_state_dict,
+)
 from fast_neural_style_transfer_tpu.infer import stylize as jstylize
 from fast_neural_style_transfer_tpu.models.transformer import TransformerNet as JaxNet
 from fast_neural_style_transfer_tpu.train.checkpoint import save_params_npz
@@ -27,6 +30,7 @@ from fast_neural_style_transfer_tpu_torch.infer import (
     stylize_image_file,
 )
 from fast_neural_style_transfer_tpu_torch.models import load_checkpoint, params_from_jax
+from fast_neural_style_transfer_tpu_torch.models import save_params_npz as port_save_params_npz
 
 
 @pytest.fixture(autouse=True)
@@ -99,11 +103,56 @@ def test_pth_and_npz_load_like_jax_savers(jax_params, state_dict, ckpt_pth, tmp_
     assert set(load_checkpoint(bare)) == set(state_dict)
 
 
+@pytest.fixture(scope="module")
+def multi_params():
+    """A 2-style JAX tree whose IN banks' rows differ."""
+    tree = jax.tree.map(np.asarray, JaxNet.init(jax.random.PRNGKey(8), num_styles=2))
+    rng = np.random.default_rng(9)
+    for node in [tree[k] for k in ("norm1", "norm2", "norm3", "norm4")] + [
+            b[k] for b in tree["res_blocks"] for k in ("in1", "in2")]:
+        node["gamma"] = (1 + 0.5 * rng.standard_normal(node["gamma"].shape)).astype(np.float32)
+        node["beta"] = (0.3 * rng.standard_normal(node["beta"].shape)).astype(np.float32)
+    return tree
+
+
+def test_multi_style_checkpoints_load_both_ways(multi_params, tmp_path):
+    """A multi-style .npz from the JAX package's save_params_npz and a
+    .pth of its to_torch_state_dict (its save_torch_checkpoint takes
+    single-style params only) load with their (S, C) banks; the port's
+    save_params_npz writes an .npz that JAX's Stylizer.load_params reads
+    back bit for bit."""
+    want = params_from_jax(multi_params)
+    npz, pth = str(tmp_path / "m.npz"), str(tmp_path / "m.pth")
+    save_params_npz(multi_params, npz)
+    torch.save({"model_state_dict": {k: torch.from_numpy(np.array(v)) for k, v in
+                                     to_torch_state_dict(multi_params).items()}}, pth)
+    for path in (npz, pth):
+        sd = load_checkpoint(path)
+        assert set(sd) == set(want) and sd["norm1.weight"].shape == (2, 64)
+        for k in sd:
+            torch.testing.assert_close(sd[k], want[k], rtol=0, atol=0)
+    ours = str(tmp_path / "ours.npz")
+    port_save_params_npz(want, ours)
+    back = jax.tree.map(np.asarray, jstylize.Stylizer.load_params(ours))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(multi_params)):
+        assert a.shape == b.shape and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("style", [1, [0.25, 0.75]], ids=["index", "blend"])
+def test_from_checkpoint_bakes_a_style_like_jax(multi_params, style, tmp_path):
+    npz = str(tmp_path / "m.npz")
+    save_params_npz(multi_params, npz)
+    img = _img(36, 44, seed=4)
+    want = jstylize.Stylizer.from_checkpoint(npz, style=style).stylize_u8(img)
+    got = Stylizer.from_checkpoint(npz, style=style, device="cpu").stylize_u8(img)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    with pytest.raises(ValueError, match="2-style checkpoint"):
+        Stylizer.from_checkpoint(npz, device="cpu")
+    with pytest.raises(ValueError, match="bake_style"):
+        Stylizer(load_checkpoint(npz), device="cpu")
+
+
 def test_unported_checkpoints_raise(tmp_path):
-    multi = str(tmp_path / "multi.npz")
-    save_params_npz(JaxNet.init(jax.random.PRNGKey(0), num_styles=2), multi)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        load_checkpoint(multi)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         load_checkpoint(str(tmp_path))  # an Orbax-style directory
     with pytest.raises(ValueError, match="TorchScript"):
@@ -181,8 +230,12 @@ def test_begin_inference_cli(ckpt_pth, tmp_path, capsys):
                           "--output_name", "x.png"])
     assert "saved" in capsys.readouterr().out
     assert Image.open(tmp_path / "o" / "x.png").size == (28, 24)
-    for flags in (["--spatial", "2"], ["--precision", "int8"],
-                  ["--style_index", "0"], ["--data_parallel"]):
+    for flags in (["--spatial", "2"], ["--precision", "int8"], ["--data_parallel"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             begin_inference.main(["--model_path", ckpt_pth, "--device", "cpu",
                                   *flags])
+    # a style flag on a single-style checkpoint raises JAX's error
+    with pytest.raises(ValueError, match="single-style checkpoint"):
+        begin_inference.main(["--model_path", ckpt_pth, "--content_image", src,
+                              "--output_dir", str(tmp_path / "o"), "--device", "cpu",
+                              "--style_index", "0"])

@@ -98,7 +98,22 @@ def test_default_init_shapes_and_sites():
     assert sum(type(m).__name__ == "InstanceNorm" for m in net.modules()) == 14
 
 
-def test_multi_style_params_raise(jax_params):
-    multi = JaxNet.init(jax.random.PRNGKey(0), num_styles=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        params_from_jax(jax.tree.map(np.asarray, multi))
+def test_multi_style_params_load(jax_params):
+    """A JAX multi-style tree loads into TransformerNet(num_styles=2) with
+    its (S, C) banks, and the forward with per-example style rows matches
+    JAX's (the same 2e-4 as above; the banks' rows differ)."""
+    multi = jax.tree.map(np.asarray, JaxNet.init(jax.random.PRNGKey(0), num_styles=2))
+    rng = np.random.default_rng(4)
+    multi["norm3"]["gamma"] = rng.standard_normal((2, 64)).astype(np.float32)
+    multi["res_blocks"][1]["in1"]["beta"] = rng.standard_normal((2, 256)).astype(np.float32)
+    net = TransformerNet(num_styles=2)
+    net.load_state_dict(params_from_jax(multi), strict=True)
+    net = net.eval().to(memory_format=torch.channels_last)
+    assert net.norm3.weight.shape == (2, 64) and net.num_styles == 2
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    w = np.eye(2, dtype=np.float32)[[1, 0]]
+    want = JaxNet.apply(jax.tree.map(jnp.asarray, multi), jnp.asarray(x),
+                        style_weights=jnp.asarray(w))
+    with torch.inference_mode():
+        got = net(torch.from_numpy(x), style_weights=torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-4)

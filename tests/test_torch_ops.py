@@ -1015,3 +1015,118 @@ def test_tap_packed_emulation_matches_plain(n, h, w, ci, k, blocks):
     wt = (np.random.default_rng(22).standard_normal((64, ci, k, k)) * 0.2).astype(np.float32)
     want = to_nhwc(cuda_conv.conv2d_same_dx_reference(to_nchw(g), torch.from_numpy(wt)))
     _close(_emulate_tap_packed(g, wt, blocks), want)
+
+
+# -- slice 7: per-sample (N, C) affines (conditional instance norm) -----------
+#
+# Multi-style training conditions each example on its own style, so every IN
+# site gets an (N, C) affine. The JAX package sends that shape to XLA
+# (``instance_norm(method="xla")``, or "onepass"); the port's plain versions
+# must agree with it, and its backward must return dgamma / dbeta per sample
+# (summing them over the batch would give a wrong style-bank gradient). Rows
+# differ and hold negative entries, so the ReLU gate flips per sample.
+# f32; sums in other orders: 1e-5 of the largest value.
+
+
+def _rows(n, c, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, c)).astype(np.float32),
+            rng.standard_normal((n, c)).astype(np.float32))
+
+
+def _close_rel(got, want, rel=1e-5):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=rel, atol=rel * np.abs(want).max())
+
+
+@pytest.mark.parametrize("onepass", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", _IN_SHAPES + [(3, 6, 5, 40)])
+def test_per_sample_affine_matches_jax_vjp(shape, relu, onepass):
+    """instance_norm with (N, C) gamma / beta, forward and autograd, against
+    jax.vjp of the JAX package's instance_norm (method "xla", or "onepass"
+    for the one-pass statistics): y, dx and the per-sample dgamma, dbeta."""
+    x, _, _ = _in_inputs(shape, seed=21)
+    gamma, beta = _rows(shape[0], shape[-1], seed=22)
+    gy = np.random.default_rng(23).standard_normal(shape).astype(np.float32)
+    method = "onepass" if onepass else "xla"
+    y_j, vjp = jax.vjp(
+        lambda a, g_, b_: jnorm.instance_norm(a, g_, b_, relu=relu, method=method),
+        jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    dx_j, dg_j, db_j = vjp(jnp.asarray(gy))
+    xt = to_nchw(x).requires_grad_()
+    gt = torch.from_numpy(gamma).requires_grad_()
+    bt = torch.from_numpy(beta).requires_grad_()
+    y_t = tnorm.instance_norm(xt, gt, bt, relu=relu, onepass=onepass)
+    dx_t, dg_t, db_t = torch.autograd.grad(y_t, (xt, gt, bt), to_nchw(gy))
+    assert dg_t.shape == db_t.shape == (shape[0], shape[-1])
+    _close_rel(to_nhwc(y_t.detach()), y_j)
+    _close_rel(to_nhwc(dx_t), dx_j)
+    _close_rel(dg_t.numpy(), dg_j)
+    _close_rel(db_t.numpy(), db_j)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_per_sample_rows_are_per_sample_calls(relu):
+    """The plain versions with an (N, C) affine equal, bit for bit, one call
+    per sample with its (C,) row; an (N, C) affine of equal rows equals the
+    (C,) call bit for bit (what chip_smoke.py holds the kernels to)."""
+    x, gamma, beta = _in_inputs((3, 5, 7, 16), seed=24)
+    g_rows, b_rows = _rows(3, 16, seed=25)
+    gy = to_nchw(np.random.default_rng(26).standard_normal(x.shape).astype(np.float32))
+    xt = to_nchw(x)
+    y, mean, inv = cuda_norm.instance_norm_fwd_reference(
+        xt, torch.from_numpy(g_rows), torch.from_numpy(b_rows), relu=relu)
+    grads = cuda_norm.instance_norm_bwd_reference(
+        xt, gy, mean, inv, torch.from_numpy(g_rows), torch.from_numpy(b_rows), relu=relu)
+    for s in range(3):
+        one = cuda_norm.instance_norm_fwd_reference(
+            xt[s:s + 1], torch.from_numpy(g_rows[s]), torch.from_numpy(b_rows[s]), relu=relu)
+        assert torch.equal(one[0], y[s:s + 1]) and torch.equal(one[2], inv[s:s + 1])
+        one_b = cuda_norm.instance_norm_bwd_reference(
+            xt[s:s + 1], gy[s:s + 1], mean[s:s + 1], inv[s:s + 1],
+            torch.from_numpy(g_rows[s]), torch.from_numpy(b_rows[s]), relu=relu)
+        for a, b in zip(one_b, grads):
+            assert torch.equal(a, b[s:s + 1])
+    same_g = torch.from_numpy(np.tile(gamma, (3, 1)))
+    same_b = torch.from_numpy(np.tile(beta, (3, 1)))
+    per_row = cuda_norm.instance_norm_fwd_reference(xt, same_g, same_b, relu=relu)
+    per_ch = cuda_norm.instance_norm_fwd_reference(
+        xt, torch.from_numpy(gamma), torch.from_numpy(beta), relu=relu)
+    assert all(torch.equal(a, b) for a, b in zip(per_row, per_ch))
+
+
+def test_check_takes_channel_and_sample_affines():
+    x = to_nchw(np.zeros((2, 3, 3, 8), np.float32))
+    for shape in ((8,), (2, 8)):
+        cuda_norm._check(x, torch.ones(shape), torch.zeros(shape))
+    for shape in ((3, 8), (8, 1), (2, 8, 1), (7,)):
+        with pytest.raises(ValueError, match="neither"):
+            cuda_norm._check(x, torch.ones(shape), torch.zeros(8))
+        with pytest.raises(ValueError, match="neither"):
+            cuda_norm._check(x, torch.ones(8), torch.zeros(shape))
+    # the kernels' row stride: 0 for one (C,) row, C for (N, C) rows
+    assert cuda_norm._affine_rows(torch.ones(8), torch.ones(8), 8)[2] == 0
+    assert cuda_norm._affine_rows(torch.ones(2, 8), torch.ones(2, 8), 8)[2] == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("hwc", _SITE_HWC)
+def test_plans_ignore_the_affine_and_take_one_launch(hwc, dtype, monkeypatch):
+    """The planners see shapes only, so both affine kinds take the same
+    plan; at the training batch of 20 every 256^2 site takes the one-launch
+    forward (stable and one-pass statistics) and backward, on a 132-SM card
+    holding two blocks of each per SM (meta tensors stand in for the
+    card's)."""
+    import inspect
+
+    for fn in (cuda_norm.plan_fwd, cuda_norm.plan_bwd, cuda_norm.fwd_plan,
+               cuda_norm.bwd_plan):
+        assert not {"gamma", "beta"} & set(inspect.signature(fn).parameters)
+    monkeypatch.setattr(cuda_norm, "_capacity", lambda *a: (2, _SMS))
+    h, w, c = hwc
+    x = torch.empty((20, c, h, w), dtype=dtype, device="meta").contiguous(
+        memory_format=torch.channels_last)
+    for onepass in (False, True):
+        assert cuda_norm.fwd_plan(x, onepass=onepass).route == "one_launch"
+    assert cuda_norm.bwd_plan(x, x).route == "one_launch"

@@ -305,3 +305,66 @@ def test_conv_dx_repeats_bit_for_bit_on_card(dtype, case):
         second = cuda_conv.conv2d_same_dx(g, wt)
     ints = torch.int16 if first.element_size() == 2 else torch.int32
     assert torch.equal(first.view(ints), second.view(ints))
+
+
+# (N, H, W, C, route): per-sample (N, C) affines (multi-style training) on
+# both routes of each direction: a 64^2 x 256 training site at B=8 on the
+# one-launch kernels, and a slab larger than the card holds at once on the
+# two-launch kernels
+_AFFINE_CASES = [(8, 64, 64, 256, "one_launch"), (2, 1024, 1024, 32, "two_launch")]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _AFFINE_CASES, ids=lambda c: c[-1])
+def test_per_sample_affine_kernels_match_plain_on_card(dtype, case):
+    """Forward and backward with (N, C) gamma / beta whose rows differ
+    (negative entries included, so the ReLU gate flips per sample) against
+    the plain versions, on the route asserted, counted as "sample"
+    launches; an (N, C) affine of equal rows gives the (C,) call's bits.
+    Tolerances as the tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n, h, w, c, route = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    x, g, _, _, gamma, beta = _bwd_inputs(rng, n, h, w, c, dt)
+    rows = lambda: torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).cuda()
+    g_rows, b_rows = rows(), rows()
+    one = route == "one_launch"
+    fplan = cuda_norm.fwd_plan(x, one_launch=one)
+    bplan = cuda_norm.bwd_plan(x, g, one_launch=one)
+    assert fplan.route == bplan.route == route
+    cuda_norm._check(x, g_rows, b_rows)
+    fwd_before = cuda_norm.instance_norm_fwd.launches_by_affine["sample"]
+    bwd_before = cuda_norm.instance_norm_bwd.launches_by_affine["sample"]
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=1 / 128, atol=1e-2)
+    with torch.inference_mode():
+        y, mean, inv = cuda_norm._launch_fwd(x, g_rows, b_rows, fplan, eps=1e-5, relu=True,
+                                             onepass=False)
+        dx, dgn, dbn = cuda_norm._launch_bwd(x, g, mean, inv, g_rows, b_rows, bplan, relu=True)
+        torch.cuda.synchronize()
+        y_r, mean_r, inv_r = cuda_norm.instance_norm_fwd_reference(x.float(), g_rows, b_rows,
+                                                                   relu=True)
+        dx_r, dgn_r, dbn_r = cuda_norm.instance_norm_bwd_reference(
+            x.float(), g.float(), mean, inv, g_rows, b_rows, relu=True)
+        assert cuda_norm.instance_norm_fwd.launches_by_affine["sample"] == fwd_before + 1
+        assert cuda_norm.instance_norm_bwd.launches_by_affine["sample"] == bwd_before + 1
+        torch.testing.assert_close(y.float(), y_r, **tol)
+        torch.testing.assert_close(inv, inv_r, rtol=1e-4, atol=0)
+        torch.testing.assert_close(dx.float(), dx_r, **tol)
+        scale = float(dgn_r.abs().max()) + float(dbn_r.abs().max())
+        torch.testing.assert_close(dgn, dgn_r, rtol=1e-4, atol=1e-4 * scale)
+        torch.testing.assert_close(dbn, dbn_r, rtol=1e-4, atol=1e-4 * scale)
+        same_g, same_b = gamma.expand(n, c).contiguous(), beta.expand(n, c).contiguous()
+        outs = {}
+        for kind, (ga, be) in (("rows", (same_g, same_b)), ("channel", (gamma, beta))):
+            fwd = cuda_norm._launch_fwd(x, ga, be, fplan, eps=1e-5, relu=True, onepass=False)
+            bwd = cuda_norm._launch_bwd(x, g, mean, inv, ga, be, bplan, relu=True)
+            outs[kind] = fwd + bwd
+        assert all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(outs["rows"], outs["channel"]))

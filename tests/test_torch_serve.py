@@ -160,12 +160,71 @@ def test_http_round_trip_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [["--adain-decoder", "d.npz"], ["--data_parallel"],
-                                   ["--style_index", "0"], ["--precision", "int8"]])
+                                   ["--precision", "int8"]])
 def test_serve_cli_unported_flags_raise(flags, tmp_path):
     ckpt = str(tmp_path / "m.pth")
     torch.save(TransformerNet().state_dict(), ckpt)
     with pytest.raises((SystemExit, NotImplementedError), match="not yet ported"):
         serve_http.main(["--model", ckpt, "--cpu", *flags])
+
+
+def test_serve_cli_style_index_serves_the_baked_style(tmp_path, monkeypatch):
+    """fnst-serve --style_index 1 on a multi-style checkpoint serves that
+    style, baked by Stylizer.from_checkpoint(style=1): one request through
+    the CLI's server gets the baked Stylizer's output. On a single-style
+    checkpoint --style_index raises the JAX package's ValueError."""
+    import signal
+
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.models import save_params_npz
+    from fast_neural_style_transfer_tpu_torch.models.transformer import InstanceNorm
+
+    torch.manual_seed(0)
+    multi = TransformerNet(num_styles=2)
+    with torch.no_grad():
+        for m in multi.modules():
+            if isinstance(m, InstanceNorm):
+                m.weight.normal_(1.0, 0.5)
+                m.bias.normal_(0.0, 0.3)
+    ckpt = str(tmp_path / "multi.npz")
+    save_params_npz(multi.state_dict(), ckpt)
+    img = np.random.default_rng(2).integers(0, 255, (30, 40, 3), dtype=np.uint8)
+    want = Stylizer.from_checkpoint(ckpt, style=1, device="cpu").stylize_u8(img)
+    other = Stylizer.from_checkpoint(ckpt, style=0, device="cpu").stylize_u8(img)
+    assert not np.array_equal(want, other)
+    got = {}
+    real = serve_http.make_server
+
+    def make_server_on_port_0(forward, **kw):
+        kw.update(host="127.0.0.1", port=0, warm_size=0)
+        srv = real(forward, **kw)
+
+        def client():
+            try:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{srv.server_address[1]}/stylize?format=png",
+                    data=_png_bytes(img), method="POST")
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    got["out"] = np.asarray(Image.open(io.BytesIO(r.read())))
+            finally:
+                srv.shutdown()
+
+        threading.Thread(target=client, daemon=True).start()
+        return srv
+
+    monkeypatch.setattr(serve_http, "make_server", make_server_on_port_0)
+    before = signal.getsignal(signal.SIGTERM)
+    try:
+        serve_http.main(["--model", ckpt, "--cpu", "--style_index", "1",
+                         "--precision", "f32"])
+    finally:
+        signal.signal(signal.SIGTERM, before)
+    np.testing.assert_array_equal(got["out"], want)
+    single = str(tmp_path / "m.pth")
+    torch.save(TransformerNet().state_dict(), single)
+    with pytest.raises(ValueError, match="single-style checkpoint"):
+        serve_http.main(["--model", single, "--cpu", "--style_index", "0"])
 
 
 def test_warm_up_runs_every_batch_size_on_the_dispatcher_thread():

@@ -120,7 +120,8 @@ def jax_runs(setup):
     acc1, _ = step2(st2, vgg, jnp.asarray(s["batches"][0]), grams, key)
     acc2, m_acc = step2(acc1, vgg, jnp.asarray(s["batches"][1]), grams, key)
     as_sd = lambda tree: params_from_jax(jax.tree.map(np.asarray, tree))
-    return {"grams": grams, "grads": as_sd(grads), "one": (as_sd(one.params), int(one.step)),
+    return {"step": step, "vgg": vgg, "grams": grams, "grads": as_sd(grads),
+            "one": (as_sd(one.params), int(one.step)),
             "m_one": jax.tree.map(float, m_one), "m_nan": jax.tree.map(float, m_nan),
             "skipped": (as_sd(skipped.params), int(skipped.step)),
             "acc1": (as_sd(acc1.params), int(acc1.step)),
@@ -317,26 +318,143 @@ def test_cli_writes_an_npz_the_jax_package_reads(tmp_path, capsys):
 def test_cli_unported_options_exit(tmp_path):
     base = ["--device", "cpu", "--dataset_dir", str(tmp_path), "--output_dir",
             str(tmp_path / "o")]
-    for extra, row in ((["--style_image", "a.jpg", "b.jpg"], "row 10"),
-                       (["--spatial", "2"], "row 15"),
-                       (["--in_stats", "onepass"], "not yet ported")):
-        with pytest.raises(SystemExit, match=row):
-            begin_training.main(base + extra)
+    with pytest.raises(SystemExit, match="row 15"):
+        begin_training.main(base + ["--spatial", "2"])
 
 
-def test_reference_training_checkpoint_is_not_yet_ported(tmp_path):
+# -- row 6: full resume from a reference training .pth -------------------------
+
+
+def _torch_adam_checkpoint(path, iteration=2, seed=11):
+    """A reference training .pth as the reference trainer writes it: the
+    port's TransformerNet (PyTorch-default init) and torch.optim.Adam with
+    the reference's settings, stepped ``iteration`` times on seeded
+    gradients."""
+    torch.manual_seed(seed)
+    net = TransformerNet()
+    opt = torch.optim.Adam(net.parameters(), lr=LR, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=1e-5)
+    rng = np.random.default_rng(seed)
+    for _ in range(iteration):
+        for p in net.parameters():
+            p.grad = torch.from_numpy(
+                (rng.standard_normal(p.shape) * 1e-2).astype(np.float32))
+        opt.step()
+    torch.save({"model_state_dict": net.state_dict(),
+                "optimizer_state_dict": opt.state_dict(),
+                "scheduler_state_dict": {"last_epoch": iteration,
+                                         "_step_count": iteration + 1},
+                "iteration": iteration}, path)
+    return path
+
+
+def _jax_saver_checkpoint(path, params, iteration=7, seed=12):
+    """The same layout from the JAX package's save_torch_training_checkpoint,
+    with seeded moments."""
+    from fast_neural_style_transfer_tpu.export.torch_convert import (
+        save_torch_training_checkpoint,
+    )
+
+    rng = np.random.default_rng(seed)
+    mu = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32) * 1e-3, params)
+    nu = jax.tree.map(lambda a: np.abs(rng.standard_normal(a.shape)).astype(np.float32) * 1e-6,
+                      params)
+    save_torch_training_checkpoint(params, mu, nu, iteration, iteration, path)
+    return path
+
+
+def _port_moments(state):
+    names = [n for n, _ in state.net.named_parameters()]
+    adam = state.optimizer.adam.state
+    return ({n: adam[p]["exp_avg"] for n, p in zip(names, state.net.parameters())},
+            {n: adam[p]["exp_avg_sq"] for n, p in zip(names, state.net.parameters())},
+            {float(adam[p]["step"]) for p in state.net.parameters()})
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+@pytest.mark.parametrize("source", ["torch_adam", "jax_saver"])
+def test_reference_checkpoint_restores_like_jax(setup, tmp_path, source, grad_accum):
+    """state_from_reference_checkpoint against the JAX package's: params,
+    Adam's moments, the bias-correction / schedule count and the step, bit
+    for bit (the same transposes of the same numbers)."""
+    from fast_neural_style_transfer_tpu_torch.train.state import (
+        is_reference_training_checkpoint,
+        state_from_reference_checkpoint,
+    )
+
+    path = str(tmp_path / "ref.pth")
+    if source == "torch_adam":
+        _torch_adam_checkpoint(path)
+    else:
+        _jax_saver_checkpoint(path, setup["params"])
+    assert is_reference_training_checkpoint(path)
+    bare = str(tmp_path / "bare.pth")
+    torch.save(TransformerNet().state_dict(), bare)
+    assert not is_reference_training_checkpoint(bare)
+    assert not is_reference_training_checkpoint(str(tmp_path))
+    ours = state_from_reference_checkpoint(path, TransformerNet(), LR, TOTAL,
+                                           grad_accum=grad_accum)
+    theirs = jstate.state_from_reference_checkpoint(
+        path, jstate.make_optimizer(LR, TOTAL, grad_accum=grad_accum), grad_accum=grad_accum)
+    mu_j, nu_j, count_j = jstate.extract_adam_moments(theirs.opt_state)
+    as_sd = lambda tree: params_from_jax(jax.tree.map(np.asarray, tree))
+    mu_t, nu_t, counts = _port_moments(ours)
+    for got, want in ((_state_dict(ours), as_sd(theirs.params)), (mu_t, as_sd(mu_j)),
+                      (nu_t, as_sd(nu_j))):
+        assert set(got) == set(want)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+    assert counts == {float(count_j)} and ours.optimizer.applied == count_j
+    assert ours.step == int(theirs.step) == (2 if source == "torch_adam" else 7) * grad_accum
+    assert ours.optimizer.mini_step == 0 and ours.optimizer.acc is None
+
+
+def test_resumed_step_matches_jax(setup, jax_runs, tmp_path):
+    """One step from a resumed torch-Adam checkpoint on each side (the JAX
+    step is the one jax_runs compiled): the loss, and the update, as
+    test_train_step_matches_jax holds it."""
+    from fast_neural_style_transfer_tpu_torch.train.state import state_from_reference_checkpoint
+
+    path = _torch_adam_checkpoint(str(tmp_path / "ref.pth"))
+    theirs = jstate.state_from_reference_checkpoint(path, jstate.make_optimizer(LR, TOTAL))
+    after_j, m_j = jax_runs["step"](theirs, jax_runs["vgg"], jnp.asarray(setup["batches"][0]),
+                                    jax_runs["grams"], jax.random.PRNGKey(0))
+    state, vgg, grams, step = _port(setup)
+    state = state_from_reference_checkpoint(path, state.net, LR, TOTAL)
+    before = _state_dict(state)
+    names = [n for n, _ in state.net.named_parameters()]
+    total, _ = loss_fn(state.net, vgg, torch.from_numpy(setup["batches"][0]), grams,
+                       tsched.LossWeightSchedule()(2), taps=LossTaps(),
+                       precision=Precision.f32(), dropout=False)
+    grads = dict(zip(names, torch.autograd.grad(total, list(state.net.parameters()))))
+    m = step(state, vgg, torch.from_numpy(setup["batches"][0]), grams)
+    np.testing.assert_allclose(float(m["loss"]), float(m_j["loss"]), rtol=1e-4)
+    assert float(m["lr"]) == pytest.approx(float(m_j["lr"]), rel=1e-7)
+    assert state.step == int(after_j.step) == 3 and state.optimizer.applied == 3
+    _assert_update_close(_state_dict(state),
+                         params_from_jax(jax.tree.map(np.asarray, after_j.params)),
+                         _effective_grads(grads, before, float(m["grad_norm"])))
+
+
+def test_reference_training_checkpoint_resumes_in_the_loop(tmp_path, capsys):
     from fast_neural_style_transfer_tpu_torch.train.loop import TrainConfig, train_style_transfer
 
-    _images(str(tmp_path / "d"), 2, (32, 32), seed=3)
-    ref = str(tmp_path / "ref.pth")
-    torch.save({"model_state_dict": TransformerNet().state_dict(),
-                "optimizer_state_dict": {"state": {}, "param_groups": []},
-                "iteration": 5}, ref)
-    cfg = TrainConfig(style_image=str(tmp_path / "d" / "0.jpg"),
-                      dataset_dir=str(tmp_path / "d"), output_dir=str(tmp_path / "o"),
-                      batch_size=2, image_size=(32, 32), init_checkpoint=ref, device="cpu")
-    with pytest.warns(UserWarning), pytest.raises(NotImplementedError, match="row 6"):
+    _images(str(tmp_path / "d"), 3, (32, 32), seed=3)
+    ref = _torch_adam_checkpoint(str(tmp_path / "ref.pth"), iteration=2)
+    style = str(tmp_path / "d" / "0.jpg")
+    cfg = TrainConfig(style_image=style, dataset_dir=str(tmp_path / "d"),
+                      output_dir=str(tmp_path / "o"), batch_size=2, image_size=(32, 32),
+                      total_steps=3, num_workers=2, init_checkpoint=ref, device="cpu")
+    with pytest.warns(UserWarning, match="VGG19"):
         train_style_transfer(cfg)
+    text = capsys.readouterr().out
+    assert f"fully resumed reference training checkpoint {ref} at iteration 2" in text
+    assert "trained 1 steps" in text
+    multi = TrainConfig(style_image=(style, str(tmp_path / "d" / "1.jpg")),
+                        dataset_dir=str(tmp_path / "d"), output_dir=str(tmp_path / "o2"),
+                        batch_size=2, image_size=(32, 32), init_checkpoint=ref, device="cpu")
+    with pytest.warns(UserWarning), pytest.raises(ValueError, match="single-style"):
+        train_style_transfer(multi)
     with pytest.raises(ValueError, match="multiple of 4"):
         train_style_transfer(TrainConfig(style_image="s.jpg", dataset_dir=".",
                                          image_size=(30, 32), device="cpu"))

@@ -197,7 +197,7 @@ def test_loss_taps_and_unported_banks():
     assert taps.all_taps == jloss.LossTaps(content_tap="relu2_2").all_taps
     assert tloss.REFERENCE_TAPS.all_taps == jloss.REFERENCE_TAPS.all_taps
     feats = [torch.zeros(1, 2, 2, 4)]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="need style_select"):
         tloss.style_loss(feats, [torch.zeros(3, 4, 4)], (1.0,))
 
 
