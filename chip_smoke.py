@@ -10,8 +10,10 @@ paths (the IN forward's and backward's two kernels each where its planner
 routes: the one-launch kernel at every 256x256 site, the two-launch kernel
 at a slab larger than the card holds at once; the conv dx's tap-packed
 kernel at VGG conv1_1 and its tiled kernel at a k=9 conv; both IN kernels
-again with per-sample (N, C) affines). Then it drives the main paths, each
-with the kernel-launch counters (also by route and by affine) set to 0 just
+again with per-sample (N, C) affines; the IN forward's capture and inject
+modes, capture then inject at blend 1 bit for bit the plain forward). Then
+it drives the main paths, each
+with the kernel-launch counters (also by route, by affine and by mode) set to 0 just
 before and read just after:
 - serving (slice 1): the in-repo trained checkpoint against the port's own
   CPU path, concurrent HTTP requests and the inference CLI;
@@ -21,7 +23,15 @@ before and read just after:
 - multi-style (slice 7): the training CLI with 4 style images (per-sample
   affines at every IN site), the checkpoint served by style index and by
   blend, the inference CLI with --style_index, and one multi-style step on
-  the card against the CPU.
+  the card against the CPU;
+- video (slice 8): the video CLI on a seeded GIF with the trained
+  checkpoint (frozen IN statistics: capture and inject launches), the
+  frames on the card against the port's CPU path, flicker and batch time;
+- AdaIN (slice 8): the AdaIN training CLI at batch 8 (the adain IN launch
+  and the tap-packed conv1_1 dx each step), step times, one step on the
+  card against the CPU, ArbitraryStylizer against the CPU, and
+  fnst-serve --adain-decoder in its own process answering concurrent
+  requests.
 Last it times the kernels, their plain versions and the library ops, the
 training step (single-style, 4-style and one-pass), and the IN forward and
 backward at three chunk budgets each. Every phase
@@ -371,11 +381,13 @@ def phase_in_bwd_vs_plain(seed: int) -> float:
 
 
 # conv backward cases: (N, H, W, C_in, k, route of dx-only). VGG conv1_1
-# (64 -> 3, k3) at 256x256 with B=1 and B=20, and 200x300 with B=2 (ragged
-# strips and tiles, outside the TPU kernel's gate), on the tap-packed
-# kernel; a k=9, C_in=1 conv (k*k*C_in = 81 > 32) on the tiled one
-CONV_CASES = [(1, 256, 256, 3, 3, "tap_packed"), (20, 256, 256, 3, 3, "tap_packed"),
-              (2, 200, 300, 3, 3, "tap_packed"), (2, 128, 160, 1, 9, "tiled")]
+# (64 -> 3, k3) at 256x256 with B=1, B=8 (AdaIN training) and B=20
+# (training), and 200x300 with B=2 (ragged strips and tiles, outside the TPU
+# kernel's gate), on the tap-packed kernel; a k=9, C_in=1 conv (k*k*C_in =
+# 81 > 32) on the tiled one
+CONV_CASES = [(1, 256, 256, 3, 3, "tap_packed"), (8, 256, 256, 3, 3, "tap_packed"),
+              (20, 256, 256, 3, 3, "tap_packed"), (2, 200, 300, 3, 3, "tap_packed"),
+              (2, 128, 160, 1, 9, "tiled")]
 
 
 def phase_conv_bwd_vs_plain(seed: int) -> float:
@@ -389,7 +401,8 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
     order errs by at most (terms) * 2^-24 of its sum of absolute terms S,
     in practice by ~sqrt(terms) times less, and 3xTF32 products by ~2^-21
     of S, so |d| <= 1e-4 * S, plus 2^-7 |dx| in bf16 (one ulp: dx rounded
-    to bf16 errs by up to 2^-8 |dx|)."""
+    to bf16 errs by up to 2^-8 |dx|). -> the largest |ddx| of each case,
+    by (N, H, W, C_in, k)."""
     import torch
 
     from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import (
@@ -402,7 +415,7 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
     )
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-    worst = 0.0
+    worst = {}
     for n, h, w, ci, k, route in CONV_CASES:
         w32 = torch.randn((64, ci, k, k), generator=gen, device="cuda") * 0.1
         gbase = torch.randn((n, 64, h, w), generator=gen, device="cuda")
@@ -443,7 +456,8 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
                         dw_err_over_tol=over_tol((dw - dw_r).abs(), 1e-4 * sw),
                         db_max_abs_err=(db - db_r).abs().max().item(),
                         db_err_over_tol=over_tol((db - db_r).abs(), 1e-4 * sb))
-                worst = max(worst, fields["dx_max_abs_err"])
+                worst[n, h, w, ci, k] = max(worst.get((n, h, w, ci, k), 0.0),
+                                            fields["dx_max_abs_err"])
                 kernel = plan.route if mode == "dx" else "tiled"
                 ok = (dx.shape == x.shape and dx.dtype == dtype and repeatable
                       and plan.route == route and smem_ok
@@ -462,8 +476,8 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
 
 
 def reset_in_counts() -> None:
-    """Set the IN forward's and backward's launch counts, in all, by route
-    and by affine, to 0."""
+    """Set the IN forward's and backward's launch counts, in all, by route,
+    by affine and (the forward) by mode, to 0."""
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
         instance_norm_bwd,
         instance_norm_fwd,
@@ -473,6 +487,12 @@ def reset_in_counts() -> None:
         fn.launches = 0
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
         fn.launches_by_affine = dict.fromkeys(fn.launches_by_affine, 0)
+    instance_norm_fwd.launches_by_mode = dict.fromkeys(instance_norm_fwd.launches_by_mode, 0)
+
+
+def nonzero(counts: dict) -> dict:
+    """The entries of a count dict that are not 0."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def phase_affine_vs_plain(seed: int) -> tuple:
@@ -891,9 +911,9 @@ def phase_multi_style(seed: int) -> dict:
         with open(os.path.join(out, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         steps = NUM_IN_SITES * TRAIN_STEPS
-        ok = (all(counts[k] == {"launches": steps, "by_route": {SITE_ROUTE: steps,
-                                                                "two_launch": 0},
-                                "by_affine": {"channel": 0, "sample": steps}}
+        ok = (all(counts[k]["launches"] == steps
+                  and nonzero(counts[k]["by_route"]) == {SITE_ROUTE: steps}
+                  and counts[k]["by_affine"] == {"channel": 0, "sample": steps}
                   for k in ("instance_norm_fwd", "instance_norm_bwd"))
               and counts["conv2d_same_dx"] == {"launches": TRAIN_STEPS, "by_route": {
                   "tap_packed": TRAIN_STEPS, "tiled": 0}}
@@ -945,7 +965,7 @@ def phase_multi_style(seed: int) -> dict:
 
 
 def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2,
-                    styles: int = 1, in_stats: str = "stable"):
+                    styles: int = 1, norm_method: str = "auto"):
     """One f32 step without dropout from seeded params, VGG and batch ->
     (loss, grads, grad_norm, params before, params after, state.step),
     all on the CPU. ``styles`` > 1: a multi-style net whose IN banks' rows
@@ -1003,10 +1023,10 @@ def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2,
     before = cpu(params)
     total, _ = loss_fn(net, vgg, u8, grams, LossWeightSchedule()(0), taps=taps,
                        precision=prec, dropout=False, style_select=select,
-                       in_stats=in_stats)
+                       norm_method=norm_method)
     grads = torch.autograd.grad(total, params)
     state = create_train_state(net)
-    metrics = make_train_step(dropout=False, num_styles=styles, in_stats=in_stats)(
+    metrics = make_train_step(dropout=False, num_styles=styles, norm_method=norm_method)(
         state, vgg, u8, grams, style_select=select)
     return (float(metrics["loss"]), cpu(grads), float(metrics["grad_norm"]), before,
             cpu(net.parameters()), state.step)
@@ -1019,7 +1039,7 @@ def _param_names(styles: int):
 
 
 def phase_train_parity(seed: int, variant: str = "single_style", styles: int = 1,
-                       batch: int = 2, in_stats: str = "stable") -> None:
+                       batch: int = 2, norm_method: str = "auto") -> None:
     """One f32 step (128x128, B=2, no dropout; ``variant``: other style
     counts, batches or IN statistics) on the card against the port's CPU
     path from the same seeded params, VGG and batch. Tolerances:
@@ -1034,8 +1054,10 @@ def phase_train_parity(seed: int, variant: str = "single_style", styles: int = 1
     effective gradient is at least 1e-4 on the CPU (where du/dg <= 1)
     within 1e-3 lr."""
     lr = 1e-3
-    card = _one_train_step("cuda", seed, batch=batch, styles=styles, in_stats=in_stats)
-    cpu = _one_train_step("cpu", seed, batch=batch, styles=styles, in_stats=in_stats)
+    card = _one_train_step("cuda", seed, batch=batch, styles=styles,
+                           norm_method=norm_method)
+    cpu = _one_train_step("cpu", seed, batch=batch, styles=styles,
+                          norm_method=norm_method)
     loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
     gmax = max(g.abs().max().item() for g in cpu[1])
     errs = [(a - b).abs().max().item() for a, b in zip(card[1], cpu[1])]
@@ -1056,7 +1078,7 @@ def phase_train_parity(seed: int, variant: str = "single_style", styles: int = 1
     ok = (loss_rel <= 1e-4 and norm_rel <= 1e-4 and grad_err <= 1e-3
           and dp_max <= 2 and g_eff_off < 1e-4 and card[5] == cpu[5] == 1)
     emit("train_parity", ok=ok, variant=variant, size=[128, 128], batch=batch,
-         styles=styles, in_stats=in_stats, precision="f32",
+         styles=styles, norm_method=norm_method, precision="f32",
          loss_card=card[0], loss_cpu=cpu[0], loss_rel_err=loss_rel,
          grad_norm_card=card[2], grad_norm_cpu=cpu[2], grad_norm_rel_err=norm_rel,
          grad_max_abs_err_over_max_grad=grad_err, worst_grad_param=names[worst],
@@ -1247,7 +1269,7 @@ def count_gradient_copies(fn) -> dict:
     return counts
 
 
-TRAIN_VARIANTS = (("single_style", 1, "stable"), ("multi_style", STYLES, "stable"),
+TRAIN_VARIANTS = (("single_style", 1, "auto"), ("multi_style", STYLES, "auto"),
                   ("onepass", 1, "onepass"))
 
 
@@ -1280,7 +1302,7 @@ def phase_train_times(seed: int) -> dict:
     style_imgs = [u8_to_network(torch.from_numpy(
         smooth_image(256, 256, seed=5 + 100 * s))[None]).cuda() for s in range(STYLES)]
     result = {}
-    for precision, (variant, styles, in_stats) in (
+    for precision, (variant, styles, norm_method) in (
             (p, v) for p in ("bf16", "f32") for v in TRAIN_VARIANTS):
         prec = canonical_compute_dtype(precision)
         exact_f32(torch.device("cuda"), prec)
@@ -1294,7 +1316,8 @@ def phase_train_times(seed: int) -> dict:
         grams = (per_style[0] if styles == 1
                  else [torch.stack(layer) for layer in zip(*per_style)])
         state = create_train_state(net)
-        step = make_train_step(precision=prec, num_styles=styles, in_stats=in_stats)
+        step = make_train_step(precision=prec, num_styles=styles,
+                               norm_method=norm_method)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         for _ in range(3):
             step(state, vgg, u8, grams, gen)
@@ -1315,7 +1338,7 @@ def phase_train_times(seed: int) -> dict:
         p50 = float(np.median(samples))
         by_route = dict(instance_norm_fwd.launches_by_route)
         by_affine = dict(instance_norm_fwd.launches_by_affine)
-        emit("train_step_time", variant=variant, styles=styles, in_stats=in_stats,
+        emit("train_step_time", variant=variant, styles=styles, norm_method=norm_method,
              precision=precision, batch=TRAIN_BATCH, size=[256, 256],
              p50_ms=p50, min_ms=float(np.min(samples)), max_ms=float(np.max(samples)),
              host_p50_ms=float(np.median(host)), images_per_s=TRAIN_BATCH / p50 * 1e3,
@@ -1580,8 +1603,742 @@ def profile_calls(fn, reps: int = 5, top: int = 8) -> dict:
     }
 
 
+# -- slice 8: frozen IN statistics (video) and the AdaIN family ----------------
+
+IN_STATS_BATCHES = (1, 8)
+IN_STATS_BLENDS = (0.0, 0.5, 1.0)
+
+
+def phase_in_stats_vs_plain(seed: int) -> dict:
+    """The IN forward's capture and inject modes against their plain
+    versions at the site shapes, B = 1 and 8, and the large slab at B = 2
+    (two launches), f32 and bf16, with (C,) and (N, C) affines: capture
+    returns the plain call's y, mean and inv bit for bit and a var within
+    1e-4 relative of the plain version's; capture -> inject at blend 1 with
+    the captured (N, C) moments gives the plain kernel forward's y bit for
+    bit, at every site; capture's y agrees with the plain version within the
+    forward's tolerances; inject against (1, C) and (N, C) references at
+    blend 0, 0.5, 1 agrees with the plain inject within the forward's
+    tolerances (phase_kernel_vs_plain: f32 |dy| <= 1e-4 + 1e-4|y|, bf16
+    1e-4 + 2^-7|y|; own moments as there) and repeats bit for bit. The
+    256^2 sites take the one-launch route and blend 1 the inject kernel.
+    Returns the largest |dy| of capture and of inject."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        fwd_plan,
+        instance_norm_apply_stats,
+        instance_norm_apply_stats_reference,
+        instance_norm_fwd,
+        instance_norm_fwd_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    worst = {"capture": 0.0, "inject": 0.0}
+    shapes = sorted({(h, w, c, relu) for _, h, w, c, relu, _ in SITES})
+    cases = [(n, *sh, False) for sh in shapes for n in IN_STATS_BATCHES]
+    cases.append((*LARGE_SLAB, True))
+    with torch.inference_mode():
+        for n, h, w, c, relu, large in cases:
+            base = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
+            rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+            affines = {"channel": (rnd(c), rnd(c)), "sample": (rnd(n, c), rnd(n, c))}
+            refs = {"one": (rnd(1, c), rnd(1, c).abs() + 0.5),
+                    "per_sample": (rnd(n, c), rnd(n, c).abs() + 0.5)}
+            for dtype in (torch.float32, torch.bfloat16):
+                x = base.to(dtype).contiguous(memory_format=torch.channels_last)
+                rtol_y = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+                route = fwd_plan(x).route
+                over = {"y": 0.0, "mean": 0.0, "var_rel": 0.0}
+                identical, repeatable = True, True
+                for ga, be in affines.values():
+                    y0, m0, i0 = instance_norm_fwd(x, ga, be, relu=relu)
+                    cap = instance_norm_fwd(x, ga, be, relu=relu, capture=True)
+                    cap2 = instance_norm_fwd(x, ga, be, relu=relu, capture=True)
+                    y2, _, _ = instance_norm_apply_stats(x, ga, be, cap[1], cap[3], relu=relu)
+                    torch.cuda.synchronize()
+                    identical &= all(torch.equal(bits(a), bits(b)) for a, b in
+                                     ((y0, cap[0]), (m0, cap[1]), (i0, cap[2]), (y0, y2)))
+                    repeatable &= all(torch.equal(bits(a), bits(b)) for a, b in zip(cap, cap2))
+                    y_r, _, _, v_r = instance_norm_fwd_reference(x.float(), ga, be,
+                                                                 relu=relu, capture=True)
+                    dy = (cap[0].float() - y_r).abs()
+                    worst["capture"] = max(worst["capture"], dy.max().item())
+                    over["y"] = max(over["y"], (dy / (1e-4 + rtol_y * y_r.abs())).max().item())
+                    over["var_rel"] = max(over["var_rel"], (
+                        (cap[3] - v_r).abs() / (v_r.abs() + 1e-6)).max().item())
+                    for rm, rv in refs.values():
+                        for blend in IN_STATS_BLENDS:
+                            got = instance_norm_apply_stats(x, ga, be, rm, rv, blend=blend,
+                                                            relu=relu)
+                            again = instance_norm_apply_stats(x, ga, be, rm, rv,
+                                                              blend=blend, relu=relu)
+                            torch.cuda.synchronize()
+                            want = instance_norm_apply_stats_reference(
+                                x.float(), ga, be, rm, rv, blend=blend, relu=relu)
+                            repeatable &= all(torch.equal(bits(a), bits(b))
+                                              for a, b in zip(got, again) if a is not None)
+                            dy = (got[0].float() - want[0]).abs()
+                            worst["inject"] = max(worst["inject"], dy.max().item())
+                            over["y"] = max(over["y"], (dy / (1e-4 + rtol_y * want[0].abs())
+                                                        ).max().item())
+                            if blend != 1.0:
+                                over["mean"] = max(over["mean"], (
+                                    (got[1] - want[1]).abs()
+                                    / (1e-5 + 1e-4 * want[1].abs())).max().item())
+                                over["var_rel"] = max(over["var_rel"], (
+                                    (got[2] - want[2]).abs()
+                                    / (want[2].abs() + 1e-6)).max().item())
+                route_ok = large or route == SITE_ROUTE
+                ok = (identical and repeatable and route_ok and over["y"] <= 1
+                      and over["mean"] <= 1 and over["var_rel"] <= 1e-4)
+                emit("in_stats_vs_plain", shape=[n, h, w, c], relu=relu,
+                     dtype=str(dtype).replace("torch.", ""), route=route,
+                     affines=list(affines), refs=list(refs), blends=list(IN_STATS_BLENDS),
+                     capture_inject_equals_plain_bits=identical,
+                     bitwise_repeatable=repeatable, y_err_over_tol=over["y"],
+                     mean_err_over_tol=over["mean"], var_max_rel_err=over["var_rel"],
+                     ok=ok)
+                if not ok:
+                    fail(f"capture/inject at {[n, h, w, c]} {dtype}: bits differ from the "
+                         f"plain forward, repeats differ, or disagrees with plain ({over})")
+    return worst
+
+
+def phase_adain_in_vs_plain(seed: int) -> float:
+    """The IN forward at the adain shape, relu4_1 of a 256x256 batch of
+    ADAIN_BATCH: (8, 512, 32, 32), f32 and bf16, stable statistics, no
+    ReLU, with the (N, C) affine of training (gamma = sigma_s > 0, beta =
+    mu_s) and the (C,) affine of a cached or blended style, against the
+    plain version at phase_kernel_vs_plain's tolerances; the one-launch
+    route is asserted, each call runs twice and must repeat bit for bit.
+    -> the largest |dy|."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        fwd_plan,
+        instance_norm_fwd,
+        instance_norm_fwd_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    n, h, w, c = ADAIN_BATCH, 32, 32, 512
+    base = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
+    sigma = torch.rand((n, c), generator=gen, device="cuda") + 0.5
+    mu = torch.randn((n, c), generator=gen, device="cuda")
+    affines = {"sample": (sigma, mu), "channel": (sigma[0], mu[0])}
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = base.to(dtype).contiguous(memory_format=torch.channels_last)
+        plan = fwd_plan(x)
+        rtol_y = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        for kind, (ga, be) in affines.items():
+            with torch.inference_mode():
+                y, mean, inv = instance_norm_fwd(x, ga, be)
+                again = instance_norm_fwd(x, ga, be)
+                torch.cuda.synchronize()
+                y_r, mean_r, inv_r = instance_norm_fwd_reference(x.float(), ga, be)
+            repeatable = all(torch.equal(bits(a), bits(b))
+                             for a, b in zip((y, mean, inv), again))
+            dy = (y.float() - y_r).abs()
+            y_over = (dy / (1e-4 + rtol_y * y_r.abs())).max().item()
+            m_over = ((mean - mean_r).abs() / (1e-5 + 1e-4 * mean_r.abs())).max().item()
+            inv_rel = ((inv - inv_r).abs() / inv_r).max().item()
+            worst = max(worst, dy.max().item())
+            ok = (y_over <= 1 and m_over <= 1 and inv_rel <= 1e-4 and repeatable
+                  and plan.route == SITE_ROUTE)
+            emit("adain_in_vs_plain", shape=[n, h, w, c], dtype=str(dtype).replace(
+                     "torch.", ""), affine=kind, route=plan.route,
+                 chunks_per_sample=plan.chunks, blocks=plan.blocks,
+                 y_max_abs_err=dy.max().item(), y_err_over_tol=y_over,
+                 mean_err_over_tol=m_over, inv_max_rel_err=inv_rel, inv_rtol=1e-4,
+                 bitwise_repeatable=repeatable, ok=ok)
+            if not ok:
+                fail(f"IN forward at the adain shape {[n, h, w, c]} {dtype} {kind} "
+                     f"affine disagrees with plain, repeats with other bits or takes "
+                     f"the wrong route ({plan.route})")
+            del y, mean, inv, again, y_r, mean_r, inv_r
+    return worst
+
+
+VIDEO_FRAMES = 16
+VIDEO_BATCH = 8  # the video CLI's default
+
+
+def _panning_clip(n: int, size: int, seed: int) -> np.ndarray:
+    """n seeded frames of size x size: a smooth image panned 3 px right
+    and 2 px down a frame."""
+    big = smooth_image(size + 2 * n + 8, size + 3 * n + 8, seed)
+    return np.stack([big[2 * i:2 * i + size, 3 * i:3 * i + size] for i in range(n)])
+
+
+def phase_video(seed: int) -> dict:
+    """The video main path (ROADMAP row 11): the port's video CLI on the
+    card with the trained checkpoint, bf16, batch 8, 256x256, frozen IN
+    statistics (blend 1), on a seeded VIDEO_FRAMES-frame GIF made here;
+    launch counters set to 0 just before and read just after: the reference
+    frame's 14 capture launches (one-launch route) and 14 inject launches,
+    then 14 inject launches per batch (the inject kernel), no plain one. Then the frames through
+    VideoStylizer on the card against the port's CPU f32 path: f32 max
+    |du8| <= 1 at blend 1 and 0.5, bf16 SSIM >= 0.98 (every frame); the
+    flicker of the stabilized against the plain stylizer; the u8 -> u8
+    batch time of both (CUDA events, p50 of 20)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.cli import video as video_cli
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.infer.video import (
+        VideoStylizer,
+        flicker_score,
+        read_frames,
+        write_frames,
+    )
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
+    from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "clip.gif")
+        write_frames(_panning_clip(VIDEO_FRAMES, 256, seed + 300), src)
+        out = os.path.join(tmp, "out.gif")
+        reset_in_counts()
+        t0 = time.perf_counter()
+        summary = video_cli.main(["--model_path", str(CHECKPOINT), "--content", src,
+                                  "--output", out, "--precision", "bf16",
+                                  "--batch_size", str(VIDEO_BATCH)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {"launches": instance_norm_fwd.launches,
+                  "by_mode": dict(instance_norm_fwd.launches_by_mode),
+                  "by_route": dict(instance_norm_fwd.launches_by_route)}
+        frames = read_frames(src)
+        written = read_frames(out)
+    batches = -(-VIDEO_FRAMES // VIDEO_BATCH)
+    expected = {"capture": NUM_IN_SITES, "inject": NUM_IN_SITES * (batches + 1)}
+    ok = (summary["frames"] == VIDEO_FRAMES and written.shape == frames.shape
+          and nonzero(counts["by_mode"]) == expected
+          and nonzero(counts["by_route"]) == {SITE_ROUTE: expected["capture"],
+                                              "inject": expected["inject"]})
+    emit("video_cli", ok=ok, frames=VIDEO_FRAMES, batch=VIDEO_BATCH, size=[256, 256],
+         precision="bf16", stats_blend=1.0, seconds=seconds, counts=counts,
+         expected_by_mode=expected, summary=summary)
+    if not ok:
+        fail("video CLI phase")
+    result["counts"] = counts
+
+    cpu = {b: VideoStylizer.from_checkpoint(str(CHECKPOINT), device="cpu", stats_blend=b)
+           .stylize_frames(frames, batch_size=VIDEO_BATCH) for b in (1.0, 0.5)}
+    for precision, blend in (("f32", 1.0), ("f32", 0.5), ("bf16", 1.0)):
+        card = VideoStylizer.from_checkpoint(str(CHECKPOINT), precision=precision,
+                                             stats_blend=blend)
+        got = card.stylize_frames(frames, batch_size=VIDEO_BATCH)
+        du8 = int(np.abs(got.astype(int) - cpu[blend].astype(int)).max())
+        score = min(ssim(g / 255.0, w / 255.0) for g, w in zip(got, cpu[blend]))
+        ok = du8 <= 1 if precision == "f32" else score >= 0.98
+        emit("video_vs_cpu", precision=precision, stats_blend=blend, frames=VIDEO_FRAMES,
+             max_abs_du8=du8, min_ssim=score,
+             criterion="max|du8|<=1" if precision == "f32" else "ssim>=0.98", ok=ok)
+        if not ok:
+            fail(f"video card vs CPU ({precision}, blend {blend})")
+
+    stable = VideoStylizer.from_checkpoint(str(CHECKPOINT), precision="bf16")
+    plain = VideoStylizer.from_checkpoint(str(CHECKPOINT), precision="bf16",
+                                          stabilize=False)
+    flicker = {"input": flicker_score(frames),
+               "stabilized": flicker_score(stable.stylize_frames(frames)),
+               "plain": flicker_score(plain.stylize_frames(frames))}
+    x = torch.from_numpy(frames[:VIDEO_BATCH]).cuda()
+    per_frame_in = Stylizer.from_checkpoint(str(CHECKPOINT), precision="bf16")
+    times = {}
+    for name, fn in (("stabilized_ms", lambda: stable.raw_forward(x)),
+                     ("plain_ms", lambda: per_frame_in.raw_forward_u8(x))):
+        samples = [cuda_ms(fn, iters=1, warmup=1 if not i else 0) for i in range(20)]
+        times[name] = float(np.median(samples))
+    emit("video_times", batch=VIDEO_BATCH, size=[256, 256], precision="bf16",
+         flicker=flicker, **times,
+         frames_per_s=VIDEO_BATCH / times["stabilized_ms"] * 1e3)
+    result.update(flicker=flicker, times=times, kernel_times=video_kernel_times(seed))
+    return result
+
+
+def cold_ms(fn, flush, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` with the L2 cache emptied first:
+    ``flush`` (1 GiB) is zeroed ahead of the start event, which keeps the
+    device busy long enough for the host to enqueue the call behind it;
+    the median of ``reps`` after one warm-up."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    samples = []
+    for _ in range(reps + 1):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end))
+    return float(np.median(samples[1:]))
+
+
+def video_kernel_times(seed: int) -> dict:
+    """bf16 at B=8 over the 14 sites of a 256^2 forward (the video path):
+    device time (CUDA-graph replay) of the capture call, the inject kernel
+    (blend 1, a (1, C) reference, as the video path calls it) and the
+    inject at blend 0.5 (the statistics kernel, its merge blending), each
+    beside its plain version, the plain kernel forward and the bytes bound
+    (read x once, write y once: the same for all three). The library call:
+    F.instance_norm(x, ref_mean, ref_var, use_input_stats=False) (+F.relu)
+    for blend 1; none computes capture's or blend 0.5's function in one
+    call (null). The replay keeps a site's slab in the 50 MB L2 from one
+    call to the next, so the kernels' and the library's times are also
+    taken with the L2 emptied before each call (``cold_*``, cold_ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_apply_stats,
+        instance_norm_apply_stats_reference,
+        instance_norm_fwd,
+        instance_norm_fwd_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    n = VIDEO_BATCH
+    keys = ("plain_kernel_ms", "capture_ms", "capture_plain_ms", "inject_ms",
+            "inject_plain_ms", "inject_library_ms", "inject_blend_ms",
+            "inject_blend_plain_ms", "cold_plain_kernel_ms", "cold_capture_ms",
+            "cold_inject_ms", "cold_inject_library_ms", "cold_inject_blend_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    flush = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+    with torch.inference_mode():
+        for name, h, w, c, relu, count in SITES:
+            x = (torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5)
+            x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            g = torch.randn(c, generator=gen, device="cuda")
+            b = torch.randn(c, generator=gen, device="cuda")
+            rm = torch.randn((1, c), generator=gen, device="cuda")
+            rv = torch.rand((1, c), generator=gen, device="cuda") + 0.5
+
+            def library():
+                y = F.instance_norm(x, running_mean=rm[0], running_var=rv[0], weight=g,
+                                    bias=b, use_input_stats=False, eps=1e-5)
+                return F.relu(y) if relu else y
+
+            calls = {
+                "plain_kernel_ms": lambda: instance_norm_fwd(x, g, b, relu=relu),
+                "capture_ms": lambda: instance_norm_fwd(x, g, b, relu=relu, capture=True),
+                "inject_ms": lambda: instance_norm_apply_stats(x, g, b, rm, rv, relu=relu),
+                "inject_library_ms": library,
+                "inject_blend_ms": lambda: instance_norm_apply_stats(
+                    x, g, b, rm, rv, blend=0.5, relu=relu),
+            }
+            site = {
+                "plain_kernel_ms": graph_ms(calls["plain_kernel_ms"]),
+                "capture_ms": graph_ms(calls["capture_ms"]),
+                "capture_plain_ms": graph_ms(lambda: instance_norm_fwd_reference(
+                    x, g, b, relu=relu, capture=True)),
+                "inject_ms": graph_ms(calls["inject_ms"]),
+                "inject_plain_ms": graph_ms(lambda: instance_norm_apply_stats_reference(
+                    x, g, b, rm, rv, relu=relu)),
+                "inject_library_ms": graph_ms(library),
+                "inject_blend_ms": graph_ms(calls["inject_blend_ms"]),
+                "inject_blend_plain_ms": graph_ms(lambda: instance_norm_apply_stats_reference(
+                    x, g, b, rm, rv, blend=0.5, relu=relu)),
+                **{"cold_" + k: cold_ms(fn, flush) for k, fn in calls.items()},
+            }
+            site["bound_ms"], by = in_bound_ms(x.numel(), x.element_size())
+            emit("video_times_site", site=name, shape=[n, h, w, c], dtype="bfloat16",
+                 relu=relu, sites_per_forward=count, bound_by=by, **site)
+            for k in keys:
+                tot[k] += count * site[k]
+    tot["bound_by"] = "bytes"
+    emit("video_times_per_forward", batch=n, dtype="bfloat16", **tot,
+         library_op="F.instance_norm(use_input_stats=False)(+F.relu)",
+         inject_bound_share=tot["bound_ms"] / tot["inject_ms"],
+         capture_bound_share=tot["bound_ms"] / tot["capture_ms"],
+         cold_inject_bound_share=tot["bound_ms"] / tot["cold_inject_ms"])
+    del flush
+    return tot
+
+
+ADAIN_STEPS = 10
+ADAIN_BATCH = 8  # the AdaIN training CLI's default
+
+
+def _one_adain_step(device: str, seed: int, size: int = 128, batch: int = 2):
+    """One f32 AdaIN step from the seeded decoder, the seeded random VGG and
+    seeded content and style batches -> (loss, grads, grad_norm, params
+    before, params after, step), on the CPU."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+    from fast_neural_style_transfer_tpu_torch.models.adain import make_decoder
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+    from fast_neural_style_transfer_tpu_torch.train.adain import (
+        adain_loss_fn,
+        create_adain_train_state,
+        make_adain_train_step,
+    )
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
+
+    prec = Precision.f32()
+    exact_f32(torch.device(device), prec)
+    torch.manual_seed(seed)
+    dec = make_decoder(None, device)
+    vgg = make_vgg(random_params(seed), device)
+    imgs = lambda s0: torch.from_numpy(np.stack(
+        [smooth_image(size, size, seed=s0 + i) for i in range(batch)])).to(device)
+    content, style = imgs(30), imgs(60)
+    cpu = lambda ts: [t.detach().float().cpu().clone() for t in ts]
+    params = list(dec.parameters())
+    before = cpu(params)
+    total, _ = adain_loss_fn(dec, vgg, content, style, 10.0, precision=prec)
+    grads = torch.autograd.grad(total, params)
+    state = create_adain_train_state(dec)
+    m = make_adain_train_step(lr_decay=5e-5)(state, vgg, content, style)
+    return (float(m["loss"]), cpu(grads), float(m["grad_norm"]), before,
+            cpu(dec.parameters()), state.step)
+
+
+def adain_parity(seed: int) -> None:
+    """One f32 AdaIN step (128x128, B=2, lr 1e-4) on the card against the
+    port's CPU step: phase_train_parity's bounds (loss and gradient norm
+    1e-4 relative, every gradient element within 1e-3 of the largest,
+    updated params within 2 lr, and within 1e-3 lr where the gradient is at
+    least 1e-4: there is no clip, so Adam's u(g) = g / (|g| + 1e-8) swings
+    only where |g| is within a few hundred 1e-8 of zero)."""
+    lr = 1e-4
+    card, cpu = _one_adain_step("cuda", seed), _one_adain_step("cpu", seed)
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    gmax = max(g.abs().max().item() for g in cpu[1])
+    grad_err = max((a - b).abs().max().item() for a, b in zip(card[1], cpu[1])) / gmax
+    norm_rel = abs(card[2] - cpu[2]) / cpu[2]
+    dp = [(a - b).abs() / lr for a, b in zip(card[4], cpu[4])]
+    off = [d > 1e-3 for d in dp]
+    g_off = max((g.abs()[o].max().item() for g, o in zip(cpu[1], off) if o.any()),
+                default=0.0)
+    dp_max = max(d.max().item() for d in dp)
+    ok = (loss_rel <= 1e-4 and norm_rel <= 1e-4 and grad_err <= 1e-3 and dp_max <= 2
+          and g_off < 1e-4 and card[5] == cpu[5] == 1)
+    emit("adain_parity", ok=ok, size=[128, 128], batch=2, precision="f32",
+         loss_card=card[0], loss_cpu=cpu[0], loss_rel_err=loss_rel,
+         grad_norm_rel_err=norm_rel, grad_max_abs_err_over_max_grad=grad_err,
+         param_max_abs_err_over_lr=dp_max, largest_grad_where_off=g_off,
+         steps=[card[5], cpu[5]])
+    if not ok:
+        fail("AdaIN card-vs-CPU step parity")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def adain_serve(decoder: str, style: str) -> dict:
+    """fnst-serve --adain-decoder (the port's server module, its own
+    process, bf16 by default, on the card by default) answers 2 bursts of 8
+    concurrent requests; one PNG reply against ArbitraryStylizer on the
+    card here at batch 1 (SSIM >= 0.98: the server batches up to 8 and
+    cuDNN may pick other kernels per batch). The server is stopped with
+    SIGTERM (its drain) and waited for."""
+    import signal as signal_mod
+
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
+    from fast_neural_style_transfer_tpu_torch.models.adain import load_decoder
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import random_params
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import decode_image
+    from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
+
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fast_neural_style_transfer_tpu_torch.serve",
+         "--adain-decoder", decoder, "--style", style, "--alpha", "0.8",
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        t0 = time.perf_counter()
+        banner = ""
+        while "fnst-serve:" not in banner:
+            line = proc.stdout.readline()
+            if not line or time.perf_counter() - t0 > 300:
+                fail(f"fnst-serve --adain-decoder did not start: {banner[-2000:]}")
+            banner += line
+        ready_s = time.perf_counter() - t0
+        img = smooth_image(256, 256, seed=88)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        body = buf.getvalue()
+
+        def post(_):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                t = time.perf_counter()
+                conn.request("POST", "/stylize?format=png", body=body,
+                             headers={"Content-Type": "image/png"})
+                resp = conn.getresponse()
+                return resp.status, resp.read(), (time.perf_counter() - t) * 1e3
+            finally:
+                conn.close()
+
+        replies = []
+        for _ in range(2):
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                replies += list(pool.map(post, range(8)))
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        proc.send_signal(signal_mod.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    got = np.asarray(Image.open(io.BytesIO(replies[0][1])).convert("RGB"))
+    want = ArbitraryStylizer(load_decoder(decoder), random_params(0), precision="bf16"
+                             ).set_style_u8(decode_image(style)).stylize_u8(img, alpha=0.8)
+    score = ssim(got / 255.0, want / 255.0)
+    ok = (all(r[0] == 200 for r in replies) and health["family"] == "adain"
+          and got.shape == img.shape and score >= 0.98)
+    result = {"ready_seconds": ready_s, "requests": len(replies),
+              "p50_ms": float(np.median([r[2] for r in replies])),
+              "healthz": health, "ssim_vs_in_process": score,
+              "exit_code": proc.returncode}
+    emit("adain_serve", ok=ok, **result)
+    if not ok:
+        fail("fnst-serve --adain-decoder")
+    return result
+
+
+def phase_adain(seed: int) -> dict:
+    """The AdaIN main path (ROADMAP row 12): the AdaIN training CLI on the
+    card for ADAIN_STEPS steps at batch 8, 256x256, f32 (the CLI's
+    defaults), the seeded random VGG, on seeded content and style folders;
+    launch counters set to 0 just before and read just after: one IN
+    forward a step (adain: (B, C) affine, the one-launch kernel) and one
+    conv1_1 dx a step (the encode of the decoder's output, the tap-packed
+    kernel). Then the card's step time at B=8 (f32 and bf16, CUDA events,
+    p50 of 8 after 2 warm-ups), one f32 step card vs CPU (adain_parity),
+    ArbitraryStylizer with the trained decoder on the card against the
+    CPU f32 path (f32 max |du8| <= 1 at alpha 1 and 0.7, bf16 SSIM >= 0.98;
+    one IN launch a forward, a (C,) affine), the stylize CLI with two
+    blended styles on the card against --cpu (f32 max |du8| <= 1, one IN
+    launch, a (C,) affine), and fnst-serve --adain-decoder
+    (adain_serve)."""
+    import torch
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import adain as adain_cli
+    from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
+    from fast_neural_style_transfer_tpu_torch.models.adain import load_decoder, make_decoder
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import conv2d_same_dx
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_bwd,
+        instance_norm_fwd,
+    )
+    from fast_neural_style_transfer_tpu_torch.train.adain import (
+        create_adain_train_state,
+        make_adain_train_step,
+    )
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import decode_image
+    from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        folders = {}
+        for kind, s0 in (("content", 2000), ("style", 3000)):
+            folders[kind] = os.path.join(tmp, kind)
+            os.makedirs(folders[kind])
+            for i in range(2 * ADAIN_BATCH):
+                Image.fromarray(smooth_image(256 + 16 * (i % 3), 256 + 8 * (i % 4),
+                                             seed=s0 + i)).save(
+                    os.path.join(folders[kind], f"{i:03d}.jpg"), quality=92)
+        out = os.path.join(tmp, "out")
+        reset_in_counts()
+        conv2d_same_dx.launches = 0
+        conv2d_same_dx.launches_by_route = dict.fromkeys(conv2d_same_dx.launches_by_route, 0)
+        t0 = time.perf_counter()
+        final = adain_cli.main(["train", "--content_dir", folders["content"],
+                                "--style_dir", folders["style"], "--output_dir", out,
+                                "--total_steps", str(ADAIN_STEPS), "--seed", str(seed)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {"instance_norm_fwd": {"launches": instance_norm_fwd.launches,
+                                        "by_route": dict(instance_norm_fwd.launches_by_route),
+                                        "by_affine": dict(instance_norm_fwd.launches_by_affine),
+                                        "by_mode": dict(instance_norm_fwd.launches_by_mode)},
+                  "instance_norm_bwd": {"launches": instance_norm_bwd.launches},
+                  "conv2d_same_dx": {"launches": conv2d_same_dx.launches,
+                                     "by_route": dict(conv2d_same_dx.launches_by_route)}}
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        fwd = counts["instance_norm_fwd"]
+        ok = (fwd["launches"] == ADAIN_STEPS
+              and nonzero(fwd["by_route"]) == {SITE_ROUTE: ADAIN_STEPS}
+              and nonzero(fwd["by_affine"]) == {"sample": ADAIN_STEPS}
+              and counts["instance_norm_bwd"]["launches"] == 0
+              and counts["conv2d_same_dx"] == {"launches": ADAIN_STEPS, "by_route": {
+                  "tap_packed": ADAIN_STEPS, "tiled": 0}}
+              and records and records[-1]["step"] == ADAIN_STEPS
+              and all(r["skipped_nonfinite"] == 0 and np.isfinite(r["loss"])
+                      for r in records)
+              and os.path.basename(final) == "adain_decoder_final.npz")
+        emit("adain_training", ok=ok, steps=ADAIN_STEPS, batch=ADAIN_BATCH, size=[256, 256],
+             precision="f32", seconds=seconds, steps_per_s=ADAIN_STEPS / seconds,
+             counts=counts, metrics=records)
+        if not ok:
+            fail("AdaIN training phase")
+        result["counts"] = counts
+
+        # step time at the CLI's shape
+        u8 = lambda s0: torch.from_numpy(np.stack(
+            [smooth_image(256, 256, seed=s0 + i) for i in range(ADAIN_BATCH)])).cuda()
+        content, style = u8(4000), u8(5000)
+        vgg = make_vgg(random_params(seed), "cuda")
+        result["step_ms"] = {}
+        for precision in ("f32", "bf16"):
+            from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+
+            prec = canonical_compute_dtype(precision)
+            state = create_adain_train_state(make_decoder(load_decoder(final), "cuda"))
+            step = make_adain_train_step(precision=prec, lr_decay=5e-5)
+            for _ in range(2):
+                step(state, vgg, content, style)
+            samples = [cuda_ms(lambda: step(state, vgg, content, style), iters=1, warmup=0)
+                       for _ in range(8)]
+            p50 = float(np.median(samples))
+            result["step_ms"][precision] = p50
+            emit("adain_step_time", precision=precision, batch=ADAIN_BATCH, size=[256, 256],
+                 p50_ms=p50, min_ms=float(np.min(samples)),
+                 steps_per_s=1e3 / p50, images_per_s=ADAIN_BATCH / p50 * 1e3,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del state, step
+        adain_parity(seed)
+
+        style_path = os.path.join(folders["style"], "000.jpg")
+        style_u8 = decode_image(style_path)
+        img = smooth_image(256, 256, seed=89)
+        dec_sd = load_decoder(final)
+        cpu = ArbitraryStylizer(dec_sd, random_params(seed), device="cpu"
+                                ).set_style_u8(style_u8)
+        for precision, alpha in (("f32", 1.0), ("f32", 0.7), ("bf16", 1.0)):
+            card = ArbitraryStylizer(dec_sd, random_params(seed), precision=precision
+                                     ).set_style_u8(style_u8)
+            reset_in_counts()
+            got = card.stylize_u8(img, alpha=alpha)
+            by_affine = nonzero(instance_norm_fwd.launches_by_affine)
+            want = cpu.stylize_u8(img, alpha=alpha)
+            du8 = int(np.abs(got.astype(int) - want.astype(int)).max())
+            score = ssim(got / 255.0, want / 255.0)
+            ok = (by_affine == {"channel": 1}
+                  and (du8 <= 1 if precision == "f32" else score >= 0.98))
+            emit("adain_stylizer_vs_cpu", precision=precision, alpha=alpha,
+                 max_abs_du8=du8, ssim=score, launches_by_affine=by_affine,
+                 output_std_u8=float(want.std()),
+                 criterion="max|du8|<=1" if precision == "f32" else "ssim>=0.98", ok=ok)
+            if not ok:
+                fail(f"AdaIN stylizer card vs CPU ({precision}, alpha {alpha})")
+        # the stylize CLI (stylize_arbitrary, folded moments): two styles
+        # blended 0.3 / 0.7, alpha 0.8, f32, the card against --cpu
+        content_path = os.path.join(tmp, "content.png")
+        Image.fromarray(smooth_image(256, 256, seed=90)).save(content_path)
+        outs, by_affine = {}, None
+        for flags in ((), ("--cpu",)):
+            outs[flags] = os.path.join(tmp, f"stylized{len(flags)}.png")
+            reset_in_counts()
+            adain_cli.main(["stylize", "--decoder", final, "--content_image", content_path,
+                            "--style_image", style_path,
+                            os.path.join(folders["style"], "001.jpg"),
+                            "--style_blend", "0.3", "0.7", "--alpha", "0.8",
+                            "--output", outs[flags], *flags])
+            if not flags:
+                by_affine = nonzero(instance_norm_fwd.launches_by_affine)
+        got, want = (np.asarray(Image.open(outs[f]).convert("RGB")) for f in outs)
+        du8 = int(np.abs(got.astype(int) - want.astype(int)).max())
+        ok = by_affine == {"channel": 1} and got.shape == want.shape and du8 <= 1
+        emit("adain_stylize_cli_vs_cpu", precision="f32", alpha=0.8,
+             style_blend=[0.3, 0.7], max_abs_du8=du8, launches_by_affine=by_affine,
+             criterion="max|du8|<=1", ok=ok)
+        if not ok:
+            fail("AdaIN stylize CLI card vs --cpu")
+        result["serve"] = adain_serve(final, style_path)
+    result["kernel_times"] = adain_kernel_times(seed)
+    return result
+
+
+def adain_kernel_times(seed: int) -> dict:
+    """At the AdaIN training shape (B=8, 256x256), f32 and bf16: the
+    conv1_1 dx kernel (tap-packed), its plain version, cuDNN's backward-data
+    call and the bound (train_kernel_times' accounting); and the adain IN
+    forward at relu4_1 (8, 32, 32, 512) with a (B, C) affine, its plain
+    version and the bound (F.instance_norm takes no per-sample affine:
+    its (C,) call is the yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import (
+        conv2d_same_dx,
+        conv2d_same_dx_reference,
+        conv_dx_plan,
+    )
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_fwd,
+        instance_norm_fwd_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    n = ADAIN_BATCH
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        g = torch.randn((n, 64, 256, 256), generator=gen, device="cuda").to(dtype)
+        g = g.contiguous(memory_format=torch.channels_last)
+        wt = (torch.randn((64, 3, 3, 3), generator=gen, device="cuda") * 0.1).to(dtype)
+        conv = {
+            "ms": graph_ms(lambda: conv2d_same_dx(g, wt)),
+            "plain_ms": graph_ms(lambda: conv2d_same_dx_reference(g, wt)),
+            "library_ms": graph_ms(lambda: torch.nn.grad.conv2d_input(
+                (n, 3, 256, 256), wt, g, padding=1)),
+        }
+        conv["bound_ms"], conv["bound_by"] = bound(
+            g.numel() * g.element_size() + n * 3 * 256 * 256 * g.element_size(),
+            2 * 27 * 64 * n * 256 * 256, dname)
+        emit("adain_times_conv_dx", dtype=dname, shape=[n, 256, 256], c_in=3, c_out=64,
+             route=conv_dx_plan(g, wt).route, **conv,
+             library_op="torch.nn.grad.conv2d_input (cuDNN)",
+             bound_share=conv["bound_ms"] / conv["ms"])
+        x = (torch.randn((n, 512, 32, 32), generator=gen, device="cuda") * 2 + 0.5)
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        sg = torch.rand((n, 512), generator=gen, device="cuda") + 0.5
+        mu = torch.randn((n, 512), generator=gen, device="cuda")
+        with torch.inference_mode():
+            site = {
+                "ms": graph_ms(lambda: instance_norm_fwd(x, sg, mu)),
+                "plain_ms": graph_ms(lambda: instance_norm_fwd_reference(x, sg, mu)),
+                "library_ms": graph_ms(lambda: F.instance_norm(x, weight=sg[0], bias=mu[0],
+                                                               eps=1e-5)),
+            }
+        site["bound_ms"], site["bound_by"] = in_bound_ms(x.numel(), x.element_size())
+        emit("adain_times_in_fwd", dtype=dname, shape=[n, 32, 32, 512], affine="(B, C)",
+             library_op="F.instance_norm, (C,) affine", **site)
+        out[dname] = {"conv_dx": conv, "in_fwd": site}
+    return out
+
+
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
-          "multi_style", "times", "train_times", "in_fwd_budgets", "in_bwd_budgets")
+          "multi_style", "video", "adain", "times", "train_times", "in_fwd_budgets",
+          "in_bwd_budgets")
 
 
 def main() -> int:
@@ -1616,14 +2373,18 @@ def main() -> int:
         err["in_bwd"] = phase_in_bwd_vs_plain(args.seed)
         err["affine_fwd"], err["affine_bwd"] = phase_affine_vs_plain(args.seed)
         err["conv"] = phase_conv_bwd_vs_plain(args.seed)
+        err["in_stats"] = phase_in_stats_vs_plain(args.seed)
+        err["adain_in"] = phase_adain_in_vs_plain(args.seed)
     if "trained_weights" in phases:
         phase_trained_weights()
     served = phase_serving() if "serving" in phases else None
     trained = phase_training(args.seed) if "training" in phases else None
     if "train_parity" in phases:
         phase_train_parity(args.seed)
-        phase_train_parity(args.seed, variant="onepass", in_stats="onepass")
+        phase_train_parity(args.seed, variant="onepass", norm_method="onepass")
     multi = phase_multi_style(args.seed) if "multi_style" in phases else None
+    video = phase_video(args.seed) if "video" in phases else None
+    adain = phase_adain(args.seed) if "adain" in phases else None
     times = phase_times(args.seed) if "times" in phases else None
     ttimes = phase_train_times(args.seed) if "train_times" in phases else None
     if "in_fwd_budgets" in phases:
@@ -1636,6 +2397,7 @@ def main() -> int:
         in_fwd = ttimes["kernels"][("in_fwd", "float32")]
         in_bwd = ttimes["kernels"][("in_bwd", "float32")]
         conv = ttimes["kernels"][("conv_dx", "float32")]
+        vk = video["kernel_times"]
         src = "fast_neural_style_transfer_tpu_torch/csrc/"
         kernels = [{
             "name": "instance_norm_fwd",
@@ -1645,7 +2407,8 @@ def main() -> int:
             "launches": served["launches"],
             "launches_by_route": served["launches_by_route"],
             "launches_multi_style": multi["counts"]["instance_norm_fwd"],
-            "max_abs_err": max(err["in_fwd"], err["affine_fwd"]),
+            "launches_adain": adain["counts"]["instance_norm_fwd"],
+            "max_abs_err": max(err["in_fwd"], err["affine_fwd"], err["adain_in"]),
             # the serving path: the 14 sites of one 256x256 bf16 forward at B=8
             "ms": b8["ms"], "plain_ms": b8["plain_ms"],
             "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
@@ -1653,6 +2416,33 @@ def main() -> int:
             # the training path: one f32 step at B=20, (C,) and (B, C) affines
             "train_step_ms": in_fwd["ms"],
             "train_step_sample_affine_ms": in_fwd["sample_affine_ms"],
+            # the AdaIN path: adain at relu4_1, (8, 32, 32, 512) f32, (B, C) affine
+            "adain_ms": adain["kernel_times"]["float32"]["in_fwd"]["ms"],
+            "adain_max_abs_err": err["adain_in"],
+        }, {
+            # the video path's capture mode: 14 sites of a 256x256 bf16 forward at B=8
+            "name": "instance_norm_fwd_capture",
+            "route": "cuda",
+            "source": src + "instance_norm.cu",
+            "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:61",
+            "launches": video["counts"]["by_mode"]["capture"],
+            "max_abs_err": err["in_stats"]["capture"],
+            "ms": vk["capture_ms"], "plain_ms": vk["capture_plain_ms"],
+            "bound_ms": vk["bound_ms"], "bound_by": vk["bound_by"],
+            "library_ms": None, "plain_kernel_ms": vk["plain_kernel_ms"],
+        }, {
+            # the video path's inject mode (blend 1, a (1, C) reference), per
+            # forward as above; blend 0.5 beside it
+            "name": "instance_norm_fwd_inject",
+            "route": "cuda",
+            "source": src + "instance_norm.cu",
+            "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:61",
+            "launches": video["counts"]["by_mode"]["inject"],
+            "max_abs_err": err["in_stats"]["inject"],
+            "ms": vk["inject_ms"], "plain_ms": vk["inject_plain_ms"],
+            "bound_ms": vk["bound_ms"], "bound_by": vk["bound_by"],
+            "library_ms": vk["inject_library_ms"],
+            "blend_ms": vk["inject_blend_ms"], "blend_plain_ms": vk["inject_blend_plain_ms"],
         }, {
             "name": "instance_norm_bwd",
             "route": "cuda",
@@ -1674,11 +2464,18 @@ def main() -> int:
             "replaces": "fast_neural_style_transfer_tpu/ops/pallas_conv.py:87",
             "launches": trained["launches"]["conv2d_same_dx"],
             "launches_by_route": trained["conv_by_route"],
-            "max_abs_err": err["conv"],
+            "max_abs_err": max(err["conv"].values()),
             # the training path: VGG conv1_1 dx of one f32 step at B=20, 256x256
             "ms": conv["ms"], "tiled_ms": conv["tiled_ms"], "plain_ms": conv["plain_ms"],
             "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
             "library_ms": conv["library_ms"],
+            # the AdaIN training path: conv1_1 dx of one f32 step at B=8, 256x256
+            "launches_adain": adain["counts"]["conv2d_same_dx"]["launches"],
+            "adain_max_abs_err": err["conv"][ADAIN_BATCH, 256, 256, 3, 3],
+            "adain_ms": adain["kernel_times"]["float32"]["conv_dx"]["ms"],
+            "adain_plain_ms": adain["kernel_times"]["float32"]["conv_dx"]["plain_ms"],
+            "adain_bound_ms": adain["kernel_times"]["float32"]["conv_dx"]["bound_ms"],
+            "adain_library_ms": adain["kernel_times"]["float32"]["conv_dx"]["library_ms"],
         }]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

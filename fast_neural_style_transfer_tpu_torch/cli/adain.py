@@ -1,0 +1,246 @@
+"""AdaIN CLI, with the JAX package's ``fnst-adain`` flags: train the
+arbitrary-style decoder, or stylize with any style image.
+
+    python -m fast_neural_style_transfer_tpu_torch.cli.adain train \\
+        --content_dir coco/ --style_dir wikiart/ --output_dir out
+    python -m fast_neural_style_transfer_tpu_torch.cli.adain stylize \\
+        --decoder out/adain_decoder_final.npz --content_image photo.jpg \\
+        --style_image painting.jpg --output stylized.jpg --alpha 0.8
+
+Runs on the card (``--device``, default cuda; ``--cpu`` for the CPU).
+``--data_parallel`` and ``--spatial > 1`` (ROADMAP row 15) and the
+``export`` subcommand (row 9) are not yet ported and exit with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from fast_neural_style_transfer_tpu_torch.models.adain import load_decoder
+
+
+def _device_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the card)")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU (--device cpu)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="AdaIN arbitrary-style transfer (train / stylize)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train the decoder")
+    t.add_argument("--content_dir", required=True)
+    t.add_argument("--style_dir", required=True,
+                   help="Directory of style images (e.g. a painting corpus)")
+    t.add_argument("--output_dir", default="adain_output")
+    t.add_argument("--vgg_weights", default=None)
+    t.add_argument("--total_steps", type=int, default=20_000)
+    t.add_argument("--batch_size", type=int, default=8)
+    t.add_argument("--lr", type=float, default=1e-4)
+    t.add_argument("--remat", action="store_true",
+                   help="Recompute the decoder and the output-VGG forwards in "
+                        "the backward (torch.utils.checkpoint)")
+    t.add_argument("--lr_decay", type=float, default=5e-5,
+                   help="Inverse-time lr decay lr/(1+decay*step), the paper's "
+                        "recipe; 0 = constant lr")
+    t.add_argument("--style_weight", type=float, default=10.0)
+    t.add_argument("--image_size", type=int, nargs=2, default=(256, 256),
+                   metavar=("H", "W"))
+    t.add_argument("--precision", default="f32", choices=["f32", "bf16"])
+    t.add_argument("--num_workers", type=int, default=8)
+    t.add_argument("--checkpoint_every", type=int, default=2000)
+    t.add_argument("--seed", type=int, default=0)
+    _device_flags(t)
+
+    s = sub.add_parser("stylize", help="stylize with an arbitrary style image")
+    s.add_argument("--decoder", required=True,
+                   help="trained decoder: the JAX package's .npz, or a torch .pth")
+    s.add_argument("--content_image", default=None)
+    s.add_argument("--content_dir", default=None,
+                   help="Bulk mode: stylize every image under this directory "
+                        "with the given style (pipelined batches)")
+    s.add_argument("--batch_size", type=int, default=16, help="Bulk mode device batch size")
+    s.add_argument("--data_parallel", action="store_true",
+                   help="Bulk mode: shard batches over several cards (not yet ported)")
+    s.add_argument("--skip_bad_images", action="store_true",
+                   help="Bulk mode: log and skip undecodable files instead "
+                        "of failing the whole job")
+    s.add_argument("--style_image", required=True, nargs="+",
+                   help="style image(s); several interpolate styles "
+                        "(weights via --style_blend, default equal)")
+    s.add_argument("--style_blend", type=float, nargs="+", default=None, metavar="W",
+                   help="convex interpolation weights, one per style image")
+    s.add_argument("--style_masks", nargs="+", default=None, metavar="MASK",
+                   help="per-style grayscale mask images, one per "
+                        "--style_image: paint each content region with its "
+                        "own style (paper §7.3); resized to the content, "
+                        "normalized per pixel. Exclusive with --style_blend; "
+                        "single-image mode")
+    s.add_argument("--output", default=None,
+                   help="Output image path (single; default adain_stylized.jpg) "
+                        "or directory (bulk; default <content_dir>_stylized)")
+    s.add_argument("--alpha", type=float, default=1.0,
+                   help="style strength in [0, 1] (0 = content reconstruction)")
+    s.add_argument("--preserve_color", default="off", choices=["off", "match", "luma"],
+                   help="keep the content's palette (paper §7.2): 'match' "
+                        "re-colors the style image(s) to the content's RGB "
+                        "mean/covariance before encoding; 'luma' keeps only "
+                        "the stylized luminance ('luma' also works in bulk mode)")
+    s.add_argument("--size", type=int, nargs=2, default=None, metavar=("H", "W"))
+    s.add_argument("--vgg_weights", default=None)
+    s.add_argument("--precision", default="f32", choices=["f32", "bf16"])
+    s.add_argument("--spatial", type=int, default=1,
+                   help="Shard content height over N devices (not yet ported)")
+    _device_flags(s)
+
+    e = sub.add_parser("export", help="export the full pipeline (not yet ported)")
+    e.add_argument("--decoder", required=True)
+    e.add_argument("--onnx", default=None)
+    e.add_argument("--torchscript", default=None)
+    return p
+
+
+def _masks(paths, n_styles: int, hw):
+    """Grayscale mask images -> (S, H, W) f32 in [0, 1] at the content's size."""
+    import numpy as np
+    from PIL import Image
+
+    if len(paths) != n_styles:
+        raise SystemExit(f"{len(paths)} --style_masks for {n_styles} --style_image")
+    h, w = hw
+    out = []
+    for m in paths:
+        with Image.open(m) as im:
+            out.append(np.asarray(im.convert("L").resize((w, h), Image.BILINEAR),
+                                  np.float32) / 255.0)
+    return np.stack(out)
+
+
+def _stylize_one(args, device: str) -> str:
+    import numpy as np
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+    from fast_neural_style_transfer_tpu_torch.core.shapes import (
+        pad_to_multiple_reflect,
+        resolve_device,
+    )
+    from fast_neural_style_transfer_tpu_torch.models.adain import (
+        make_decoder,
+        stylize_arbitrary,
+    )
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
+    from fast_neural_style_transfer_tpu_torch.utils import load_image, save_image
+    from fast_neural_style_transfer_tpu_torch.utils.color import (
+        luminance_transfer,
+        match_color,
+    )
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import IMAGENET_MEAN, IMAGENET_STD
+
+    out_path = args.output or "adain_stylized.jpg"
+    dev = resolve_device(device)
+    prec = canonical_compute_dtype(args.precision)
+    exact_f32(dev, prec)
+    vgg = make_vgg(resolve_params(args.vgg_weights), dev)
+    decoder = make_decoder(load_decoder(args.decoder), dev).eval()
+    size = tuple(args.size) if args.size else None
+    content = torch.from_numpy(load_image(args.content_image, size)).to(dev)
+    styles = [pad_to_multiple_reflect(torch.from_numpy(load_image(p, None)).to(dev), 8)[0]
+              for p in args.style_image]
+    if args.preserve_color == "match":
+        styles = [match_color(s, content) for s in styles]
+    # content H, W must divide 8 (VGG pools, decoder ups): reflect-pad up
+    # and crop back
+    content_orig = content
+    content, (h, w) = pad_to_multiple_reflect(content, 8)
+    masks = None
+    if args.style_masks:
+        masks = _masks(args.style_masks, len(styles), (h, w))
+        ph, pw = content.shape[1] - h, content.shape[2] - w
+        if ph or pw:  # mirror the content's pad so mask pixels track it
+            masks = np.pad(masks, ((0, 0), (0, ph), (0, pw)), mode="edge")
+    with torch.inference_mode():
+        out = stylize_arbitrary(decoder, vgg, content, styles, alpha=args.alpha,
+                                style_weights=args.style_blend, style_masks=masks,
+                                precision=prec)[:, :h, :w, :].float()
+        if args.preserve_color == "luma":
+            mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
+            std = torch.as_tensor(IMAGENET_STD, device=dev)
+            out01 = luminance_transfer(out * std + mean, content_orig * std + mean)
+            out = (out01 - mean) / std
+    save_image(out.cpu().numpy(), out_path)
+    print(f"saved {out_path}")
+    return out_path
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.cmd == "export":
+        raise SystemExit("export: the AdaIN ONNX / TorchScript export is not yet "
+                         "ported (ROADMAP row 9)")
+    device = "cpu" if args.cpu else args.device
+
+    if args.cmd == "train":
+        from fast_neural_style_transfer_tpu_torch.train.adain import (
+            AdaINTrainConfig,
+            train_adain,
+        )
+
+        return train_adain(AdaINTrainConfig(
+            content_dir=args.content_dir,
+            style_dir=args.style_dir,
+            output_dir=args.output_dir,
+            vgg_weights=args.vgg_weights,
+            total_steps=args.total_steps,
+            batch_size=args.batch_size,
+            lr=args.lr,
+            lr_decay=args.lr_decay,
+            remat=args.remat,
+            style_weight=args.style_weight,
+            image_size=tuple(args.image_size),
+            precision=args.precision,
+            num_workers=args.num_workers,
+            checkpoint_every=args.checkpoint_every,
+            seed=args.seed,
+            device=device,
+        ))
+
+    # stylize
+    if args.spatial > 1:
+        raise SystemExit("--spatial > 1: spatial sharding is not yet ported "
+                         "(ROADMAP row 15)")
+    if args.data_parallel:
+        raise SystemExit("--data_parallel: multi-card stylization is not yet "
+                         "ported (ROADMAP row 15)")
+    if (args.content_image is None) == (args.content_dir is None):
+        raise SystemExit("pass exactly one of --content_image (single) or "
+                         "--content_dir (bulk)")
+    if args.content_dir is None:
+        return _stylize_one(args, device)
+    if args.preserve_color == "match":
+        raise SystemExit(
+            "--preserve_color match is per-content (it re-colors the style "
+            "pixels) and cannot use the bulk cached-style engine; 'luma' works "
+            "in bulk, or run 'match' per image")
+    if args.style_masks:
+        raise SystemExit("--style_masks applies to single-image mode")
+    from fast_neural_style_transfer_tpu_torch.infer.adain import stylize_directory_arbitrary
+
+    written = stylize_directory_arbitrary(
+        args.decoder, args.content_dir,
+        args.output or args.content_dir.rstrip("/") + "_stylized",
+        args.style_image, style_weights=args.style_blend, alpha=args.alpha,
+        vgg_weights=args.vgg_weights, size=tuple(args.size) if args.size else None,
+        batch_size=args.batch_size, precision=args.precision,
+        skip_bad_images=args.skip_bad_images, preserve_color=args.preserve_color,
+        device=device)
+    done = [w for w in written if w]
+    print(f"stylized {len(done)} images"
+          + (f" ({len(written) - len(done)} skipped)" if len(done) != len(written) else ""))
+    return written
+
+
+if __name__ == "__main__":
+    main()

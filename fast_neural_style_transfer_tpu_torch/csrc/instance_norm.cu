@@ -86,6 +86,22 @@
 //      sample's (scale, shift).
 // x crosses HBM twice where the slab does not fit the 50 MB L2.
 //
+// Capture and inject (video stylization with frozen IN statistics; the JAX
+// package's TransformerNet.apply(return_stats=..., in_stats=...,
+// stats_blend=...)). Capture: either kernel also writes each channel's f32
+// variance (var), the exact value its merge hands to scale_shift. Inject
+// (fnst_instance_norm_fwd_stats): normalize with reference moments instead
+// of x's own, or with blend * ref + (1 - blend) * own. At blend 1 one
+// launch (in_fwd_inject) computes each sample's (scale, shift) from the
+// reference and applies it: no statistics pass, x read once and y written
+// once, the same bytes bound as the plain forward. Below 1 the plain
+// kernels run with the blend folded into their merge (one launch on the
+// one-launch route, two on the two-launch route). The merge and the inject
+// kernel share scale_shift, with every rounding pinned, and apply_chunk, so
+// capture then inject at blend 1 gives the bits of the plain forward on
+// the route the capture took. The two routes' statistics are summed in
+// other orders, so their y may differ in the last bits from each other.
+//
 // Backward (fnst_instance_norm_bwd). Replaces the TPU kernel
 // fast_neural_style_transfer_tpu/ops/pallas_norm.py::_in_bwd_kernel
 // (launched by _pallas_in_backward, VJP _fused_in_bwd). From x, the upstream
@@ -411,18 +427,55 @@ __device__ __forceinline__ void sum_chunks(const float* part_s, int c, int ch,
   }
 }
 
+// One channel's inv = rsqrt(var + eps), scale = inv * gamma and shift =
+// beta - mean * scale, every operation rounded as written (the shift as one
+// fused multiply-add). Every path that normalizes calls it: the statistics
+// kernels' merge and the inject kernel, so that normalizing with captured
+// (mean, var) gives the plain forward's bits (nvcc may otherwise contract
+// the shift differently in two kernels).
+__device__ __forceinline__ void scale_shift(float mean, float var, float eps,
+                                            float gamma, float beta,
+                                            float& inv, float& scale,
+                                            float& shift) {
+  inv = rsqrtf(__fadd_rn(var, eps));
+  scale = __fmul_rn(inv, gamma);
+  shift = __fmaf_rn(-mean, scale, beta);
+}
+
+// The capture and inject modes of the forward (video: frozen statistics).
+// var: (n, c) f32 out, each channel's own biased variance, the exact value
+// scale_shift receives, or nullptr. ref_mean, ref_var: reference moments,
+// sample s's row at s * rstride (rstride 0: one (c,) row for all, or c), or
+// nullptr; with them the kernel normalizes with blend * ref + keep * own
+// (keep = 1 - blend, given by the caller) in place of its own moments.
+struct StatsIO {
+  float* var;
+  const float* ref_mean;
+  const float* ref_var;
+  int rstride;
+  float blend, keep;
+};
+
+// blend * r + keep * v, each product rounded, then the sum.
+__device__ __forceinline__ float blend_moment(float r, float v, float blend,
+                                              float keep) {
+  return __fadd_rn(__fmul_rn(blend, r), __fmul_rn(keep, v));
+}
+
 // Merges one sample's chunk partials part_s (chunks, 2, c) for the channels
 // [c0, c1) and writes their mean, inv, scale (ss_s[ch]) and shift
-// (ss_s[c + ch]), with the sample's affine row gamma_s, beta_s. Thread t
-// takes channel t % width of a group of at most 256 and chunk lane t /
-// width; a lane sums its chunks (sum_chunks: about chunk 0's mean; one-pass:
-// plain sums), and the lanes fold in a fixed tree. red holds 2 * kThreads
-// floats.
+// (ss_s[c + ch]), with the sample's affine row gamma_s, beta_s, and (io) its
+// var, or blends its moments with reference ones first (mean_s and var
+// keep the sample's own moments). Thread t takes channel t % width of a
+// group of at most 256 and chunk lane t / width; a lane sums its chunks
+// (sum_chunks: about chunk 0's mean; one-pass: plain sums), and the lanes
+// fold in a fixed tree. red holds 2 * kThreads floats.
 template <bool kOnePass>
 __device__ __forceinline__ void merge_chunks(
     const float* part_s, float* red, int c0, int c1, int c, int hw, int chunk,
     int chunks, float eps, const float* __restrict__ gamma_s,
-    const float* __restrict__ beta_s, float* mean_s, float* inv_s, float* ss_s) {
+    const float* __restrict__ beta_s, float* mean_s, float* inv_s, float* ss_s,
+    StatsIO io, int s) {
   for (int g0 = c0; g0 < c1; g0 += kThreads) {
     const int width = min(c1 - g0, kThreads);
     const int lanes = kThreads / width;
@@ -450,12 +503,18 @@ __device__ __forceinline__ void merge_chunks(
         mean = k + dm;
         var = fmaxf(s2 - s1 * dm, 0.f) / fhw;
       }
-      const float inv = rsqrtf(var + eps);
-      const float scale = inv * ga;
       mean_s[ch] = mean;
+      if (io.var) io.var[(size_t)s * c + ch] = var;
+      if (io.ref_mean) {
+        const size_t r = (size_t)s * io.rstride + ch;
+        mean = blend_moment(io.ref_mean[r], mean, io.blend, io.keep);
+        var = blend_moment(io.ref_var[r], var, io.blend, io.keep);
+      }
+      float inv, scale, shift;
+      scale_shift(mean, var, eps, ga, be, inv, scale, shift);
       inv_s[ch] = inv;
       ss_s[ch] = scale;
-      ss_s[c + ch] = be - mean * scale;
+      ss_s[c + ch] = shift;
     }
     __syncthreads();
   }
@@ -509,7 +568,7 @@ __global__ void __launch_bounds__(kThreads, 5)
                    float* __restrict__ inv_out, float* __restrict__ part,
                    float* __restrict__ ss, unsigned* __restrict__ counters,
                    int hw, int c, int gstride, int chunk, int chunks,
-                   float eps) {
+                   float eps, StatsIO io) {
   // two lane-sum arrays, which merge_chunks takes as one of 2 * kThreads
   __shared__ __align__(16) float red[2 * kThreads * VEC];
   __shared__ int s_last;
@@ -564,7 +623,8 @@ __global__ void __launch_bounds__(kThreads, 5)
     merge_chunks<kOnePass>(part + (size_t)s * chunks * 2 * c, red, 0, c, c, hw,
                            chunk, chunks, eps, gamma + (size_t)s * gstride,
                            beta + (size_t)s * gstride, mean_out + (size_t)s * c,
-                           inv_out + (size_t)s * c, ss + (size_t)s * 2 * c);
+                           inv_out + (size_t)s * c, ss + (size_t)s * 2 * c, io,
+                           s);
   }
 }
 
@@ -580,6 +640,37 @@ __global__ void __launch_bounds__(kThreads)
                       ss + (size_t)s * 2 * c, relu);
 }
 
+// The inject mode at blend 1 (frozen statistics): block (chunk j, sample s)
+// computes every channel's (scale, shift) from the reference moments of its
+// sample (scale_shift, as the statistics kernels do) into shared memory,
+// then writes y for its chunk (apply_chunk, as in_fwd_apply does). No
+// statistics pass: x is read once and y written once, in one launch. Each
+// block recomputes the C pairs (C <= 512 here), against the chunk's MB.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    in_fwd_inject(const T* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, T* __restrict__ y,
+                  float* __restrict__ inv_out, int hw, int c, int gstride,
+                  int chunk, float eps, int relu, StatsIO io) {
+  extern __shared__ __align__(16) float inject_cst[];  // scale (c), shift (c)
+  const int s = blockIdx.y;
+  const int p0 = blockIdx.x * chunk;
+  for (int ch = threadIdx.x; ch < c; ch += kThreads) {
+    const size_t r = (size_t)s * io.rstride + ch;
+    const size_t a = (size_t)s * gstride + ch;
+    float inv, scale, shift;
+    scale_shift(io.ref_mean[r], io.ref_var[r], eps, gamma[a], beta[a], inv,
+                scale, shift);
+    if (blockIdx.x == 0) inv_out[(size_t)s * c + ch] = inv;
+    inject_cst[ch] = scale;
+    inject_cst[c + ch] = shift;
+  }
+  __syncthreads();
+  const size_t off = ((size_t)s * hw + p0) * c;
+  apply_chunk<T, VEC>(x + off, y + off, min(chunk, hw - p0), c, inject_cst,
+                      relu);
+}
+
 // The one-launch kernel (steps 1-5 in the header). part: (n, chunks, 2, c)
 // chunk partials; ss: (n, 2, c) each sample's (scale, shift); counters:
 // [ticket, published (n), merged (n)], zero at launch. At most 128
@@ -591,7 +682,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                     float* __restrict__ mean_out, float* __restrict__ inv_out,
                     float* __restrict__ part, float* __restrict__ ss,
                     unsigned* __restrict__ counters, int n, int hw, int c,
-                    int gstride, int chunk, int chunks, float eps, int relu) {
+                    int gstride, int chunk, int chunks, float eps, int relu,
+                    StatsIO io) {
   extern __shared__ __align__(16) unsigned char resident_smem_raw[];
   T* xs = reinterpret_cast<T*>(resident_smem_raw);
   float* red = reinterpret_cast<float*>(
@@ -684,7 +776,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                          min(c, c0 + per), c, hw, chunk, chunks, eps,
                          gamma + (size_t)s * gstride,
                          beta + (size_t)s * gstride, mean_out + (size_t)s * c,
-                         inv_out + (size_t)s * c, ss_s);
+                         inv_out + (size_t)s * c, ss_s, io, s);
   __syncthreads();
   if (tid == 0) {
     unsigned* merged = counters + 1 + n + s;
@@ -713,6 +805,8 @@ struct FwdArgs {
   float eps;
   int relu, onepass, is_bf16, vec, resident;
   cudaStream_t stream;
+  StatsIO io;       // capture and inject (all null: the plain forward)
+  int inject_only;  // in_fwd_inject: the reference moments alone (blend 1)
 };
 
 // The first `count` counters to 0, on the kernel's stream (FwdArgs or
@@ -731,7 +825,7 @@ cudaError_t launch_two(const FwdArgs& a) {
   if (err != cudaSuccess) return err;
   in_fwd_partial<T, VEC, kOnePass><<<grid, kThreads, 0, a.stream>>>(
           x, a.gamma, a.beta, a.mean, a.inv, a.work, ss, a.counters, a.hw, a.c,
-          a.gstride, a.chunk, a.chunks, a.eps);
+          a.gstride, a.chunk, a.chunks, a.eps, a.io);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   in_fwd_apply<T, VEC><<<grid, kThreads, 0, a.stream>>>(
@@ -802,13 +896,23 @@ cudaError_t launch_resident(const FwdArgs& a) {
       <<<a.n * a.chunks, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.x), a.gamma, a.beta, static_cast<T*>(a.y), a.mean,
       a.inv, a.work, ss, a.counters, a.n, a.hw, a.c, a.gstride, a.chunk,
-      a.chunks, a.eps, a.relu);
+      a.chunks, a.eps, a.relu, a.io);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t launch_inject(const FwdArgs& a) {
+  const dim3 grid(a.chunks, a.n);
+  in_fwd_inject<T, VEC><<<grid, kThreads, 2 * sizeof(float) * a.c, a.stream>>>(
+      static_cast<const T*>(a.x), a.gamma, a.beta, static_cast<T*>(a.y), a.inv,
+      a.hw, a.c, a.gstride, a.chunk, a.eps, a.relu, a.io);
   return cudaGetLastError();
 }
 
 template <typename T, int VEC, bool kOnePass>
 struct FwdOp {
   static cudaError_t run(const FwdArgs& a) {
+    if (a.inject_only) return launch_inject<T, VEC>(a);
     return a.resident ? launch_resident<T, VEC, kOnePass>(a)
                       : launch_two<T, VEC, kOnePass>(a);
   }
@@ -1351,9 +1455,10 @@ struct BwdCapacityOp {
 
 // x, y: (n, hw, c) NHWC, f32 or bf16 (is_bf16). gamma, beta: f32, sample
 // s's row at s * gstride: one (c,) row for all (gstride 0) or (n, c) rows
-// (gstride c). mean, inv: (n, c) f32 out. work: f32 scratch of (n,
-// chunks, 2, c) chunk partials + (n, 2, c) scale and shift. counters: 1 +
-// 2n unsigned ints, zeroed here.
+// (gstride c). mean, inv: (n, c) f32 out. var: (n, c) f32 out, the
+// variance inv was taken of (capture mode), or null. work: f32 scratch of
+// (n, chunks, 2, c) chunk partials + (n, 2, c) scale and shift. counters:
+// 1 + 2n unsigned ints, zeroed here.
 // chunk: pixels per block; chunks = ceil(hw / chunk). vec: channels per
 // access, 16 / itemsize (c * itemsize a multiple of 16, x and y 16-byte
 // aligned) or 1. resident: the one-launch kernel, which needs chunks <=
@@ -1362,11 +1467,12 @@ struct BwdCapacityOp {
 // success). Allocates nothing.
 extern "C" int fnst_instance_norm_fwd(const void* x, const void* gamma,
                                       const void* beta, void* y, void* mean,
-                                      void* inv, void* work, void* counters,
-                                      int n, int hw, int c, int gstride,
-                                      int chunk, int chunks, float eps, int relu,
-                                      int onepass, int is_bf16, int vec,
-                                      int resident, void* stream) {
+                                      void* inv, void* var, void* work,
+                                      void* counters, int n, int hw, int c,
+                                      int gstride, int chunk, int chunks,
+                                      float eps, int relu, int onepass,
+                                      int is_bf16, int vec, int resident,
+                                      void* stream) {
   if (n < 1 || hw < 1 || c < 1 || chunk < 1 || c % vec != 0 ||
       (gstride != 0 && gstride != c) || chunks != (hw + chunk - 1) / chunk) {
     return cudaErrorInvalidValue;
@@ -1376,8 +1482,47 @@ extern "C" int fnst_instance_norm_fwd(const void* x, const void* gamma,
                   static_cast<float*>(mean), static_cast<float*>(inv),
                   static_cast<float*>(work), static_cast<unsigned*>(counters),
                   n, hw, c, gstride, chunk, chunks, eps, relu, onepass,
-                  is_bf16, vec, resident, static_cast<cudaStream_t>(stream)};
+                  is_bf16, vec, resident, static_cast<cudaStream_t>(stream),
+                  StatsIO{static_cast<float*>(var), nullptr, nullptr, 0, 1.f,
+                          0.f},
+                  0};
   return dispatch<FwdOp>(is_bf16, vec, onepass, a);
+}
+
+// The inject mode: normalizes x with reference moments ref_mean, ref_var
+// (f32, sample s's row at s * rstride: rstride 0 for one (c,) row, c for
+// (n, c) rows), blended with x's own stable moments as blend * ref + keep *
+// own (keep = 1 - blend). route 0: blend 1, the reference moments alone:
+// in_fwd_inject, one launch, no statistics pass (mean, var and work
+// unused; inv written). route 1 (one-launch, in_fwd_resident) or 2
+// (two-launch, in_fwd_partial + in_fwd_apply): the statistics pass as in
+// fnst_instance_norm_fwd, its merge blending; mean and var (if not null)
+// get x's own moments, inv the blended one. Other arguments as for
+// fnst_instance_norm_fwd. Returns the CUDA error code (0 on success).
+extern "C" int fnst_instance_norm_fwd_stats(
+    const void* x, const void* gamma, const void* beta, const void* ref_mean,
+    const void* ref_var, void* y, void* mean, void* inv, void* var, void* work,
+    void* counters, int n, int hw, int c, int gstride, int rstride, int chunk,
+    int chunks, float eps, float blend, float keep, int relu, int is_bf16,
+    int vec, int route, void* stream) {
+  if (n < 1 || hw < 1 || c < 1 || chunk < 1 || c % vec != 0 ||
+      (gstride != 0 && gstride != c) || (rstride != 0 && rstride != c) ||
+      route < 0 || route > 2 || ref_mean == nullptr || ref_var == nullptr ||
+      chunks != (hw + chunk - 1) / chunk) {
+    return cudaErrorInvalidValue;
+  }
+  const FwdArgs a{x, static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), y,
+                  static_cast<float*>(mean), static_cast<float*>(inv),
+                  static_cast<float*>(work), static_cast<unsigned*>(counters),
+                  n, hw, c, gstride, chunk, chunks, eps, relu, 0,
+                  is_bf16, vec, route == 1, static_cast<cudaStream_t>(stream),
+                  StatsIO{static_cast<float*>(var),
+                          static_cast<const float*>(ref_mean),
+                          static_cast<const float*>(ref_var), rstride, blend,
+                          keep},
+                  route == 0};
+  return dispatch<FwdOp>(is_bf16, vec, 0, a);
 }
 
 // Blocks of the one-launch kernel the current device holds at once, for

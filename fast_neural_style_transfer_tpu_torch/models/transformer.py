@@ -21,8 +21,9 @@ NHWC tensor is an NCHW tensor in ``torch.channels_last`` memory format at no
 cost, and every activation stays channels_last: cuDNN runs NHWC and the
 instance-norm kernel sees the physical NHWC layout. Parameters stay float32;
 convs cast them to the compute dtype. Init is PyTorch's default.
-``in_stats="onepass"`` normalizes with one-pass statistics (var = max(E[x^2]
-- mean^2, 0), the JAX package's ``norm_method="onepass"``).
+``norm_method="onepass"`` normalizes with one-pass statistics (var =
+max(E[x^2] - mean^2, 0)), as the JAX package's does; "auto" (the default)
+with the stable ones.
 
 Multi-style (conditional instance norm, the JAX package's ``num_styles``):
 ``TransformerNet(num_styles=S)`` keeps every IN affine as an (S, C) bank
@@ -30,7 +31,16 @@ under the same ``weight``/``bias`` keys, and ``forward(...,
 style_weights=w)`` selects or blends rows: w is (S,) for the whole batch or
 (B, S) per example, applied as ``w @ bank`` (training one-hots a style per
 example). ``bake_style`` collapses a multi-style state_dict into a
-single-style one. IN statistics capture/inject (video) is not ported yet.
+single-style one.
+
+Frozen IN statistics (video, ``infer/video.py``; the JAX package's
+``return_stats`` / ``in_stats`` / ``stats_blend``): ``return_stats=True``
+also returns the 14 sites' f32 (mean, var) pairs, each (N, C, 1, 1);
+passing such a list back as ``in_stats`` (a pair may be (1, C, 1, 1), one
+reference frame for the batch) normalizes with ``stats_blend * ref + (1 -
+stats_blend) * own`` moments. Both run the IN forward kernel's capture and
+inject modes (``ops/norm.py``), so capture then inject at blend 1 is the
+plain forward bit for bit. This path is inference only.
 """
 
 from __future__ import annotations
@@ -43,8 +53,10 @@ from torch import nn
 
 from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
 from fast_neural_style_transfer_tpu_torch.ops import (
+    apply_instance_norm_stats,
     conv_transpose2d,
     instance_norm,
+    instance_norm_stats,
     reflect_conv2d,
 )
 
@@ -92,13 +104,45 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, relu: bool = False,
                 style_weights: Optional[torch.Tensor] = None,
-                onepass: bool = False) -> torch.Tensor:
+                onepass: bool = False,
+                stats: Optional["_SiteStats"] = None) -> torch.Tensor:
         """``style_weights`` (a bank only): (S,) -> a (C,) affine, (N, S) ->
-        an (N, C) affine, one row per sample."""
+        an (N, C) affine, one row per sample. ``stats``: the forward's
+        capture / inject state, which normalizes this site instead."""
         gamma, beta = self.weight, self.bias
         if style_weights is not None:
             gamma, beta = style_weights @ gamma, style_weights @ beta
+        if stats is not None:
+            return stats(x, gamma, beta, relu)
         return instance_norm(x, gamma, beta, relu=relu, onepass=onepass)
+
+
+class _SiteStats:
+    """One forward's frozen-statistics state, called at each IN site in
+    order, as the JAX package's ``inorm``: takes the site's own (mean, var)
+    where they are to be returned (``captured``, else None), and normalizes
+    with them, or with ``ref[site]`` blended by ``blend`` where a reference
+    is given, through ``ops/norm.py``'s ``instance_norm_stats`` (the kernel's
+    capture mode) and ``apply_instance_norm_stats`` (its inject mode). A
+    capture is so two launches a site: it runs once a clip."""
+
+    def __init__(self, ref: Optional[Sequence], blend: float, capture: bool):
+        self.ref = ref
+        self.blend = float(blend)
+        self.captured: Optional[list] = [] if capture else None
+        self.site = 0
+
+    def __call__(self, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 relu: bool) -> torch.Tensor:
+        site, self.site = self.site, self.site + 1
+        if self.captured is not None:
+            self.captured.append(instance_norm_stats(x))
+        if self.ref is None:
+            (mean, var), blend = self.captured[-1], 1.0
+        else:
+            (mean, var), blend = self.ref[site], self.blend
+        return apply_instance_norm_stats(x, mean.to(x.device), var.to(x.device),
+                                         gamma, beta, relu=relu, blend=blend)
 
 
 class ResidualBlock(nn.Module):
@@ -112,7 +156,7 @@ class ResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
                 **norm) -> torch.Tensor:
         """``keep``: an (N, C, 1, 1) bool Dropout2d mask, or None; ``norm``:
-        ``InstanceNorm``'s ``style_weights`` and ``onepass``."""
+        ``InstanceNorm``'s ``style_weights``, ``onepass`` and ``stats``."""
         y = self.in1(self.conv1(x), relu=True, **norm)
         if keep is not None:
             y = torch.where(keep, y / (1.0 - DROPOUT_RATE),
@@ -150,13 +194,22 @@ class TransformerNet(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 dropout: bool = True,
                 style_weights=None,
-                in_stats: str = "stable") -> torch.Tensor:
+                norm_method: str = "auto",
+                in_stats: Optional[Sequence] = None,
+                stats_blend: float = 1.0,
+                return_stats: bool = False):
         """NHWC in, NHWC out (same dtype). H and W must be multiples of 4
         for an exact round trip. Dropout runs in training mode with
         ``dropout``, its masks drawn from ``generator`` (None: the default
         generator of x's device). ``style_weights``: (S,) or (B, S), needed
         by a multi-style net and refused by a single-style one.
-        ``in_stats``: "stable" or "onepass" IN statistics."""
+        ``norm_method``: "auto" (stable) or "onepass" IN statistics.
+        ``return_stats``: also return the list of the 14 sites' (mean, var),
+        -> (out, stats). ``in_stats``: such a list, to normalize with
+        ``stats_blend * ref + (1 - stats_blend) * own`` moments. Both take
+        stable statistics and no gradient. Each site runs one inject
+        launch, and one capture launch more where ``return_stats`` is set:
+        a second pass over its input."""
         multi = self.num_styles > 1
         if multi and style_weights is None:
             raise ValueError(
@@ -164,12 +217,30 @@ class TransformerNet(nn.Module):
                 "style_weights — or bake_style() them first")
         if not multi and style_weights is not None:
             raise ValueError("style_weights given but params are single-style")
-        if in_stats not in ("stable", "onepass"):
-            raise ValueError(f"unknown in_stats {in_stats!r}")
+        if norm_method not in ("auto", "onepass"):
+            raise ValueError(f"unknown norm_method {norm_method!r}")
+        if in_stats is not None and len(in_stats) != NUM_IN_SITES:
+            raise ValueError(
+                f"in_stats has {len(in_stats)} entries; this net has "
+                f"{NUM_IN_SITES} IN sites (capture with return_stats=True)")
+        stats = None
+        if in_stats is not None or return_stats:
+            if norm_method == "onepass":
+                raise ValueError(
+                    "norm_method='onepass' cannot be combined with in_stats/"
+                    "return_stats: the stats path uses stable statistics")
+            if not 0.0 <= stats_blend <= 1.0:
+                raise ValueError(f"stats_blend must be in [0, 1], got {stats_blend}")
+            if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+                raise RuntimeError(
+                    "in_stats/return_stats run inference only: call under "
+                    "torch.no_grad() or torch.inference_mode()")
+            stats = _SiteStats(in_stats, stats_blend, return_stats)
         if multi:
             style_weights = torch.as_tensor(style_weights, dtype=torch.float32,
                                             device=x.device)
-        norm = {"style_weights": style_weights, "onepass": in_stats == "onepass"}
+        norm = {"style_weights": style_weights, "onepass": norm_method == "onepass",
+                "stats": stats}
         in_dtype = x.dtype
         h = x.permute(0, 3, 1, 2).to(precision.compute_dtype)
         h = h.contiguous(memory_format=torch.channels_last)
@@ -185,8 +256,10 @@ class TransformerNet(nn.Module):
             h = block(h, keep, **norm)
         h = self.norm3(self.up1(h), relu=True, **norm)
         h = self.norm4(self.up2(h), relu=True, **norm)
-        out = self.final_conv(h)
-        return out.permute(0, 2, 3, 1).to(in_dtype)
+        out = self.final_conv(h).permute(0, 2, 3, 1).to(in_dtype)
+        if return_stats:
+            return out, stats.captured
+        return out
 
 
 def num_styles(state_dict: Mapping[str, torch.Tensor]) -> int:

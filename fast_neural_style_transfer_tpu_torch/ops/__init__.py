@@ -14,6 +14,8 @@ from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import (
 )
 from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
     InstanceNormFn,
+    instance_norm_apply_stats,
+    instance_norm_apply_stats_reference,
     instance_norm_bwd,
     instance_norm_bwd_reference,
     instance_norm_fwd,
@@ -38,6 +40,8 @@ __all__ = [
     "conv_transpose2d",
     "gram_matrix",
     "instance_norm",
+    "instance_norm_apply_stats",
+    "instance_norm_apply_stats_reference",
     "instance_norm_bwd",
     "instance_norm_bwd_reference",
     "instance_norm_fwd",

@@ -19,12 +19,19 @@ instance norm: multi-style training conditions each example on its own
 style; the JAX package sends that shape to XLA, the port's kernels read it
 per sample). ``mean`` and ``inv`` come back as (N, C) float32, and so do the
 per-sample ``dgamma`` and ``dbeta``.
+
+The forward has two more modes (video's frozen statistics): capture
+(``instance_norm_fwd(capture=True)`` also returns the (N, C) f32 var the
+kernel normalized with) and inject (``instance_norm_apply_stats``: normalize
+with reference moments, or a blend of them with x's own). Both share the
+kernel's scale/shift and apply code, so capture then inject at blend 1 is
+the plain forward bit for bit. ``launches_by_mode`` counts them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,6 +56,7 @@ class _Lib(NamedTuple):
     """The library's entry points."""
 
     fwd: Callable
+    fwd_stats: Callable
     bwd: Callable
     fwd_capacity: Callable
     bwd_capacity: Callable
@@ -59,10 +67,15 @@ def _kernels() -> _Lib:
     if _fns is None:
         lib = _build.load("instance_norm")
         fwd = lib.fnst_instance_norm_fwd
-        fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                         + [ctypes.c_float] + [ctypes.c_int] * 5
                         + [ctypes.c_void_p])
         fwd.restype = ctypes.c_int
+        fwd_stats = lib.fnst_instance_norm_fwd_stats
+        fwd_stats.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                              + [ctypes.c_float] * 3 + [ctypes.c_int] * 4
+                              + [ctypes.c_void_p])
+        fwd_stats.restype = ctypes.c_int
         bwd = lib.fnst_instance_norm_bwd
         bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                         + [ctypes.c_void_p])
@@ -73,7 +86,7 @@ def _kernels() -> _Lib:
         bwd_cap = lib.fnst_instance_norm_bwd_capacity
         bwd_cap.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
         bwd_cap.restype = ctypes.c_int
-        _fns = _Lib(fwd, bwd, fwd_cap, bwd_cap)
+        _fns = _Lib(fwd, fwd_stats, bwd, fwd_cap, bwd_cap)
     return _fns
 
 
@@ -95,20 +108,29 @@ def instance_norm_fwd_reference(
     eps: float = 1e-5,
     relu: bool = False,
     onepass: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    capture: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the kernel: same outputs, f32 statistics;
     gamma and beta (C,) or (N, C). ``onepass`` selects var = max(E[x^2] -
     mean^2, 0) (the TPU kernel's arithmetic) over the two-pass variance
-    around the mean."""
+    around the mean. ``capture``: also return the (N, C) f32 var."""
     xf = x.float()
     mean, var = _moments(xf, onepass)
+    y, inv = _normalize(xf, mean, var, gamma, beta, eps=eps, relu=relu)
+    y = y.to(x.dtype)
+    return (y, mean, inv, var) if capture else (y, mean, inv)
+
+
+def _normalize(xf, mean, var, gamma, beta, *, eps: float, relu: bool):
+    """y = x * scale + shift (+ReLU) in f32 from (N or 1, C) moments, the
+    kernels' arithmetic (``scale_shift``, ``apply_chunk``) -> (y, inv)."""
     inv = torch.rsqrt(var + eps)
     scale = inv * gamma.float()
     shift = beta.float() - mean * scale
     y = xf * scale[:, :, None, None] + shift[:, :, None, None]
     if relu:
         y = torch.relu(y)
-    return y.to(x.dtype), mean, inv
+    return y, inv
 
 
 def _num_chunks(n: int, hw: int, tiles: int) -> int:
@@ -234,21 +256,24 @@ def instance_norm_fwd(
     eps: float = 1e-5,
     relu: bool = False,
     onepass: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    capture: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Instance norm + affine (+ReLU) -> (y, mean, inv); gamma, beta (C,)
-    or (N, C).
+    or (N, C). ``capture``: also return the (N, C) f32 var that inv was
+    taken of, -> (y, mean, inv, var); with ``instance_norm_apply_stats`` at
+    blend 1 those moments give y's bits again.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     that ``plan_fwd`` picks, or raises: wrong dtype or layout, a failed
     build or a failed launch. Gradients go through ``InstanceNormFn``."""
     if x.device.type == "cpu":
         return instance_norm_fwd_reference(
-            x, gamma, beta, eps=eps, relu=relu, onepass=onepass)
+            x, gamma, beta, eps=eps, relu=relu, onepass=onepass, capture=capture)
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm_fwd runs on cuda or cpu, not {x.device}")
     _check(x, gamma, beta)
     return _launch_fwd(x, gamma, beta, fwd_plan(x, onepass=onepass), eps=eps,
-                       relu=relu, onepass=onepass)
+                       relu=relu, onepass=onepass, capture=capture)
 
 
 def fwd_plan(x: torch.Tensor, *, onepass: bool = False,
@@ -275,43 +300,156 @@ def _count_affine(fn, gstride: int) -> None:
     fn.launches_by_affine["sample" if gstride else "channel"] += 1
 
 
-def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                plan: FwdPlan, *, eps: float, relu: bool,
-                onepass: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One forward call on the card as ``plan`` says (x already checked)."""
+def _fwd_buffers(x: torch.Tensor, plan: FwdPlan):
+    """y, mean, inv, var and the scratch of one forward call."""
     n, c, h, w = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
     mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
     inv = torch.empty_like(mean)
+    var = torch.empty_like(mean)
     # chunk partials (n, G, 2, c), then each sample's (scale, shift) (n, 2, c)
     work = torch.empty((n * plan.chunks + n) * 2 * c, dtype=torch.float32,
                        device=x.device)
     # the ticket counter, then per sample its arrivals and its flag (the C
     # call zeroes them)
     counters = torch.empty(1 + 2 * n, dtype=torch.int32, device=x.device)
+    return y, mean, inv, var, work, counters
+
+
+def _count_fwd(route: str, mode: str, gstride: int) -> None:
+    instance_norm_fwd.launches += 1
+    instance_norm_fwd.launches_by_route[route] += 1
+    instance_norm_fwd.launches_by_mode[mode] += 1
+    _count_affine(instance_norm_fwd, gstride)
+
+
+def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                plan: FwdPlan, *, eps: float, relu: bool, onepass: bool,
+                capture: bool = False) -> Tuple[torch.Tensor, ...]:
+    """One forward call on the card as ``plan`` says (x already checked)."""
+    n, c, h, w = x.shape
+    y, mean, inv, var, work, counters = _fwd_buffers(x, plan)
     g, b, gstride = _affine_rows(gamma, beta, c)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernels().fwd(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
-        mean.data_ptr(), inv.data_ptr(), work.data_ptr(),
-        counters.data_ptr(), n, h * w, c, gstride, plan.chunk, plan.chunks,
-        float(eps),
+        mean.data_ptr(), inv.data_ptr(), var.data_ptr() if capture else None,
+        work.data_ptr(), counters.data_ptr(), n, h * w, c, gstride, plan.chunk,
+        plan.chunks, float(eps),
         int(relu), int(onepass), int(x.dtype == torch.bfloat16), plan.vec,
         int(plan.route == "one_launch"), stream)
     if err != 0:
         raise RuntimeError(f"instance-norm kernel launch failed: CUDA error {err} "
                            f"({plan})")
-    instance_norm_fwd.launches += 1
-    instance_norm_fwd.launches_by_route[plan.route] += 1
-    _count_affine(instance_norm_fwd, gstride)
-    return y, mean, inv
+    _count_fwd(plan.route, "capture" if capture else "plain", gstride)
+    return (y, mean, inv, var) if capture else (y, mean, inv)
 
 
-# calls that launched a forward kernel: in all, by route, and by affine
-# ("channel": one (C,) row; "sample": an (N, C) row per sample)
+# calls that launched a forward kernel: in all, by route ("inject": the
+# blend-1 inject kernel), by affine ("channel": one (C,) row; "sample": an
+# (N, C) row per sample) and by mode ("plain"; "capture": var written too;
+# "inject": reference moments)
 instance_norm_fwd.launches = 0
-instance_norm_fwd.launches_by_route = {"one_launch": 0, "two_launch": 0}
+instance_norm_fwd.launches_by_route = {"one_launch": 0, "two_launch": 0, "inject": 0}
 instance_norm_fwd.launches_by_affine = {"channel": 0, "sample": 0}
+instance_norm_fwd.launches_by_mode = {"plain": 0, "capture": 0, "inject": 0}
+
+
+def _ref_rows(ref: torch.Tensor, n: int, c: int, name: str) -> Tuple[torch.Tensor, int]:
+    """A (1, C) or (N, C) reference moment (any shape that flattens to it,
+    such as (1, C, 1, 1)) as contiguous float32 (R, C) rows, and the row
+    stride of the kernel: 0 for one row, C for N."""
+    rows = ref.detach().to(torch.float32).reshape(-1, c) if ref.numel() % c == 0 else None
+    if rows is None or rows.shape[0] not in (1, n):
+        raise ValueError(f"{name} of shape {tuple(ref.shape)} is neither (1, {c}) "
+                         f"nor ({n}, {c})")
+    return rows.contiguous(), (0 if rows.shape[0] == 1 else c)
+
+
+def instance_norm_apply_stats_reference(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    ref_mean: torch.Tensor,
+    ref_var: torch.Tensor,
+    *,
+    blend: float = 1.0,
+    relu: bool = False,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the inject kernel -> (y, own mean, own var)
+    ((N, C) f32; None at blend 1, where no statistics are taken): moments
+    blend * ref + (1 - blend) * own (stable), then the forward's scale and
+    shift. At blend 1 with a capture's moments this is the plain forward's
+    arithmetic on the same numbers."""
+    n, c = x.shape[:2]
+    rm, _ = _ref_rows(ref_mean, n, c, "ref_mean")
+    rv, _ = _ref_rows(ref_var, n, c, "ref_var")
+    xf = x.float()
+    mean = var = None
+    if blend == 1.0:
+        m, v = rm, rv
+    else:
+        mean, var = _moments(xf, False)
+        keep = 1.0 - blend
+        m = blend * rm + keep * mean
+        v = blend * rv + keep * var
+    y, _ = _normalize(xf, m, v, gamma, beta, eps=eps, relu=relu)
+    return y.to(x.dtype), mean, var
+
+
+def instance_norm_apply_stats(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    ref_mean: torch.Tensor,
+    ref_var: torch.Tensor,
+    *,
+    blend: float = 1.0,
+    relu: bool = False,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The inject mode: instance norm + affine (+ReLU) of x with the moments
+    blend * ref + (1 - blend) * x's own (stable statistics, f32), ->
+    (y, own mean, own var) (None, None at blend 1). ``ref_mean``, ``ref_var``:
+    (1, C) for one reference for the batch, or (N, C) (or shapes that
+    flatten to them, such as a capture's (1, C, 1, 1)); gamma, beta (C,) or
+    (N, C).
+
+    A CPU tensor takes the plain version. A CUDA tensor launches, or raises:
+    at blend 1 the inject kernel (one launch, no statistics pass, route
+    "inject"); below it the forward's own kernel as ``plan_fwd`` routes it,
+    its merge blending (one launch on "one_launch", two on "two_launch")."""
+    if not 0.0 <= blend <= 1.0:
+        raise ValueError(f"blend must be in [0, 1], got {blend}")
+    if x.device.type == "cpu":
+        return instance_norm_apply_stats_reference(
+            x, gamma, beta, ref_mean, ref_var, blend=blend, relu=relu, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"instance_norm_apply_stats runs on cuda or cpu, not {x.device}")
+    _check(x, gamma, beta)
+    n, c, h, w = x.shape
+    rm, rstride = _ref_rows(ref_mean, n, c, "ref_mean")
+    rv, vstride = _ref_rows(ref_var, n, c, "ref_var")
+    if rstride != vstride or rm.device != x.device or rv.device != x.device:
+        raise ValueError("ref_mean and ref_var must have the same rows, on x's device")
+    own = blend != 1.0
+    plan = fwd_plan(x, one_launch=own)
+    route = ("inject", 0) if not own else (plan.route, 1 if plan.route == "one_launch" else 2)
+    y, mean, inv, var, work, counters = _fwd_buffers(x, plan)
+    g, b, gstride = _affine_rows(gamma, beta, c)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernels().fwd_stats(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), rm.data_ptr(), rv.data_ptr(),
+        y.data_ptr(), mean.data_ptr(), inv.data_ptr(), var.data_ptr(),
+        work.data_ptr(), counters.data_ptr(), n, h * w, c, gstride, rstride,
+        plan.chunk, plan.chunks, float(eps), float(blend), float(1.0 - blend),
+        int(relu), int(x.dtype == torch.bfloat16), plan.vec, route[1], stream)
+    if err != 0:
+        raise RuntimeError(f"instance-norm inject kernel launch failed: CUDA error "
+                           f"{err} ({plan}, blend {blend})")
+    _count_fwd(route[0], "inject", gstride)
+    return (y, mean, var) if own else (y, None, None)
 
 
 def instance_norm_bwd_reference(

@@ -11,6 +11,8 @@ Endpoints:
 
 Run:  python -m fast_neural_style_transfer_tpu_torch.serve \\
           --model evidence/soak40k_r5/style_transfer_final.pth --port 8765
+      python -m fast_neural_style_transfer_tpu_torch.serve \\
+          --adain-decoder adain_decoder_final.npz --style painting.jpg --alpha 0.8
 """
 
 from __future__ import annotations
@@ -182,6 +184,36 @@ def make_server(
                          device=_device_name(device), size=size)
 
 
+def _build_forward(args, device: str) -> tuple:
+    """Resolve the flags to (stylize_u8 callable, family label, device)."""
+    if args.adain_decoder:
+        if not args.style:
+            raise SystemExit("--adain-decoder needs --style <image>")
+        if args.precision == "int8":
+            raise SystemExit("--precision int8 serves the flagship family only "
+                             "(and is not yet ported)")
+        from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
+        from fast_neural_style_transfer_tpu_torch.models.adain import load_decoder
+        from fast_neural_style_transfer_tpu_torch.models.vgg_weights import resolve_params
+        from fast_neural_style_transfer_tpu_torch.utils.image_io import decode_image
+
+        sty = ArbitraryStylizer(
+            load_decoder(args.adain_decoder), resolve_params(args.vgg_weights),
+            precision=args.precision, preserve_color=args.preserve_color,
+            device=device)
+        sty.set_style_u8(decode_image(args.style))
+        alpha = args.alpha
+        return (lambda b: sty.stylize_u8(b, alpha=alpha)), "adain", sty.device
+    if not args.model:
+        raise SystemExit("pass --model <checkpoint>, or --adain-decoder + --style")
+    from fast_neural_style_transfer_tpu_torch.infer.stylize import Stylizer
+
+    sty = Stylizer.from_checkpoint(
+        args.model, style=args.style_index, precision=args.precision,
+        preserve_color=args.preserve_color, device=device)
+    return sty.stylize_u8, "flagship", sty.device
+
+
 def main(argv: Optional[list] = None) -> None:
     p = argparse.ArgumentParser(
         prog="fnst-serve",
@@ -190,7 +222,12 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--style_index", type=int, default=None,
                    help="which trained style of a multi-style checkpoint "
                         "to serve")
-    p.add_argument("--adain-decoder", help="AdaIN decoder (not yet ported)")
+    p.add_argument("--adain-decoder", help="AdaIN decoder checkpoint (.npz/.pth)")
+    p.add_argument("--style", help="style image for --adain-decoder")
+    p.add_argument("--alpha", type=float, default=1.0,
+                   help="AdaIN stylization strength")
+    p.add_argument("--vgg_weights", default=None,
+                   help="VGG19 weights (.npz/.pth) for the AdaIN encoder")
     p.add_argument("--precision", default="bf16", choices=["f32", "bf16", "int8"],
                    help="serving compute dtype (int8 is not yet ported)")
     p.add_argument("--preserve_color", default="off", choices=["off", "luma"])
@@ -210,23 +247,13 @@ def main(argv: Optional[list] = None) -> None:
                    help="serve on the CPU (same as --device cpu)")
     args = p.parse_args(argv)
 
-    if args.adain_decoder:
-        raise SystemExit("--adain-decoder: AdaIN serving is not yet ported")
     if args.data_parallel:
         raise SystemExit("--data_parallel: multi-card serving is not yet ported")
-    if not args.model:
-        raise SystemExit("pass --model <checkpoint>")
-    device = "cpu" if args.cpu else args.device
-
-    from fast_neural_style_transfer_tpu_torch.infer.stylize import Stylizer
-
-    sty = Stylizer.from_checkpoint(
-        args.model, style=args.style_index, precision=args.precision,
-        preserve_color=args.preserve_color, device=device)
+    forward, family, device = _build_forward(args, "cpu" if args.cpu else args.device)
     # warm the canonical bucket at every batch size the batcher can form
     # (kernel build, cuDNN handles and plans) before traffic
     srv = make_server(
-        sty.stylize_u8, family="flagship", device=sty.device,
+        forward, family=family, device=device,
         host=args.host, port=args.port, size=args.size,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         max_pending=args.max_pending,
@@ -242,7 +269,7 @@ def main(argv: Optional[list] = None) -> None:
 
     signal.signal(signal.SIGTERM, _term)
 
-    print(f"fnst-serve: flagship model on http://{host}:{port} "
+    print(f"fnst-serve: {family} model on http://{host}:{port} "
           f"({srv.device}, max_batch={args.max_batch}, "
           f"wait={args.max_wait_ms} ms)", flush=True)
     try:

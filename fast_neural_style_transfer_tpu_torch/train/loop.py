@@ -190,7 +190,7 @@ def train_style_transfer(cfg: TrainConfig) -> str:
             tv=cfg.tv_weight, decay_every=cfg.weight_decay_every),
         precision=prec, lr=cfg.lr, total_steps=cfg.total_steps,
         grad_accum=cfg.grad_accum, remat=cfg.remat, num_styles=styles,
-        in_stats=cfg.in_stats)
+        norm_method="onepass" if cfg.in_stats == "onepass" else "auto")
     eval_forward = make_eval_forward(precision=prec)
 
     dataset = ImageFolderDataset(cfg.dataset_dir, cfg.image_size, seed=cfg.seed)

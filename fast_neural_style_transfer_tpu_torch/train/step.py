@@ -17,7 +17,7 @@ Semantics kept from the JAX step:
   and picks each example's row of the (S, c, c) Gram banks. The draw comes
   from the step's ``torch.Generator`` (JAX's from its key: the two cannot
   match, so parity runs pass ``style_select`` in);
-- ``in_stats="onepass"``: one-pass IN statistics in the stylizer (JAX
+- ``norm_method="onepass"``: one-pass IN statistics in the stylizer (JAX
   ``norm_method="onepass"``).
 
 On the card the stylizer's 14 instance norms run the IN forward and
@@ -80,13 +80,14 @@ def loss_fn(
     remat: bool = False,
     batch_mask: Optional[torch.Tensor] = None,
     style_select: Optional[torch.Tensor] = None,
-    in_stats: str = "stable",
+    norm_method: str = "auto",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted perceptual loss of one batch -> (total, metrics).
 
     ``style_select`` (multi-style only): (B, S) rows pairing each example
     with a style, for the stylizer's IN affines and the Gram banks alike.
-    ``in_stats``: the stylizer's IN statistics, "stable" or "onepass".
+    ``norm_method``: the stylizer's IN statistics, "auto" (stable) or
+    "onepass".
     ``remat``: recompute the stylizer and the stylized-branch VGG in the
     backward (``torch.utils.checkpoint``) instead of keeping their
     activations; the dropout generator is rewound for the recomputation, so
@@ -103,7 +104,7 @@ def loss_fn(
         if gen_state is not None:
             generator.set_state(gen_state)
         out = net(b, precision, generator=generator, dropout=dropout,
-                  style_weights=style_select, in_stats=in_stats)
+                  style_weights=style_select, norm_method=norm_method)
         return torch.clamp(out, -ACTIVATION_CLAMP, ACTIVATION_CLAMP)
 
     def vgg_fwd(s):
@@ -143,7 +144,7 @@ def make_train_step(
     remat: bool = False,
     dropout: bool = True,
     num_styles: int = 1,
-    in_stats: str = "stable",
+    norm_method: str = "auto",
 ) -> Callable:
     """Build ``step(state, vgg, batch, style_grams, generator=None,
     batch_mask=None, style_select=None) -> metrics``, which updates
@@ -169,7 +170,7 @@ def make_train_step(
             state.net, vgg, batch, style_grams, weight_schedule(applied_step),
             taps=taps, precision=precision, generator=generator,
             dropout=dropout, remat=remat, batch_mask=batch_mask,
-            style_select=style_select, in_stats=in_stats)
+            style_select=style_select, norm_method=norm_method)
         grads = torch.autograd.grad(total, params)
         finite = bool(torch.isfinite(total))
         if finite:

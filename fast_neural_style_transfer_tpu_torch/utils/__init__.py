@@ -1,4 +1,4 @@
-from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
+from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer, match_color
 from fast_neural_style_transfer_tpu_torch.utils.image_io import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -20,6 +20,7 @@ __all__ = [
     "denormalize_image",
     "load_image",
     "luminance_transfer",
+    "match_color",
     "network_to_u8",
     "normalize_image",
     "resize_image",

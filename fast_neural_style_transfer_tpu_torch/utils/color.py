@@ -1,5 +1,12 @@
-"""Colour control: keep the stylized luminance and take the chrominance
-from the content, in YIQ (Gatys et al. colour control, option 2)."""
+"""Colour control (the JAX package's ``utils/color.py``):
+
+- ``match_color``: map the style image's pixels so their RGB mean and
+  covariance equal the content's (the AdaIN paper's §7.2), before encoding
+  the style;
+- ``luminance_transfer``: keep the stylized luminance and take the
+  chrominance from the content, in YIQ (Gatys et al. colour control,
+  option 2), after stylizing.
+"""
 
 from __future__ import annotations
 
@@ -34,3 +41,34 @@ def luminance_transfer(stylized: torch.Tensor, content: torch.Tensor) -> torch.T
     y = (y_s - mu_s) / sd_s * sd_c + mu_c
     out = torch.cat([y, c[..., 1:]], dim=-1) @ yiq2rgb.T
     return out.to(stylized.dtype)
+
+
+def _mean_cov(x: torch.Tensor, eps: float):
+    """Per-image RGB mean (B, 1, 3) and covariance (B, 3, 3) over H*W."""
+    flat = x.reshape(x.shape[0], -1, 3).float()
+    mean = flat.mean(dim=1, keepdim=True)
+    centered = flat - mean
+    cov = centered.transpose(1, 2) @ centered / centered.shape[1]
+    return flat, mean, cov + eps * torch.eye(3, device=x.device)
+
+
+def _cov_sqrt(cov: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Symmetric (inverse) square root of a batch of SPD 3x3 matrices."""
+    vals, vecs = torch.linalg.eigh(cov)
+    vals = torch.clamp(vals, min=1e-12)
+    d = 1.0 / torch.sqrt(vals) if inverse else torch.sqrt(vals)
+    return (vecs * d[:, None, :]) @ vecs.transpose(1, 2)
+
+
+def match_color(source: torch.Tensor, target: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """Affine-map ``source``'s pixels so their RGB mean and covariance equal
+    ``target``'s (whitening, then colouring). NHWC in and out, dtype kept;
+    ``target`` may differ in H, W, or have a batch of 1."""
+    if source.dim() != 4 or target.dim() != 4:
+        raise ValueError("match_color expects NHWC batches")
+    s_flat, s_mean, s_cov = _mean_cov(source, eps)
+    _, t_mean, t_cov = _mean_cov(target, eps)
+    a = _cov_sqrt(t_cov) @ _cov_sqrt(s_cov, inverse=True)
+    out = (s_flat - s_mean) @ a.transpose(1, 2) + t_mean
+    return out.reshape(source.shape).to(source.dtype)

@@ -288,12 +288,13 @@ def test_multi_style_grads_match_jax(step_setup):
 
 
 def test_onepass_grads_match_jax(step_setup):
-    """in_stats="onepass" against JAX's norm_method="onepass", single-style."""
+    """norm_method="onepass" against JAX's norm_method="onepass", single-style."""
     s = step_setup
     params = _distinct_banks(jax.tree.map(np.asarray, jtr.TransformerNet.init(
         jax.random.PRNGKey(7))), seed=2)
     want = _jax_grads(s, params, _jax_grams(s, s["styles"][0]), norm_method="onepass")
-    got = _port_grads(s, params, 1, _port_grams(s, s["styles"][0]), in_stats="onepass")
+    got = _port_grads(s, params, 1, _port_grams(s, s["styles"][0]),
+                     norm_method="onepass")
     _assert_grads_close(got, want)
 
 

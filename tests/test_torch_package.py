@@ -368,3 +368,47 @@ def test_per_sample_affine_kernels_match_plain_on_card(dtype, case):
             outs[kind] = fwd + bwd
         assert all(torch.equal(_bits(a), _bits(b))
                    for a, b in zip(outs["rows"], outs["channel"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ref_rows", ["one", "per_sample"])
+def test_capture_inject_kernels_on_card(dtype, ref_rows):
+    """The IN forward's capture and inject modes at the 256^2 sites (B=1,
+    one launch) and the large slab (two launches): capture returns the
+    plain call's y, mean, inv bits and var against the plain version (1e-4
+    relative); inject at blend 1 with the captured moments gives the plain
+    forward's y bit for bit (the inject kernel, one launch); at blend 0.5
+    against a (1, C) or (N, C) reference it matches the plain inject within
+    the forward's tolerances. Counted by mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=1 / 128, atol=1e-2)
+    for n, h, w, c, relu in _SITES[:4] + _SITES[-1:]:
+        n = max(n, 2)
+        x, g, b = _site_inputs(rng, n, h, w, c, dt)
+        refs = 1 if ref_rows == "one" else n
+        ref_m = torch.from_numpy(rng.standard_normal((refs, c)).astype(np.float32)).cuda()
+        ref_v = torch.from_numpy(rng.random((refs, c)).astype(np.float32) + 0.5).cuda()
+        before = dict(cuda_norm.instance_norm_fwd.launches_by_mode)
+        with torch.inference_mode():
+            y0, m0, i0 = cuda_norm.instance_norm_fwd(x, g, b, relu=relu)
+            y1, m1, i1, v1 = cuda_norm.instance_norm_fwd(x, g, b, relu=relu, capture=True)
+            y2, _, _ = cuda_norm.instance_norm_apply_stats(x, g, b, m1, v1, relu=relu)
+            yb, mb, vb = cuda_norm.instance_norm_apply_stats(x, g, b, ref_m, ref_v,
+                                                             blend=0.5, relu=relu)
+            torch.cuda.synchronize()
+            _, _, _, v_r = cuda_norm.instance_norm_fwd_reference(
+                x.float(), g, b, relu=relu, capture=True)
+            yb_r, mb_r, vb_r = cuda_norm.instance_norm_apply_stats_reference(
+                x.float(), g, b, ref_m, ref_v, blend=0.5, relu=relu)
+        assert all(torch.equal(_bits(p), _bits(q)) for p, q in
+                   ((y0, y1), (m0, m1), (i0, i1), (y0, y2)))
+        torch.testing.assert_close(v1, v_r, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(yb.float(), yb_r, **tol)
+        torch.testing.assert_close(mb, mb_r, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(vb, vb_r, rtol=1e-4, atol=1e-6)
+        after = cuda_norm.instance_norm_fwd.launches_by_mode
+        assert [after[k] - before[k] for k in ("plain", "capture", "inject")] == [1, 1, 2]

@@ -159,7 +159,8 @@ def test_http_round_trip_on_cpu():
     assert not t.is_alive()
 
 
-@pytest.mark.parametrize("flags", [["--adain-decoder", "d.npz"], ["--data_parallel"],
+@pytest.mark.parametrize("flags", [["--adain-decoder", "d.npz", "--style", "s.jpg",
+                                    "--precision", "int8"], ["--data_parallel"],
                                    ["--precision", "int8"]])
 def test_serve_cli_unported_flags_raise(flags, tmp_path):
     ckpt = str(tmp_path / "m.pth")
