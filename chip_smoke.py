@@ -31,19 +31,34 @@ before and read just after:
   and the tap-packed conv1_1 dx each step), step times, one step on the
   card against the CPU, ArbitraryStylizer against the CPU, and
   fnst-serve --adain-decoder in its own process answering concurrent
-  requests.
+  requests;
+- export (slice 9): the export CLI on the trained checkpoint (ONNX static
+  and dynamic, TorchScript, .pth, hub directory), the ONNX runtime (the IN
+  forward kernel at its 14 InstanceNormalization nodes) and the archive on
+  the card against the f32 Stylizer, and the AdaIN exports against
+  ArbitraryStylizer;
+- int8 (slice 9): the int8 Stylizer (the IN forward kernel at 14 sites)
+  against its CPU path with dynamic and calibrated scales at batch 1 and 8,
+  the inference CLI and fnst-serve --precision int8, and its times beside
+  f32 and bf16, split by stage.
 Last it times the kernels, their plain versions and the library ops, the
 training step (single-style, 4-style and one-pass), and the IN forward and
 backward at three chunk budgets each. Every phase
 prints one JSON line; any failure exits non-zero. The line before the
 last lists the kernels; the last line is ``{"ok": true, "device":
 {...}}``. ``--phases`` runs a subset (the build always runs), for
-iterating; the kernels line needs all phases.
+iterating; the kernels line needs all phases. ``--phases
+int8_sensitivity`` (not in ``all``) records how far the CPU int8 path
+moves when its IN outputs move one ulp, and ``--phases
+train_parity_sensitivity`` how far the training step's grad norm moves
+with f64 IN statistics on the CPU and with cuDNN's algorithm choice on
+the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import http.client
 import io
 import json
@@ -1032,6 +1047,24 @@ def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2,
             cpu(net.parameters()), state.step)
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms and cuDNN's deterministic
+    convolutions, restored on exit."""
+    import torch
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic = was[2]
+
+
 def _param_names(styles: int):
     from fast_neural_style_transfer_tpu_torch.models import TransformerNet
 
@@ -1052,10 +1085,20 @@ def phase_train_parity(seed: int, variant: str = "single_style", styles: int = 1
     last bits of g (du/dg = 1e-8 / (|g| + 1e-8)^2). So every element within
     2 lr (the most two updates can differ), and every element whose
     effective gradient is at least 1e-4 on the CPU (where du/dg <= 1)
-    within 1e-3 lr."""
+    within 1e-3 lr.
+
+    The card's step runs with PyTorch's deterministic algorithms (cuDNN's
+    among them), so that it repeats bit for bit. Under cuDNN's default
+    choice the convolution algorithm follows the card's free memory, and
+    the grad norm moved by up to 7e-5 relative from run to run with
+    one-pass statistics (1e-5 stable): the step is ill-conditioned in its
+    IN statistics (on the CPU, f64 statistics move the grad norm 1.2e-4
+    from the f32 ones), so an f32 summation order decides its fifth
+    digit."""
     lr = 1e-3
-    card = _one_train_step("cuda", seed, batch=batch, styles=styles,
-                           norm_method=norm_method)
+    with deterministic_algorithms():
+        card = _one_train_step("cuda", seed, batch=batch, styles=styles,
+                               norm_method=norm_method)
     cpu = _one_train_step("cpu", seed, batch=batch, styles=styles,
                           norm_method=norm_method)
     loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
@@ -1086,7 +1129,8 @@ def phase_train_parity(seed: int, variant: str = "single_style", styles: int = 1
          param_max_abs_err_over_lr=dp_max,
          param_mean_abs_err_over_lr=sum(d.sum().item() for d in dp) / numel,
          param_frac_off_over_1e_3_lr=frac_off,
-         largest_effective_grad_where_off=g_eff_off, steps=[card[5], cpu[5]])
+         largest_effective_grad_where_off=g_eff_off, steps=[card[5], cpu[5]],
+         card_deterministic_algorithms=True)
     if not ok:
         fail(f"card-vs-CPU train step parity ({variant})")
 
@@ -2042,12 +2086,9 @@ def _free_port() -> int:
 def adain_serve(decoder: str, style: str) -> dict:
     """fnst-serve --adain-decoder (the port's server module, its own
     process, bf16 by default, on the card by default) answers 2 bursts of 8
-    concurrent requests; one PNG reply against ArbitraryStylizer on the
-    card here at batch 1 (SSIM >= 0.98: the server batches up to 8 and
-    cuDNN may pick other kernels per batch). The server is stopped with
-    SIGTERM (its drain) and waited for."""
-    import signal as signal_mod
-
+    concurrent requests (``serve_process``); one PNG reply against
+    ArbitraryStylizer on the card here at batch 1 (SSIM >= 0.98: the server
+    batches up to 8 and cuDNN may pick other kernels per batch)."""
     from PIL import Image
 
     from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
@@ -2056,64 +2097,22 @@ def adain_serve(decoder: str, style: str) -> dict:
     from fast_neural_style_transfer_tpu_torch.utils.image_io import decode_image
     from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
 
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "fast_neural_style_transfer_tpu_torch.serve",
-         "--adain-decoder", decoder, "--style", style, "--alpha", "0.8",
-         "--host", "127.0.0.1", "--port", str(port)],
-        cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
-    try:
-        t0 = time.perf_counter()
-        banner = ""
-        while "fnst-serve:" not in banner:
-            line = proc.stdout.readline()
-            if not line or time.perf_counter() - t0 > 300:
-                fail(f"fnst-serve --adain-decoder did not start: {banner[-2000:]}")
-            banner += line
-        ready_s = time.perf_counter() - t0
-        img = smooth_image(256, 256, seed=88)
-        buf = io.BytesIO()
-        Image.fromarray(img).save(buf, format="PNG")
-        body = buf.getvalue()
-
-        def post(_):
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
-            try:
-                t = time.perf_counter()
-                conn.request("POST", "/stylize?format=png", body=body,
-                             headers={"Content-Type": "image/png"})
-                resp = conn.getresponse()
-                return resp.status, resp.read(), (time.perf_counter() - t) * 1e3
-            finally:
-                conn.close()
-
-        replies = []
-        for _ in range(2):
-            with ThreadPoolExecutor(max_workers=8) as pool:
-                replies += list(pool.map(post, range(8)))
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        conn.request("GET", "/healthz")
-        health = json.loads(conn.getresponse().read())
-        conn.close()
-    finally:
-        proc.send_signal(signal_mod.SIGTERM)
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=30)
+    img = smooth_image(256, 256, seed=88)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    served = serve_process(["--adain-decoder", decoder, "--style", style, "--alpha", "0.8"],
+                           buf.getvalue(), "image/png", bursts=2, per_burst=8)
+    replies, health = served["replies"], served["healthz"]
     got = np.asarray(Image.open(io.BytesIO(replies[0][1])).convert("RGB"))
     want = ArbitraryStylizer(load_decoder(decoder), random_params(0), precision="bf16"
                              ).set_style_u8(decode_image(style)).stylize_u8(img, alpha=0.8)
     score = ssim(got / 255.0, want / 255.0)
     ok = (all(r[0] == 200 for r in replies) and health["family"] == "adain"
           and got.shape == img.shape and score >= 0.98)
-    result = {"ready_seconds": ready_s, "requests": len(replies),
+    result = {"ready_seconds": served["ready_seconds"], "requests": len(replies),
               "p50_ms": float(np.median([r[2] for r in replies])),
               "healthz": health, "ssim_vs_in_process": score,
-              "exit_code": proc.returncode}
+              "exit_code": served["exit_code"]}
     emit("adain_serve", ok=ok, **result)
     if not ok:
         fail("fnst-serve --adain-decoder")
@@ -2229,7 +2228,7 @@ def phase_adain(seed: int) -> dict:
         style_path = os.path.join(folders["style"], "000.jpg")
         style_u8 = decode_image(style_path)
         img = smooth_image(256, 256, seed=89)
-        dec_sd = load_decoder(final)
+        dec_sd = result["decoder"] = load_decoder(final)
         cpu = ArbitraryStylizer(dec_sd, random_params(seed), device="cpu"
                                 ).set_style_u8(style_u8)
         for precision, alpha in (("f32", 1.0), ("f32", 0.7), ("bf16", 1.0)):
@@ -2336,20 +2335,702 @@ def adain_kernel_times(seed: int) -> dict:
     return out
 
 
+# -- slice 9: export and int8 inference ----------------------------------------
+
+
+def serve_process(flags: list, body: bytes, content_type: str, bursts: int,
+                  per_burst: int) -> dict:
+    """fnst-serve (the port's server module) with ``flags`` in its own
+    process on a free port: wait for its ready banner, post ``bursts``
+    bursts of ``per_burst`` concurrent requests of ``body``, read
+    /healthz, then stop it with SIGTERM (its drain) and wait for it.
+    Returns the ready time, the replies (status, bytes, ms), /healthz and
+    the exit code."""
+    import signal as signal_mod
+
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fast_neural_style_transfer_tpu_torch.serve", *flags,
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        t0 = time.perf_counter()
+        banner = ""
+        while "fnst-serve:" not in banner:
+            line = proc.stdout.readline()
+            if not line or time.perf_counter() - t0 > 300:
+                fail(f"fnst-serve {' '.join(flags)} did not start: {banner[-2000:]}")
+            banner += line
+        ready_s = time.perf_counter() - t0
+
+        def post(_):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                t = time.perf_counter()
+                conn.request("POST", "/stylize?format=png", body=body,
+                             headers={"Content-Type": content_type})
+                resp = conn.getresponse()
+                return resp.status, resp.read(), (time.perf_counter() - t) * 1e3
+            finally:
+                conn.close()
+
+        replies = []
+        for _ in range(bursts):
+            with ThreadPoolExecutor(max_workers=per_burst) as pool:
+                replies += list(pool.map(post, range(per_burst)))
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        proc.send_signal(signal_mod.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return {"ready_seconds": ready_s, "replies": replies, "healthz": health,
+            "exit_code": proc.returncode}
+
+
+class capture_calls:
+    """Within the block, record the arguments of every call of
+    ``module.name`` (the call still runs); restores the attribute after."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def spy(*args, **kw):
+            self.calls.append((args, kw))
+            return self.real(*args, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def in_vs_plain(calls: list, path: str) -> float:
+    """The IN forward kernel against its plain version on the inputs a path
+    gave ``ops/norm.py::instance_norm`` (float32, (C,) affines), with
+    phase_kernel_vs_plain's f32 tolerance |dy| <= 1e-4 + 1e-4|y|. Returns
+    the largest |dy|; these launches are not the path's."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_fwd,
+        instance_norm_fwd_reference,
+    )
+
+    worst, over = 0.0, 0.0
+    with torch.inference_mode():
+        for (x, gamma, beta), kw in calls:
+            y, _, _ = instance_norm_fwd(x, gamma, beta, **kw)
+            torch.cuda.synchronize()
+            y_r, _, _ = instance_norm_fwd_reference(x, gamma, beta, **kw)
+            dy = (y - y_r).abs()
+            worst = max(worst, dy.max().item())
+            over = max(over, (dy / (1e-4 + 1e-4 * y_r.abs())).max().item())
+    ok = over <= 1 and len(calls) > 0
+    emit("in_fwd_vs_plain_on_path", path=path, sites=len(calls),
+         shapes=sorted({tuple(c[0][0].shape) for c in calls}), y_max_abs_err=worst,
+         y_err_over_tol=over, tol="1e-4 + 1e-4|y|", ok=ok)
+    if not ok:
+        fail(f"IN kernel against plain on the {path} path")
+    return worst
+
+
+def _nchw_network(img_u8: np.ndarray):
+    """(H, W, 3) or (N, H, W, 3) uint8 -> network-space NCHW f32 on the card
+    (``u8_to_network``, the Stylizer's own normalization)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+
+    x = torch.from_numpy(np.array(img_u8 if img_u8.ndim == 4 else img_u8[None])).cuda()
+    return u8_to_network(x).permute(0, 3, 1, 2)
+
+
+def _u8(y_nchw) -> np.ndarray:
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import network_to_u8
+
+    return network_to_u8(y_nchw.permute(0, 2, 3, 1)).cpu().numpy()
+
+
+def _du8(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+
+def ssim_card(xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
+    """Per-image SSIM of two uint8 (N, H, W, C) batches: utils/ssim.py's
+    formula (11x11 Gaussian window, sigma 1.5, VALID, on [0, 1], per
+    channel, then the channel mean) in float64 on the card; the numpy
+    version takes about half a second a 256x256 image."""
+    import torch
+    import torch.nn.functional as F
+
+    ax = torch.arange(11, dtype=torch.float64) - 5.0
+    g = torch.exp(-0.5 * (ax / 1.5) ** 2)
+    k = torch.outer(g, g)
+    k = (k / k.sum()).view(1, 1, 11, 11).cuda()
+    a, b = (torch.from_numpy(np.asarray(v)).cuda().double().permute(0, 3, 1, 2) / 255.0
+            for v in (xs, ys))
+    n, c, h, w = a.shape
+    blur = lambda t: F.conv2d(t.reshape(n * c, 1, h, w), k).view(n, c, h - 10, w - 10)
+    mu_a, mu_b = blur(a), blur(b)
+    var_a, var_b = blur(a * a) - mu_a ** 2, blur(b * b) - mu_b ** 2
+    cov = blur(a * b) - mu_a * mu_b
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    s = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)
+         / ((mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2)))
+    return s.mean(dim=(2, 3)).mean(dim=1).cpu().numpy()
+
+
+def p50_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` single calls timed with CUDA events."""
+    samples = [cuda_ms(fn, iters=1, warmup=warmup if i == 0 else 0) for i in range(reps)]
+    return float(np.median(samples))
+
+
+def seeded_adain_decoder(tmp: str, seed: int) -> str:
+    """The AdaIN decoder the export phase ships when the ``adain`` phase did
+    not run (``--phases export``): the AdaIN training CLI from its seeded
+    init, with the seeded random VGG, for ADAIN_STEPS steps at batch 4,
+    128x128 (enough for an output with an image's spread; the seeded init's
+    is nearly flat). Returns the decoder .npz."""
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import adain as adain_cli
+
+    folders = {}
+    for kind, s0 in (("content", 6000), ("style", 7000)):
+        folders[kind] = os.path.join(tmp, kind)
+        os.makedirs(folders[kind])
+        for i in range(8):
+            Image.fromarray(smooth_image(160, 160, seed=s0 + i)).save(
+                os.path.join(folders[kind], f"{i:03d}.jpg"), quality=92)
+    return adain_cli.main(["train", "--content_dir", folders["content"], "--style_dir",
+                           folders["style"], "--output_dir", os.path.join(tmp, "adain"),
+                           "--total_steps", str(ADAIN_STEPS), "--batch_size", "4",
+                           "--image_size", "128", "128", "--seed", str(seed)])
+
+
+def phase_export(seed: int, adain_decoder=None) -> dict:
+    """The export main path (ROADMAP row 9): the port's export CLI on the
+    in-repo trained checkpoint writes ONNX (static 1x3x256x256 and
+    --onnx-dynamic), TorchScript (its check forward on the card), the
+    reference .pth and a hub directory. On the card, against the f32
+    Stylizer (TF32 off, no bucket padding): the ONNX runtime at 256x256
+    (static graph) and 200x300 (dynamic), the TorchScript archive loaded
+    with map_location="cuda", both max |du8| <= 1; the ONNX runtime runs the
+    IN forward kernel at its 14 InstanceNormalization nodes (counts set to 0
+    just before each forward, read just after), held against the plain
+    version on the inputs it was given. The hub's pytorch_model.pth holds
+    the checkpoint's weights bit for bit and, served by
+    Stylizer.from_checkpoint, gives the checkpoint's output bit for bit on
+    the CPU and on the card (cuDNN deterministic).
+    AdaIN: the decoder the ``adain`` phase trained (``adain_decoder``, its
+    state_dict; trained here by ``seeded_adain_decoder`` when that phase did
+    not run), the seeded random VGG; cli/adain.py export writes the two-input ONNX and
+    TorchScript and a baked-style ONNX; the runtime and the archive on the
+    card against ArbitraryStylizer f32, max |du8| <= 1. Then the ONNX
+    runtime's and the archive's B=1 256x256 f32 forward (CUDA events, p50)."""
+    import torch
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import adain as adain_cli
+    from fast_neural_style_transfer_tpu_torch.export import cli as export_cli
+    from fast_neural_style_transfer_tpu_torch.export import onnx_runtime
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.models.adain import load_decoder, save_decoder_npz
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import random_params
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import decode_image
+
+    result = {"launches": []}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        art = {k: os.path.join(tmp, k) for k in ("m.onnx", "m_dyn.onnx", "m.pt", "m.pth", "hub")}
+        export_cli.main(["--model", str(CHECKPOINT), "--onnx", art["m.onnx"], "--torchscript",
+                         art["m.pt"], "--pth", art["m.pth"], "--hub-dir", art["hub"]])
+        export_cli.main(["--model", str(CHECKPOINT), "--onnx", art["m_dyn.onnx"],
+                         "--onnx-dynamic"])
+        emit("export_cli", seconds=time.perf_counter() - t0,
+             bytes={k: os.path.getsize(v) for k, v in art.items() if k != "hub"},
+             hub=sorted(os.listdir(art["hub"])))
+        params = Stylizer.load_params(str(CHECKPOINT))
+        ref = Stylizer(params, precision="f32", bucket_multiple=4)
+        archive = torch.jit.load(art["m.pt"], map_location="cuda")
+        worst_du8, worst_in = 0, 0.0
+        for (h, w), graph in (((256, 256), "m.onnx"), ((200, 300), "m_dyn.onnx")):
+            img = smooth_image(h, w, seed=seed + 300 + h)
+            x = _nchw_network(img)
+            with open(art[graph], "rb") as f:
+                data = f.read()
+            want = ref.stylize_u8(img)
+            reset_in_counts()
+            with capture_calls(onnx_runtime, "instance_norm") as cap:
+                (out,) = onnx_runtime.run_model(data, {"input_image": x})
+            torch.cuda.synchronize()
+            launches = instance_norm_fwd.launches
+            by_route = nonzero(instance_norm_fwd.launches_by_route)
+            got = _u8(out)[0]
+            with torch.inference_mode():
+                ts_got = _u8(archive(x))[0]
+            du8, ts_du8 = _du8(got, want), _du8(ts_got, want)
+            worst_in = max(worst_in, in_vs_plain(cap.calls, f"onnx_runtime {h}x{w}"))
+            ok = (got.shape == want.shape == (h, w, 3) and du8 <= 1 and ts_du8 <= 1
+                  and launches == NUM_IN_SITES and by_route == {SITE_ROUTE: NUM_IN_SITES}
+                  and all(kw.get("relu") is None for _, kw in cap.calls))
+            emit("export_vs_stylizer", seconds=time.perf_counter() - t0, graph=graph, size=[h, w],
+                 onnx_max_abs_du8=du8, torchscript_max_abs_du8=ts_du8,
+                 in_fwd_launches=launches, launches_by_route=by_route,
+                 criterion="max|du8|<=1; 14 IN launches", ok=ok)
+            if not ok:
+                fail(f"export check at {h}x{w}")
+            worst_du8 = max(worst_du8, du8, ts_du8)
+            result["launches"].append(launches)
+        # the hub's weights are the checkpoint's bit for bit, and serve its
+        # output bit for bit: on the CPU, and on the card with cuDNN held to
+        # its deterministic convolution algorithms. With cuDNN's default
+        # choice the checkpoint's own Stylizer, called twice, is printed
+        # beside it (cuDNN may pick a conv algorithm whose sums are not
+        # repeatable)
+        img = smooth_image(256, 256, seed=seed + 310)
+        hub_pth = os.path.join(art["hub"], "pytorch_model.pth")
+        hub_sd = Stylizer.load_params(hub_pth)
+        same_weights = list(hub_sd) == list(params) and all(
+            torch.equal(hub_sd[k], params[k]) for k in params)
+        served = {(dev, path): Stylizer.from_checkpoint(path, precision="f32", device=dev)
+                  for dev in ("cpu", "cuda") for path in (hub_pth, str(CHECKPOINT))}
+        outs = {key: sty.stylize_u8(img) for key, sty in served.items()
+                if key[0] == "cpu"}
+        ckpt_card = served["cuda", str(CHECKPOINT)]
+        repeat_du8 = _du8(ckpt_card.stylize_u8(img), ckpt_card.stylize_u8(img))
+        torch.backends.cudnn.deterministic = True
+        try:
+            outs.update({key: sty.stylize_u8(img) for key, sty in served.items()
+                         if key[0] == "cuda"})
+        finally:
+            torch.backends.cudnn.deterministic = False
+        identical = {dev: bool(np.array_equal(outs[dev, hub_pth], outs[dev, str(CHECKPOINT)]))
+                     for dev in ("cpu", "cuda")}
+        ok = same_weights and all(identical.values())
+        emit("export_hub_pth", seconds=time.perf_counter() - t0,
+             weights_bit_identical=same_weights,
+             output_bit_identical=identical, cudnn_deterministic_on_card=True,
+             card_default_cudnn_repeat_max_abs_du8=repeat_du8, ok=ok)
+        if not ok:
+            fail("the hub's pytorch_model.pth does not serve the checkpoint's output")
+        del served, ckpt_card
+
+        # times: B=1 256x256 f32 forward, device p50 between CUDA events
+        x = _nchw_network(smooth_image(256, 256, seed=seed + 320))
+        with open(art["m.onnx"], "rb") as f:
+            data = f.read()
+        u8 = torch.from_numpy(smooth_image(256, 256, seed=seed + 320)[None]).cuda()
+        with torch.inference_mode():
+            result["times"] = {
+                "onnx_runtime_ms": p50_ms(lambda: onnx_runtime.run_model(data, {"input_image": x})),
+                "torchscript_ms": p50_ms(lambda: archive(x)),
+                "stylizer_f32_ms": p50_ms(lambda: ref.raw_forward_u8(u8)),
+            }
+        emit("export_times", seconds=time.perf_counter() - t0,
+             batch=1, size=[256, 256], precision="f32", **result["times"],
+             note="onnx_runtime_ms includes parsing the graph and moving its "
+                  "initializers to the card on every call; stylizer_f32_ms is "
+                  "the u8 -> u8 forward")
+
+        # AdaIN exports
+        if adain_decoder is None:
+            decoder = seeded_adain_decoder(tmp, seed)
+        else:
+            decoder = os.path.join(tmp, "adain_decoder.npz")
+            save_decoder_npz(adain_decoder, decoder)
+        style_path = os.path.join(tmp, "style.png")
+        Image.fromarray(smooth_image(256, 256, seed=7100)).save(style_path)
+        a_onnx, a_pt, a_baked = (os.path.join(tmp, n) for n in
+                                 ("adain.onnx", "adain.pt", "adain_baked.onnx"))
+        adain_cli.main(["export", "--decoder", decoder, "--onnx", a_onnx, "--torchscript", a_pt])
+        adain_cli.main(["export", "--decoder", decoder, "--onnx", a_baked,
+                        "--style_image", style_path])
+        style_u8 = decode_image(style_path)
+        sty = ArbitraryStylizer(load_decoder(decoder), random_params(0), precision="f32"
+                                ).set_style_u8(style_u8)
+        img = smooth_image(256, 256, seed=seed + 330)
+        want = sty.stylize_u8(img)
+        c, s = _nchw_network(img), _nchw_network(style_u8)
+        outs = {}
+        with open(a_onnx, "rb") as f:
+            (outs["onnx_two_input"],) = onnx_runtime.run_model(
+                f.read(), {"content_image": c, "style_image": s})
+        with open(a_baked, "rb") as f:
+            (outs["onnx_baked"],) = onnx_runtime.run_model(f.read(), {"content_image": c})
+        with torch.inference_mode():
+            outs["torchscript"] = torch.jit.load(a_pt, map_location="cuda")(c, s)
+        du8 = {k: _du8(_u8(v)[0], want) for k, v in outs.items()}
+        ok = all(v <= 1 for v in du8.values())
+        emit("export_adain_vs_stylizer", seconds=time.perf_counter() - t0,
+             size=[256, 256], max_abs_du8=du8,
+             output_std_u8=float(want.std()), criterion="max|du8|<=1", ok=ok)
+        if not ok:
+            fail("AdaIN export check")
+        worst_du8 = max([worst_du8, *du8.values()])
+    result.update(max_abs_du8=worst_du8, in_max_abs_err=worst_in)
+    return result
+
+
+INT8_BATCHES = (1, 8)
+
+
+def _library_in(x, gamma, beta, *, relu: bool):
+    import torch.nn.functional as F
+
+    y = F.instance_norm(x, weight=gamma, bias=beta, eps=1e-5)
+    return F.relu(y) if relu else y
+
+
+def int8_stage_times(sty, x_u8) -> dict:
+    """Device time of one int8 u8 forward split by stage: each stage's
+    calls are recorded during one forward and replayed alone at those
+    inputs (graph_ms), summed over the forward's 15 convs / 14 IN sites:
+    quantize (the max-reduce and round(x / s)), patches (reflect-pad gather
+    or zero insertion, and the patch matrix copy), _int_mm, dequantize, and
+    the IN kernel, which is also set beside its bytes bound, its plain
+    version and F.instance_norm at the same inputs."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.infer import quantized as q
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd_reference
+
+    names = {"quantize": "_quantize_act", "pad": "_reflect_pad", "zero_insert": "_zero_insert",
+             "patches": "_patches", "dequantize": "_dequantize", "in_kernel": "instance_norm"}
+    caps = {k: capture_calls(q, n) for k, n in names.items()}
+    mm = capture_calls(torch, "_int_mm")
+    with torch.inference_mode():
+        with contextlib.ExitStack() as stack:
+            for cap in (*caps.values(), mm):
+                stack.enter_context(cap)
+            sty.raw_forward_u8(x_u8)
+        real = {k: getattr(q, n) for k, n in names.items()}
+        out = {}
+        for k, cap in caps.items():
+            out[k] = sum(graph_ms(lambda a=a, kw=kw, k=k: real[k](*a, **kw), reps=5)
+                         for a, kw in cap.calls)
+        out["int_mm"] = sum(graph_ms(lambda a=a: torch._int_mm(*a), reps=5)
+                            for a, _ in mm.calls)
+    out["patch_materialization"] = out.pop("pad") + out.pop("zero_insert") + out.pop("patches")
+    out["sum"] = sum(out.values())
+    # the IN sites beside their bound, the kernel's plain version and
+    # F.instance_norm (+ F.relu), at the path's own inputs
+    ins = caps["in_kernel"].calls
+    out["in_kernel_bound_ms"] = sum(in_bound_ms(a[0].numel(), a[0].element_size())[0]
+                                    for a, _ in ins)
+    with torch.inference_mode():
+        out["in_kernel_plain_ms"] = sum(
+            graph_ms(lambda a=a, kw=kw: instance_norm_fwd_reference(*a, **kw), reps=5)
+            for a, kw in ins)
+        out["in_kernel_library_ms"] = sum(
+            graph_ms(lambda a=a, kw=kw: _library_in(*a, relu=kw["relu"]), reps=5)
+            for a, kw in ins)
+    out["convs"] = len(mm.calls)
+    out["in_sites"] = len(ins)
+    return out
+
+
+def phase_int8(seed: int) -> dict:
+    """int8 inference (ROADMAP row 13) on the trained checkpoint at 256x256:
+    Stylizer(precision="int8") on the card against the port's CPU int8 path
+    at B=1 and B=8, with dynamic scales and with calibrated static ones (the
+    same scales on both devices); the IN forward kernel runs at 14 sites a
+    forward (counts set to 0 just before, read just after) and must match
+    its plain version on the inputs the path gave it (``in_vs_plain``).
+    Everything else on the path is exact or the same IEEE operation on both
+    devices (int8 codes, ``_int_mm``'s int32 products, the dequantize, the
+    residual adds, the u8 conversions), so the CPU path fed the card's IN
+    outputs at the 14 sites runs each of the 15 convs on the card's input:
+    the x it hands each IN site and its output must be the card's bit for
+    bit. Free running, the two differ wherever the kernel's f32 roundings
+    (within 1e-4 of the plain version's) flip an activation code, which the
+    following instance norms can amplify: mean and max |du8| printed.
+    The card's int8 must be as close to the f32
+    output (SSIM, on the card) as the CPU's int8 is, within 0.02; no
+    absolute limit (none was measured on trained weights). The
+    begin_inference CLI with
+    --precision int8, and fnst-serve --precision int8 in its own process
+    answering 8 concurrent requests (SSIM >= 0.98 against the in-process
+    int8 Stylizer at B=1: the server batches). Times: the u8 forward p50
+    (CUDA events) of int8 (dynamic, static), f32 and bf16 at B=1 and B=8,
+    the int8 forward's device time by stage, and a profile."""
+    from unittest import mock
+
+    import torch
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import begin_inference
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.infer import quantized as q
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+    from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
+
+    params = Stylizer.load_params(str(CHECKPOINT))
+    card = Stylizer(params, precision="int8")
+    cpu = Stylizer(params, precision="int8", device="cpu")
+    f32 = Stylizer(params, precision="f32")
+    bf16 = Stylizer(params, precision="bf16")
+    dynamic = card.qparams
+    sample = np.stack([smooth_image(256, 256, seed=seed + 400 + i) for i in range(8)])
+    static = q.calibrate(dynamic, params, u8_to_network(torch.from_numpy(sample).cuda()))
+    result = {"checks": [], "launches": []}
+    worst_in = 0.0
+    t0 = time.perf_counter()
+    for scales, qp in (("dynamic", dynamic), ("static", static)):
+        card.qparams, cpu.qparams = qp, q.to_device(qp, "cpu")
+        for n in INT8_BATCHES:
+            imgs = np.stack([smooth_image(256, 256, seed=seed + 500 + i) for i in range(n)])
+            reset_in_counts()
+            with capture_calls(q, "instance_norm") as cap:
+                got = card.stylize_u8(imgs)
+            torch.cuda.synchronize()
+            launches = instance_norm_fwd.launches
+            by_route = nonzero(instance_norm_fwd.launches_by_route)
+            want = cpu.stylize_u8(imgs)
+            # the kernel repeats bit for bit: these launches give the path's
+            # IN outputs again (they are not the path's, read above). The CPU
+            # path fed them runs each of the 15 convs on the card's input (the
+            # residual adds included): the x it hands each IN site (a conv's
+            # output) and its final output must be the card's bit for bit
+            with torch.inference_mode():
+                card_in = iter([q.instance_norm(*a, **kw).cpu() for a, kw in cap.calls])
+            cpu_x = []
+
+            def forced_in(x, *a, **kw):
+                cpu_x.append(x)
+                return next(card_in)
+
+            with mock.patch.object(q, "instance_norm", forced_in):
+                forced = cpu.stylize_u8(imgs)
+            conv_bit_equal = [bool(torch.equal(x, a[0].cpu()))
+                              for x, (a, _) in zip(cpu_x, cap.calls)]
+            ref = f32.stylize_u8(imgs)
+            if n == INT8_BATCHES[-1]:
+                worst_in = max(worst_in, in_vs_plain(cap.calls, f"int8 {scales} B={n}"))
+            du8 = lambda a, b: np.abs(a.astype(int) - b.astype(int))
+            min_ssim = lambda xs, ys: float(ssim_card(xs, ys).min())
+            if not result["checks"]:
+                # ssim_card against utils/ssim.py, once
+                ssim_helper_err = abs(float(ssim_card(got[:1], ref[:1])[0])
+                                      - ssim(got[0] / 255.0, ref[0] / 255.0))
+            check = {"scales": scales, "batch": n,
+                     "bit_equal_given_card_in_outputs": bool(np.array_equal(forced, got)),
+                     "in_sites_x_bit_equal": sum(conv_bit_equal),
+                     "mean_abs_du8_vs_cpu": float(du8(got, want).mean()),
+                     "max_abs_du8_vs_cpu": int(du8(got, want).max()),
+                     "min_ssim_vs_cpu": min_ssim(got, want),
+                     "min_ssim_vs_f32": min_ssim(got, ref),
+                     "cpu_min_ssim_vs_f32": min_ssim(want, ref),
+                     "ssim_card_vs_numpy_abs_err": ssim_helper_err,
+                     "in_fwd_launches": launches, "launches_by_route": by_route}
+            ok = bool(got.shape == imgs.shape and check["bit_equal_given_card_in_outputs"]
+                      and len(cpu_x) == NUM_IN_SITES and all(conv_bit_equal)
+                      and ssim_helper_err <= 1e-9
+                      and check["min_ssim_vs_f32"] >= check["cpu_min_ssim_vs_f32"] - 0.02
+                      and launches == NUM_IN_SITES and by_route == {SITE_ROUTE: NUM_IN_SITES})
+            emit("int8_vs_cpu", seconds=time.perf_counter() - t0, size=[256, 256],
+                 criterion="given the card's IN outputs, the 14 IN inputs and the output "
+                           "bit-equal; as close to f32 as the CPU path (SSIM within 0.02); "
+                           "14 IN launches", ok=ok, **check)
+            if not ok:
+                fail(f"int8 card vs CPU ({scales}, B={n})")
+            result["checks"].append(check)
+            result["launches"].append(launches)
+    card.qparams = dynamic
+
+    # the inference CLI and the server
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "content.jpg")
+        Image.fromarray(smooth_image(240, 320, seed=seed + 600)).save(src, quality=95)
+        reset_in_counts()
+        begin_inference.main(["--model_path", str(CHECKPOINT), "--content_image", src,
+                              "--output_dir", tmp, "--output_name", "out.png",
+                              "--precision", "int8"])
+        cli_launches = instance_norm_fwd.launches
+        cli_size = Image.open(os.path.join(tmp, "out.png")).size
+    img = smooth_image(256, 256, seed=seed + 610)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    served = serve_process(["--model", str(CHECKPOINT), "--precision", "int8"],
+                           buf.getvalue(), "image/png", bursts=1, per_burst=8)
+    replies = served.pop("replies")
+    got = np.asarray(Image.open(io.BytesIO(replies[0][1])).convert("RGB"))
+    score = ssim(got / 255.0, card.stylize_u8(img) / 255.0)
+    ok = bool(cli_size == (320, 240) and cli_launches == NUM_IN_SITES
+              and all(r[0] == 200 for r in replies) and len(replies) == 8
+              and served["healthz"]["family"] == "flagship" and score >= 0.98)
+    emit("int8_cli_and_serve", seconds=time.perf_counter() - t0,
+         cli_output_size=list(cli_size), cli_in_launches=cli_launches,
+         requests=len(replies), p50_ms=float(np.median([r[2] for r in replies])),
+         ssim_vs_in_process=score, **served, ok=ok)
+    if not ok:
+        fail("int8 CLI / fnst-serve --precision int8")
+
+    # times, one process: u8 -> u8 forward p50 between CUDA events
+    times = {}
+    for n in INT8_BATCHES:
+        x = torch.from_numpy(np.stack([smooth_image(256, 256, seed=seed + 700 + i)
+                                       for i in range(n)])).cuda()
+        row = {}
+        with torch.inference_mode():
+            for name, sty, qp in (("int8_dynamic", card, dynamic), ("int8_static", card, static),
+                                  ("f32", f32, None), ("bf16", bf16, None)):
+                if qp is not None:
+                    sty.qparams = qp
+                row[name + "_ms"] = p50_ms(lambda: sty.raw_forward_u8(x))
+            card.qparams = dynamic
+            row["stages_ms"] = int8_stage_times(card, x)
+            row["profile"] = profile_calls(lambda: card.raw_forward_u8(x), reps=5)
+        times[n] = row
+        emit("int8_times", seconds=time.perf_counter() - t0, batch=n, size=[256, 256], **row)
+    result.update(times=times, in_max_abs_err=worst_in)
+    return result
+
+
+def phase_int8_sensitivity(seed: int) -> dict:
+    """A recorded finding, on request only (``--phases int8_sensitivity``):
+    how far the CPU int8 path moves when every IN output moves one ulp up,
+    at phase_int8's images and batches, dynamic scales and static ones
+    calibrated on the CPU. It runs only on the CPU; it says how much of the
+    card-vs-CPU difference phase_int8 prints free running is the path's own
+    sensitivity to f32 roundings."""
+    from unittest import mock
+
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.infer import quantized as q
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+
+    params = Stylizer.load_params(str(CHECKPOINT))
+    cpu = Stylizer(params, precision="int8", device="cpu")
+    dynamic = cpu.qparams
+    sample = np.stack([smooth_image(256, 256, seed=seed + 400 + i) for i in range(8)])
+    static = q.calibrate(dynamic, params, u8_to_network(torch.from_numpy(sample)))
+    real_in = q.instance_norm
+    up = torch.tensor(float("inf"))
+    out = {}
+    for scales, qp in (("dynamic", dynamic), ("static", static)):
+        cpu.qparams = qp
+        for n in INT8_BATCHES:
+            imgs = np.stack([smooth_image(256, 256, seed=seed + 500 + i) for i in range(n)])
+            want = cpu.stylize_u8(imgs)
+            with mock.patch.object(q, "instance_norm", lambda *a, **kw: torch.nextafter(
+                    real_in(*a, **kw), up)):
+                nudged = cpu.stylize_u8(imgs)
+            d = np.abs(nudged.astype(int) - want.astype(int))
+            out[scales, n] = {"mean_abs_du8": float(d.mean()), "max_abs_du8": int(d.max())}
+            emit("int8_sensitivity", scales=scales, batch=n, size=[256, 256], device="cpu",
+                 perturbation="every IN output one ulp up", **out[scales, n])
+    return out
+
+
+def phase_train_parity_sensitivity(seed: int) -> dict:
+    """A recorded finding, on request only (``--phases
+    train_parity_sensitivity``): how far phase_train_parity's step moves
+    its grad norm for reasons that are not a fault. On the CPU: the f32
+    step against the same step with its IN statistics taken in f64 (stable
+    and one-pass). On the card: the step under cuDNN's default algorithm
+    choice three times, 8 GiB more of the card held each time, then twice
+    with deterministic algorithms. And at the one-pass step's 14 IN inputs
+    on the card: the largest relative error of inv = rsqrt(var + eps)
+    against f64 statistics, of the kernel's and of the CPU plain
+    version's."""
+    from unittest import mock
+
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.models import transformer
+    from fast_neural_style_transfer_tpu_torch.ops import cuda_norm
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
+
+    xs = []
+    real_in = transformer.instance_norm
+
+    def recorded(x, *a, **kw):
+        xs.append(x.detach())
+        return real_in(x, *a, **kw)
+
+    with mock.patch.object(transformer, "instance_norm", recorded):
+        _one_train_step("cuda", seed, norm_method="onepass")
+    inv_err = {"card": 0.0, "cpu": 0.0}
+    for x in xs[:NUM_IN_SITES]:
+        xd = x.double().cpu()
+        mean = xd.mean(dim=(2, 3))
+        exact = torch.rsqrt((xd.square().mean(dim=(2, 3)) - mean.square()).clamp(min=0)
+                            + 1e-5)
+        for dev, xin in (("card", x), ("cpu", x.cpu())):
+            ones = torch.ones(x.shape[1], device=xin.device)
+            inv = instance_norm_fwd(xin, ones, torch.zeros_like(ones), onepass=True)[2]
+            err = ((inv.double().cpu() - exact).abs() / exact).max().item()
+            inv_err[dev] = max(inv_err[dev], err)
+    emit("train_parity_sensitivity_in_stats", norm_method="onepass", sites=NUM_IN_SITES,
+         max_inv_rel_err_vs_f64=inv_err)
+    out = {"inv_rel_err_vs_f64": inv_err}
+    f32_moments = cuda_norm._moments
+
+    def f64_moments(xf, onepass):
+        mean, var = f32_moments(xf.double(), onepass)
+        return mean.float(), var.float()
+
+    for method in ("auto", "onepass"):
+        cpu = _one_train_step("cpu", seed, norm_method=method)[2]
+        with mock.patch.object(cuda_norm, "_moments", f64_moments):
+            cpu_f64 = _one_train_step("cpu", seed, norm_method=method)[2]
+        held, default = [], []
+        for _ in range(3):
+            default.append(_one_train_step("cuda", seed, norm_method=method)[2])
+            held.append(torch.empty(8 << 30, dtype=torch.uint8, device="cuda"))
+        del held
+        with deterministic_algorithms():
+            det = [_one_train_step("cuda", seed, norm_method=method)[2] for _ in range(2)]
+        rel = lambda g: abs(g - cpu) / cpu
+        out[method] = dict(grad_norm_cpu=cpu, grad_norm_cpu_f64_stats=cpu_f64,
+                           cpu_f64_stats_rel=rel(cpu_f64), grad_norm_card_default=default,
+                           card_default_rel=[rel(g) for g in default],
+                           grad_norm_card_deterministic=det,
+                           card_deterministic_rel=[rel(g) for g in det])
+        emit("train_parity_sensitivity", norm_method=method, size=[128, 128], batch=2,
+             **out[method])
+    return out
+
+
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
-          "multi_style", "video", "adain", "times", "train_times", "in_fwd_budgets",
-          "in_bwd_budgets")
+          "multi_style", "video", "adain", "export", "int8", "times", "train_times",
+          "in_fwd_budgets", "in_bwd_budgets")
+# recorded findings, run on request only
+EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="all",
-                    help=f"comma-separated subset of {','.join(PHASES)} (the build "
-                         "always runs); 'all' also prints the kernels line")
+                    help=f"comma-separated subset of {','.join(PHASES + EXTRA_PHASES)} "
+                         f"(the build always runs; {','.join(EXTRA_PHASES)} only on request); "
+                         "'all' also prints the kernels line")
     args = ap.parse_args()
     phases = PHASES if args.phases == "all" else tuple(args.phases.split(","))
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES + EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -2365,33 +3046,50 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     t0 = time.perf_counter()
+    seconds = {}
+
+    def run(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return out
+
     dev = phase_device()
-    phase_build()
+    run("build", phase_build)
     err = {}
     if "kernels" in phases:
-        err["in_fwd"] = phase_kernel_vs_plain(args.seed)
-        err["in_bwd"] = phase_in_bwd_vs_plain(args.seed)
-        err["affine_fwd"], err["affine_bwd"] = phase_affine_vs_plain(args.seed)
-        err["conv"] = phase_conv_bwd_vs_plain(args.seed)
-        err["in_stats"] = phase_in_stats_vs_plain(args.seed)
-        err["adain_in"] = phase_adain_in_vs_plain(args.seed)
+        err["in_fwd"] = run("kernels", phase_kernel_vs_plain, args.seed)
+        err["in_bwd"] = run("kernels", phase_in_bwd_vs_plain, args.seed)
+        err["affine_fwd"], err["affine_bwd"] = run("kernels", phase_affine_vs_plain, args.seed)
+        err["conv"] = run("kernels", phase_conv_bwd_vs_plain, args.seed)
+        err["in_stats"] = run("kernels", phase_in_stats_vs_plain, args.seed)
+        err["adain_in"] = run("kernels", phase_adain_in_vs_plain, args.seed)
     if "trained_weights" in phases:
-        phase_trained_weights()
-    served = phase_serving() if "serving" in phases else None
-    trained = phase_training(args.seed) if "training" in phases else None
+        run("trained_weights", phase_trained_weights)
+    served = run("serving", phase_serving) if "serving" in phases else None
+    trained = run("training", phase_training, args.seed) if "training" in phases else None
     if "train_parity" in phases:
-        phase_train_parity(args.seed)
-        phase_train_parity(args.seed, variant="onepass", norm_method="onepass")
-    multi = phase_multi_style(args.seed) if "multi_style" in phases else None
-    video = phase_video(args.seed) if "video" in phases else None
-    adain = phase_adain(args.seed) if "adain" in phases else None
-    times = phase_times(args.seed) if "times" in phases else None
-    ttimes = phase_train_times(args.seed) if "train_times" in phases else None
+        run("train_parity", phase_train_parity, args.seed)
+        run("train_parity", phase_train_parity, args.seed, variant="onepass",
+            norm_method="onepass")
+    multi = run("multi_style", phase_multi_style, args.seed) if "multi_style" in phases else None
+    video = run("video", phase_video, args.seed) if "video" in phases else None
+    adain = run("adain", phase_adain, args.seed) if "adain" in phases else None
+    exported = (run("export", phase_export, args.seed, adain and adain["decoder"])
+                if "export" in phases else None)
+    int8 = run("int8", phase_int8, args.seed) if "int8" in phases else None
+    if "int8_sensitivity" in phases:
+        run("int8_sensitivity", phase_int8_sensitivity, args.seed)
+    if "train_parity_sensitivity" in phases:
+        run("train_parity_sensitivity", phase_train_parity_sensitivity, args.seed)
+    times = run("times", phase_times, args.seed) if "times" in phases else None
+    ttimes = run("train_times", phase_train_times, args.seed) if "train_times" in phases else None
     if "in_fwd_budgets" in phases:
-        phase_in_fwd_budgets(args.seed)
+        run("in_fwd_budgets", phase_in_fwd_budgets, args.seed)
     if "in_bwd_budgets" in phases:
-        phase_in_bwd_budgets(args.seed)
-    emit("done", seconds=time.perf_counter() - t0, phases=list(phases))
+        run("in_bwd_budgets", phase_in_bwd_budgets, args.seed)
+    emit("done", seconds=time.perf_counter() - t0, phases=list(phases),
+         phase_seconds=seconds)
     if phases == PHASES:
         b8 = times["per_forward"][8]
         in_fwd = ttimes["kernels"][("in_fwd", "float32")]
@@ -2408,7 +3106,8 @@ def main() -> int:
             "launches_by_route": served["launches_by_route"],
             "launches_multi_style": multi["counts"]["instance_norm_fwd"],
             "launches_adain": adain["counts"]["instance_norm_fwd"],
-            "max_abs_err": max(err["in_fwd"], err["affine_fwd"], err["adain_in"]),
+            "max_abs_err": max(err["in_fwd"], err["affine_fwd"], err["adain_in"],
+                               int8["in_max_abs_err"], exported["in_max_abs_err"]),
             # the serving path: the 14 sites of one 256x256 bf16 forward at B=8
             "ms": b8["ms"], "plain_ms": b8["plain_ms"],
             "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
@@ -2419,6 +3118,18 @@ def main() -> int:
             # the AdaIN path: adain at relu4_1, (8, 32, 32, 512) f32, (B, C) affine
             "adain_ms": adain["kernel_times"]["float32"]["in_fwd"]["ms"],
             "adain_max_abs_err": err["adain_in"],
+            # the int8 path: 14 sites a forward, f32, (C,) affines, ReLU fused
+            # (launches over its card-vs-CPU runs: dynamic and static, B=1, 8)
+            "launches_int8": sum(int8["launches"]),
+            "int8_max_abs_err": int8["in_max_abs_err"],
+            **{f"int8_in_{k}_ms": {n: int8["times"][n]["stages_ms"][key] for n in INT8_BATCHES}
+               for k, key in (("kernel", "in_kernel"), ("bound", "in_kernel_bound_ms"),
+                              ("plain", "in_kernel_plain_ms"),
+                              ("library", "in_kernel_library_ms"))},
+            # the ONNX runtime: 14 InstanceNormalization nodes a forward, f32,
+            # relu=False (forwards at 256x256 and 200x300)
+            "launches_onnx_runtime": sum(exported["launches"]),
+            "onnx_runtime_max_abs_err": exported["in_max_abs_err"],
         }, {
             # the video path's capture mode: 14 sites of a 256x256 bf16 forward at B=8
             "name": "instance_norm_fwd_capture",

@@ -7,9 +7,16 @@ arbitrary-style decoder, or stylize with any style image.
         --decoder out/adain_decoder_final.npz --content_image photo.jpg \\
         --style_image painting.jpg --output stylized.jpg --alpha 0.8
 
+    python -m fast_neural_style_transfer_tpu_torch.cli.adain export \\
+        --decoder out/adain_decoder_final.npz --onnx adain.onnx \\
+        --torchscript adain.pt
+
 Runs on the card (``--device``, default cuda; ``--cpu`` for the CPU).
-``--data_parallel`` and ``--spatial > 1`` (ROADMAP row 15) and the
-``export`` subcommand (row 9) are not yet ported and exit with a message.
+``export`` writes the two-input ONNX graph (or, with ``--style_image``, a
+content-only one with the style baked in) and the two-input TorchScript
+archive: host work, but for the baked styles' moments, which the VGG
+encodes on the device. ``--data_parallel`` and ``--spatial > 1`` (ROADMAP
+row 15) are not yet ported and exit with a message.
 """
 
 from __future__ import annotations
@@ -94,10 +101,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Shard content height over N devices (not yet ported)")
     _device_flags(s)
 
-    e = sub.add_parser("export", help="export the full pipeline (not yet ported)")
+    e = sub.add_parser("export", help="export the full pipeline (ONNX / TorchScript)")
     e.add_argument("--decoder", required=True)
-    e.add_argument("--onnx", default=None)
-    e.add_argument("--torchscript", default=None)
+    e.add_argument("--onnx", default=None, help="output .onnx path")
+    e.add_argument("--torchscript", default=None, help="output traced two-input .pt path")
+    e.add_argument("--vgg_weights", default=None)
+    e.add_argument("--alpha", default=1.0,
+                   type=lambda s: s if s == "input" else float(s),
+                   help="style strength baked into the graph, or the literal "
+                        "'input' to expose a scalar alpha graph input (ONNX only)")
+    e.add_argument("--content_shape", type=int, nargs=2, default=(256, 256),
+                   metavar=("H", "W"))
+    e.add_argument("--style_shape", type=int, nargs=2, default=(256, 256),
+                   metavar=("H", "W"))
+    e.add_argument("--style_image", nargs="+", default=None,
+                   help="Bake these style image(s)' moments into the graph: "
+                        "single-input artifact, no style branch (blend weights "
+                        "via --style_blend)")
+    e.add_argument("--style_blend", type=float, nargs="+", default=None, metavar="W")
+    e.add_argument("--preserve_color", default="off", choices=["off", "luma"],
+                   help="'luma' bakes Gatys color control into the ONNX graph: "
+                        "the artifact's output keeps the content's chrominance "
+                        "(ONNX-only)")
+    _device_flags(e)
     return p
 
 
@@ -175,11 +201,69 @@ def _stylize_one(args, device: str) -> str:
     return out_path
 
 
+def _export(args, device: str) -> list:
+    """The ``export`` subcommand: every flag combination is checked before
+    any artifact is written."""
+    if not args.onnx and not args.torchscript:
+        raise SystemExit("pass --onnx and/or --torchscript")
+    if args.style_blend and not args.style_image:
+        raise SystemExit("--style_blend without --style_image does nothing: blend "
+                         "weights only apply when baking style image(s) into the graph")
+    if args.torchscript:
+        if args.style_image:
+            raise SystemExit("--style_image baking is ONNX-only; the TorchScript "
+                             "artifact keeps the style as a runtime input")
+        if args.preserve_color != "off":
+            raise SystemExit("--preserve_color is ONNX-only")
+        if args.alpha == "input":
+            raise SystemExit("--alpha input is ONNX-only; TorchScript traces bake "
+                             "the strength")
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+    from fast_neural_style_transfer_tpu_torch.core.shapes import (
+        pad_to_multiple_reflect,
+        resolve_device,
+    )
+    from fast_neural_style_transfer_tpu_torch.export.onnx_adain import export_adain_onnx
+    from fast_neural_style_transfer_tpu_torch.models.adain import blended_style_stats
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
+    from fast_neural_style_transfer_tpu_torch.utils import load_image
+
+    vgg_params = resolve_params(args.vgg_weights)
+    baked = None
+    if args.style_image:
+        dev = resolve_device(device)
+        exact_f32(dev, Precision.f32())
+        vgg = make_vgg(vgg_params, dev)
+        styles = [pad_to_multiple_reflect(torch.from_numpy(load_image(p, None)).to(dev), 8)[0]
+                  for p in args.style_image]
+        with torch.inference_mode():
+            baked = tuple(t.cpu() for t in blended_style_stats(vgg, styles, args.style_blend))
+    decoder = load_decoder(args.decoder)
+    wrote = []
+    if args.onnx:
+        export_adain_onnx(decoder, vgg_params, args.onnx, alpha=args.alpha,
+                          content_shape=(1, 3, *args.content_shape),
+                          style_shape=(1, 3, *args.style_shape),
+                          baked_style=baked, preserve_color=args.preserve_color)
+        print(f"wrote {args.onnx}"
+              + (" (baked style, single input)" if baked is not None else ""))
+        wrote.append(args.onnx)
+    if args.torchscript:
+        from fast_neural_style_transfer_tpu_torch.export.torch_adain import (
+            export_adain_torchscript,
+        )
+
+        export_adain_torchscript(decoder, vgg_params, args.torchscript, alpha=args.alpha)
+        print(f"wrote {args.torchscript}")
+        wrote.append(args.torchscript)
+    return wrote
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.cmd == "export":
-        raise SystemExit("export: the AdaIN ONNX / TorchScript export is not yet "
-                         "ported (ROADMAP row 9)")
     device = "cpu" if args.cpu else args.device
 
     if args.cmd == "train":
@@ -206,6 +290,9 @@ def main(argv=None):
             seed=args.seed,
             device=device,
         ))
+
+    if args.cmd == "export":
+        return _export(args, device)
 
     # stylize
     if args.spatial > 1:

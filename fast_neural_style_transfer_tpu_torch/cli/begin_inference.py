@@ -6,8 +6,9 @@
 
 Single images and ``--content_dir`` jobs run on the card (``--device``).
 ``--style_index`` / ``--style_blend`` pick or blend the styles of a
-multi-style checkpoint. ``--spatial > 1``, ``--precision int8`` and
-``--data_parallel`` are not yet ported and exit with a message.
+multi-style checkpoint. ``--precision int8`` quantizes the convs
+(``infer/quantized.py``). ``--spatial > 1`` and ``--data_parallel`` are not
+yet ported and exit with a message.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Optional resize; default keeps the native resolution")
     p.add_argument("--precision", type=str, default="f32",
                    choices=["f32", "bf16", "int8"],
-                   help="compute dtype (int8 is not yet ported)")
+                   help="compute dtype (int8: quantized convs, float32 elsewhere)")
     p.add_argument("--spatial", type=int, default=1,
                    help="Shard image height over N devices (not yet ported)")
     p.add_argument("--style_index", type=int, default=None,
@@ -70,8 +71,6 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.spatial > 1:
         raise SystemExit("--spatial > 1: spatial sharding is not yet ported")
-    if args.precision == "int8":
-        raise SystemExit("--precision int8: int8 inference is not yet ported")
     if args.data_parallel:
         raise SystemExit("--data_parallel: multi-card inference is not yet ported")
 

@@ -2,7 +2,9 @@
 
 Params are always stored in float32. Compute runs in float32 or bfloat16;
 convolutions accumulate in float32 inside cuDNN either way, and
-instance-norm statistics are always float32.
+instance-norm statistics are always float32. int8 is not a compute dtype
+here: ``Stylizer(precision="int8")`` quantizes the convs
+(``infer/quantized.py``) and runs the rest in float32.
 """
 
 from __future__ import annotations
@@ -37,6 +39,4 @@ def canonical_compute_dtype(name: str) -> Precision:
         return Precision.f32()
     if name in ("bf16", "bfloat16"):
         return Precision.bf16()
-    if name == "int8":
-        raise NotImplementedError("int8 inference is not yet ported")
     raise ValueError(f"unknown precision {name!r}; expected 'f32' or 'bf16'")

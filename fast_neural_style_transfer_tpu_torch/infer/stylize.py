@@ -21,6 +21,11 @@ from fast_neural_style_transfer_tpu_torch.core.shapes import (
     pad_to_multiple_reflect,
     resolve_device,
 )
+from fast_neural_style_transfer_tpu_torch.infer.quantized import (
+    apply_int8,
+    quantize_params,
+    to_device,
+)
 from fast_neural_style_transfer_tpu_torch.models.transformer import (
     TransformerNet,
     bake_style,
@@ -38,6 +43,7 @@ from fast_neural_style_transfer_tpu_torch.utils.image_io import (
     resize_image,
     scan_image_files,
     u8_to_network,
+    u8_to_unit,
 )
 
 
@@ -54,6 +60,11 @@ class Stylizer:
     constructor turns TF32 off for cuDNN convolutions and for matmuls
     (``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32``, process-wide settings).
+    "int8": the conv weights are quantized once, here (after any
+    ``bake_style``), and every forward runs ``infer/quantized.py::
+    apply_int8`` with dynamic activation scales; the rest is float32 as
+    above. Its output depends on the batch an image shares (one activation
+    scale a tensor).
     ``preserve_color="luma"``: keep the stylized luminance and the
     content's chrominance (u8 path only).
     """
@@ -76,13 +87,19 @@ class Stylizer:
             raise NotImplementedError(
                 "sharded / data-parallel stylization is not yet ported")
         self.device = resolve_device(device)
-        self.precision = canonical_compute_dtype(precision)
         self.preserve_color = preserve_color
         self.bucket_multiple = bucket_multiple
         require_single_style(params, "Stylizer")
-        net = TransformerNet()
-        net.load_state_dict(params, strict=True)
-        self.net = net.eval().to(self.device, memory_format=torch.channels_last)
+        self.net: Optional[TransformerNet] = None
+        self.qparams: Optional[Dict[str, Any]] = None
+        if precision == "int8":
+            self.precision = canonical_compute_dtype("f32")  # the non-conv math
+            self.qparams = to_device(quantize_params(params), self.device)
+        else:
+            self.precision = canonical_compute_dtype(precision)
+            net = TransformerNet()
+            net.load_state_dict(params, strict=True)
+            self.net = net.eval().to(self.device, memory_format=torch.channels_last)
         if (self.device.type == "cuda"
                 and self.precision.compute_dtype == torch.float32):
             torch.backends.cudnn.allow_tf32 = False
@@ -98,26 +115,15 @@ class Stylizer:
 
     @classmethod
     def from_checkpoint(cls, path: str, *, style=None, **kw) -> "Stylizer":
-        """Load a checkpoint and build a Stylizer. ``style``: an int style
-        index or a length-S convex blend, baked into single-style params
-        (``bake_style``); required for a multi-style checkpoint, refused
-        for a single-style one."""
-        params = cls.load_params(path)
-        s = num_styles(params)
-        if s > 1:
-            if style is None:
-                raise ValueError(
-                    f"{path} is a {s}-style checkpoint: pass style=<index "
-                    f"0..{s - 1}> or a length-{s} blend-weight vector")
-            params = bake_style(params, style)
-        elif style is not None:
-            raise ValueError(
-                f"style={style!r} given but {path} is a single-style checkpoint")
-        return cls(params, **kw)
+        """Load a checkpoint and build a Stylizer; ``style`` as for
+        ``load_style_params``."""
+        return cls(load_style_params(path, style), **kw)
 
     # -- forward ------------------------------------------------------------
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.qparams is not None:
+            return apply_int8(self.qparams, x)
         return self.net(x, self.precision)
 
     def _u8_roundtrip(self, x_u8: torch.Tensor) -> torch.Tensor:
@@ -127,7 +133,7 @@ class Stylizer:
             mean = torch.as_tensor(IMAGENET_MEAN, device=y.device)
             std = torch.as_tensor(IMAGENET_STD, device=y.device)
             y01 = luminance_transfer(torch.clamp(y * std + mean, 0.0, 1.0),
-                                     x_u8.float() / 255.0)
+                                     u8_to_unit(x_u8))
             return torch.clamp(torch.round(y01 * 255.0), 0, 255).to(torch.uint8)
         return network_to_u8(y)
 
@@ -170,6 +176,25 @@ class Stylizer:
                 f"{self.bucket_multiple}); got {h}x{w} — use stylize_u8 for "
                 "arbitrary sizes")
         return self._u8_roundtrip(x_u8.to(self.device))
+
+
+def load_style_params(path: str, style=None) -> Dict[str, torch.Tensor]:
+    """A checkpoint's single-style state_dict. ``style``: an int style
+    index or a length-S convex blend, baked into single-style params
+    (``bake_style``); required for a multi-style checkpoint, refused for a
+    single-style one."""
+    params = load_checkpoint(path)
+    s = num_styles(params)
+    if s > 1:
+        if style is None:
+            raise ValueError(
+                f"{path} is a {s}-style checkpoint: pass style=<index "
+                f"0..{s - 1}> or a length-{s} blend-weight vector")
+        return bake_style(params, style)
+    if style is not None:
+        raise ValueError(
+            f"style={style!r} given but {path} is a single-style checkpoint")
+    return params
 
 
 def stylize_image_file(

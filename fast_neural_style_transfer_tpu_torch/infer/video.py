@@ -26,6 +26,7 @@ from typing import Any, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
 from fast_neural_style_transfer_tpu_torch.core.shapes import pad_to_multiple_reflect
 from fast_neural_style_transfer_tpu_torch.infer.stylize import Stylizer
 from fast_neural_style_transfer_tpu_torch.models.transformer import bake_style, num_styles
@@ -63,6 +64,7 @@ class VideoStylizer:
     ):
         if not 0.0 <= stats_blend <= 1.0:
             raise ValueError(f"stats_blend must be in [0, 1], got {stats_blend}")
+        canonical_compute_dtype(precision)  # f32 or bf16: int8 has no IN statistics path
         sty = Stylizer(params, precision=precision, bucket_multiple=bucket_multiple,
                        device=device)
         self.net, self.device, self.precision = sty.net, sty.device, sty.precision

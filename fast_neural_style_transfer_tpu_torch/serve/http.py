@@ -190,8 +190,7 @@ def _build_forward(args, device: str) -> tuple:
         if not args.style:
             raise SystemExit("--adain-decoder needs --style <image>")
         if args.precision == "int8":
-            raise SystemExit("--precision int8 serves the flagship family only "
-                             "(and is not yet ported)")
+            raise SystemExit("--precision int8 serves the flagship family only")
         from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
         from fast_neural_style_transfer_tpu_torch.models.adain import load_decoder
         from fast_neural_style_transfer_tpu_torch.models.vgg_weights import resolve_params
@@ -229,7 +228,7 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--vgg_weights", default=None,
                    help="VGG19 weights (.npz/.pth) for the AdaIN encoder")
     p.add_argument("--precision", default="bf16", choices=["f32", "bf16", "int8"],
-                   help="serving compute dtype (int8 is not yet ported)")
+                   help="serving compute dtype (int8: flagship only)")
     p.add_argument("--preserve_color", default="off", choices=["off", "luma"])
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8765)

@@ -18,6 +18,13 @@ _RGB2YIQ = (
     (0.595716, -0.274453, -0.321263),
     (0.211456, -0.522591, 0.311135),
 )
+# its float32 inverse, as the JAX package's LU inverse rounds it (the
+# exported colour graph carries these bits)
+_YIQ2RGB = (
+    (0.99999994, 0.9562958, 0.6210244),
+    (0.99999994, -0.27212206, -0.6473806),
+    (0.9999999, -1.106989, 1.7046151),
+)
 
 
 def luminance_transfer(stylized: torch.Tensor, content: torch.Tensor) -> torch.Tensor:
@@ -29,7 +36,7 @@ def luminance_transfer(stylized: torch.Tensor, content: torch.Tensor) -> torch.T
             f"stylized {tuple(stylized.shape)} and content "
             f"{tuple(content.shape)} must match for luminance transfer")
     rgb2yiq = torch.tensor(_RGB2YIQ, dtype=torch.float32, device=stylized.device)
-    yiq2rgb = torch.linalg.inv(rgb2yiq)
+    yiq2rgb = torch.tensor(_YIQ2RGB, dtype=torch.float32, device=stylized.device)
     s = stylized.float() @ rgb2yiq.T
     c = content.float() @ rgb2yiq.T
     y_s, y_c = s[..., :1], c[..., :1]

@@ -63,10 +63,18 @@ def _mean_std(device) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.as_tensor(IMAGENET_STD, device=device))
 
 
+def u8_to_unit(x_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 tensor -> float32 in [0, 1], on x's device, a true division on
+    every device as on the CPU: with a Python number as the divisor CUDA
+    multiplies by its float reciprocal instead, one ulp off for 126 of the
+    256 values."""
+    return x_u8.float() / torch.full((), 255.0, device=x_u8.device)
+
+
 def u8_to_network(x_u8: torch.Tensor) -> torch.Tensor:
     """uint8 NHWC tensor -> float32 network space, on x's device."""
     mean, std = _mean_std(x_u8.device)
-    return (x_u8.float() / 255.0 - mean) / std
+    return (u8_to_unit(x_u8) - mean) / std
 
 
 def network_to_u8(y: torch.Tensor) -> torch.Tensor:

@@ -383,7 +383,7 @@ def _options(parser, cmd):
     return {o for a in sub._actions for o in a.option_strings}
 
 
-@pytest.mark.parametrize("cmd", ["train", "stylize"])
+@pytest.mark.parametrize("cmd", ["train", "stylize", "export"])
 def test_cli_flags_match_jax(cmd):
     """Every flag of the JAX package's subcommand, plus --device/--cpu."""
     got, want = _options(tcli.build_parser(), cmd), _options(jcli.build_parser(), cmd)
@@ -391,7 +391,7 @@ def test_cli_flags_match_jax(cmd):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["export", "--decoder", "d.npz"], "row 9"),
+    (["export", "--decoder", "d.npz"], "pass --onnx and/or --torchscript"),
     (["stylize", "--decoder", "d.npz", "--content_dir", "c", "--style_image", "s",
       "--data_parallel"], "row 15"),
     (["stylize", "--decoder", "d.npz", "--content_image", "c", "--style_image", "s",

@@ -29,7 +29,11 @@ from fast_neural_style_transfer_tpu_torch.infer import (
     stylize_directory,
     stylize_image_file,
 )
-from fast_neural_style_transfer_tpu_torch.models import load_checkpoint, params_from_jax
+from fast_neural_style_transfer_tpu_torch.models import (
+    TransformerNet,
+    load_checkpoint,
+    params_from_jax,
+)
 from fast_neural_style_transfer_tpu_torch.models import save_params_npz as port_save_params_npz
 
 
@@ -157,8 +161,9 @@ def test_unported_checkpoints_raise(tmp_path):
         load_checkpoint(str(tmp_path))  # an Orbax-style directory
     with pytest.raises(ValueError, match="TorchScript"):
         load_checkpoint(str(tmp_path / "m.pt"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        Stylizer({}, device="cpu", precision="int8")
+    # int8 is ported: quantized once, at construction
+    assert Stylizer(TransformerNet().state_dict(), device="cpu",
+                    precision="int8").qparams["final_conv"]["wmat"].shape == (8, 2592)
 
 
 def test_stylize_image_file_matches_jax(jax_params, ckpt_pth, tmp_path):
@@ -230,7 +235,11 @@ def test_begin_inference_cli(ckpt_pth, tmp_path, capsys):
                           "--output_name", "x.png"])
     assert "saved" in capsys.readouterr().out
     assert Image.open(tmp_path / "o" / "x.png").size == (28, 24)
-    for flags in (["--spatial", "2"], ["--precision", "int8"], ["--data_parallel"]):
+    begin_inference.main(["--model_path", ckpt_pth, "--content_image", src,
+                          "--output_dir", str(tmp_path / "o"), "--device", "cpu",
+                          "--output_name", "q.png", "--precision", "int8"])
+    assert Image.open(tmp_path / "o" / "q.png").size == (28, 24)
+    for flags in (["--spatial", "2"], ["--data_parallel"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             begin_inference.main(["--model_path", ckpt_pth, "--device", "cpu",
                                   *flags])

@@ -412,3 +412,98 @@ def test_capture_inject_kernels_on_card(dtype, ref_rows):
         torch.testing.assert_close(vb, vb_r, rtol=1e-4, atol=1e-6)
         after = cuda_norm.instance_norm_fwd.launches_by_mode
         assert [after[k] - before[k] for k in ("plain", "capture", "inject")] == [1, 1, 2]
+
+
+_CHECKPOINT = ROOT / "evidence" / "soak40k_r5" / "style_transfer_final.pth"
+
+
+@pytest.mark.gpu
+def test_true_division_on_card():
+    """u8_to_network and the int8 scales divide on the card as on the CPU,
+    bit for bit (a Python-number divisor would make CUDA multiply by its
+    float reciprocal: one ulp off for 126 of the 256 u8 values)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from fast_neural_style_transfer_tpu_torch.infer import quantized as q
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+
+    u8 = torch.arange(256, dtype=torch.uint8).view(1, 16, 16, 1).expand(2, 16, 16, 3)
+    assert torch.equal(u8_to_network(u8.cuda()).cpu(), u8_to_network(u8))
+    m = torch.from_numpy(np.random.default_rng(0).uniform(1e-3, 100.0, 4096).astype(np.float32))
+    assert torch.equal(q._div127(m.cuda()).cpu(), q._div127(m))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 8, 16, 16), np.float32))
+    codes, s = q._quantize_act(x)
+    codes_card, s_card = q._quantize_act(x.cuda())
+    assert torch.equal(s_card.cpu(), s) and torch.equal(codes_card.cpu(), codes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+def test_int8_forward_on_card(batch):
+    """The int8 Stylizer on the card against its CPU path on the trained
+    checkpoint. The int8 products are exact on both and the rest of the
+    path is the same IEEE operations, but for the IN kernel, whose f32
+    roundings differ from its plain version's and can flip an activation
+    code: fed the card's IN outputs, the CPU path runs each of the 15 convs
+    on the card's input, so the x it hands each of the 14 IN sites and its
+    output are the card's bit for bit; free running, SSIM >= 0.98. The IN
+    forward kernel launches at the 14 sites of the forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from unittest import mock
+
+    from fast_neural_style_transfer_tpu_torch.infer import quantized as q
+    from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
+
+    img = np.random.default_rng(batch).integers(0, 256, (batch, 128, 128, 3), np.uint8)
+    cpu = Stylizer.from_checkpoint(str(_CHECKPOINT), precision="int8", device="cpu")
+    sty = Stylizer.from_checkpoint(str(_CHECKPOINT), precision="int8", device="cuda")
+    card_x, card_y, real = [], [], q.instance_norm
+
+    def spy(x, *a, **kw):
+        y = real(x, *a, **kw)
+        card_x.append(x.cpu())
+        card_y.append(y.cpu())
+        return y
+
+    before = cuda_norm.instance_norm_fwd.launches
+    with mock.patch.object(q, "instance_norm", spy):
+        got = sty.stylize_u8(img)
+    assert cuda_norm.instance_norm_fwd.launches - before == 14
+    cpu_x, card_in = [], iter(card_y)
+
+    def forced(x, *a, **kw):
+        cpu_x.append(x)
+        return next(card_in)
+
+    with mock.patch.object(q, "instance_norm", forced):
+        out = cpu.stylize_u8(img)
+    assert len(cpu_x) == 14
+    for i, (x_cpu, x_card) in enumerate(zip(cpu_x, card_x)):
+        assert torch.equal(x_cpu, x_card), f"IN site {i}: the conv before it differs"
+    np.testing.assert_array_equal(out, got)
+    want = cpu.stylize_u8(img)
+    assert min(ssim(a / 255.0, b / 255.0) for a, b in zip(got, want)) >= 0.98
+
+
+@pytest.mark.gpu
+def test_onnx_runtime_on_card(tmp_path):
+    """The exported trained stylizer through the port's ONNX runtime on the
+    card against the f32 Stylizer there (TF32 off): u8 max |delta| <= 1,
+    and 14 IN forward kernel launches (relu=False, Relu is its own node)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from fast_neural_style_transfer_tpu_torch.export.onnx_export import build_onnx_model
+    from fast_neural_style_transfer_tpu_torch.export.onnx_runtime import run_model
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import network_to_u8
+
+    sty = Stylizer.from_checkpoint(str(_CHECKPOINT), precision="f32", device="cuda")
+    data = build_onnx_model(Stylizer.load_params(str(_CHECKPOINT)),
+                            input_shape=("batch", 3, "height", "width"))
+    x = np.random.default_rng(0).standard_normal((2, 128, 192, 3)).astype(np.float32)
+    before = cuda_norm.instance_norm_fwd.launches
+    (out,) = run_model(data, {"input_image": np.transpose(x, (0, 3, 1, 2))}, device="cuda")
+    assert cuda_norm.instance_norm_fwd.launches - before == 14
+    got = network_to_u8(out.permute(0, 2, 3, 1)).cpu().numpy().astype(int)
+    want = network_to_u8(torch.from_numpy(sty(x))).numpy().astype(int)
+    assert np.abs(got - want).max() <= 1
