@@ -154,19 +154,16 @@ def phase_device() -> dict:
     return info
 
 
-SOURCES = ("instance_norm", "conv_same_bwd")
-
-
 def phase_build() -> None:
     """nvcc on every source at once, then bind each library."""
     from fast_neural_style_transfer_tpu_torch.ops import _build, cuda_conv, cuda_norm
 
     t0 = time.perf_counter()
-    _build.load_all(SOURCES)
+    _build.load_all(_build.SOURCES)
     cuda_norm._kernels()
     cuda_conv._kernel()
     seconds = time.perf_counter() - t0
-    for name in SOURCES:
+    for name in _build.SOURCES:
         info = _build.build_info[name]
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if re.search(r"registers|spill|Compiling entry|smem", ln)]
@@ -492,7 +489,7 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
 
 def reset_in_counts() -> None:
     """Set the IN forward's and backward's launch counts, in all, by route,
-    by affine and (the forward) by mode, to 0."""
+    by affine and by mode, to 0."""
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
         instance_norm_bwd,
         instance_norm_fwd,
@@ -502,7 +499,8 @@ def reset_in_counts() -> None:
         fn.launches = 0
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
         fn.launches_by_affine = dict.fromkeys(fn.launches_by_affine, 0)
-    instance_norm_fwd.launches_by_mode = dict.fromkeys(instance_norm_fwd.launches_by_mode, 0)
+    for fn in (instance_norm_fwd, instance_norm_bwd):
+        fn.launches_by_mode = dict.fromkeys(fn.launches_by_mode, 0)
 
 
 def nonzero(counts: dict) -> dict:
@@ -990,19 +988,41 @@ def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2,
     import torch
 
     from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+    from fast_neural_style_transfer_tpu_torch.losses import LossTaps
+    from fast_neural_style_transfer_tpu_torch.train.schedule import LossWeightSchedule
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+    from fast_neural_style_transfer_tpu_torch.train.step import loss_fn, make_train_step
+
+    net, vgg, u8, grams, select = _train_inputs(device, seed, size, batch, styles)
+    prec, taps = Precision.f32(), LossTaps()
+    cpu = lambda ts: [t.detach().float().cpu().clone() for t in ts]
+    params = list(net.parameters())
+    before = cpu(params)
+    total, _ = loss_fn(net, vgg, u8, grams, LossWeightSchedule()(0), taps=taps,
+                       precision=prec, dropout=False, style_select=select,
+                       norm_method=norm_method)
+    grads = torch.autograd.grad(total, params)
+    state = create_train_state(net)
+    metrics = make_train_step(dropout=False, num_styles=styles, norm_method=norm_method)(
+        state, vgg, u8, grams, style_select=select)
+    return (float(metrics["loss"]), cpu(grads), float(metrics["grad_norm"]), before,
+            cpu(net.parameters()), state.step)
+
+
+def _train_inputs(device: str, seed: int, size: int, batch: int, styles: int = 1):
+    """The seeded stylizer (f32, TF32 off), random VGG, uint8 batch and
+    style Grams of ``_one_train_step`` -> (net, vgg, u8, grams,
+    style_select)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
     from fast_neural_style_transfer_tpu_torch.losses import (
         LossTaps,
         style_targets_from_features,
     )
     from fast_neural_style_transfer_tpu_torch.models import TransformerNet
     from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
-    from fast_neural_style_transfer_tpu_torch.train.schedule import LossWeightSchedule
-    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
-    from fast_neural_style_transfer_tpu_torch.train.step import (
-        exact_f32,
-        loss_fn,
-        make_train_step,
-    )
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
     from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
 
     prec = Precision.f32()
@@ -1033,18 +1053,7 @@ def _one_train_step(device: str, seed: int, size: int = 128, batch: int = 2,
     else:
         grams = [torch.stack(layer) for layer in zip(*per_style)]
         select = torch.eye(styles, device=device)[torch.arange(batch) % styles]
-    cpu = lambda ts: [t.detach().float().cpu().clone() for t in ts]
-    params = list(net.parameters())
-    before = cpu(params)
-    total, _ = loss_fn(net, vgg, u8, grams, LossWeightSchedule()(0), taps=taps,
-                       precision=prec, dropout=False, style_select=select,
-                       norm_method=norm_method)
-    grads = torch.autograd.grad(total, params)
-    state = create_train_state(net)
-    metrics = make_train_step(dropout=False, num_styles=styles, norm_method=norm_method)(
-        state, vgg, u8, grams, style_select=select)
-    return (float(metrics["loss"]), cpu(grads), float(metrics["grad_norm"]), before,
-            cpu(net.parameters()), state.step)
+    return net, vgg, u8, grams, select
 
 
 @contextlib.contextmanager
@@ -3014,11 +3023,741 @@ def phase_train_parity_sensitivity(seed: int) -> dict:
     return out
 
 
+# -- row 15a: height-sharded inference, training and AdaIN --------------------
+
+SPATIAL_RANKS = 2  # ranks that share the card (gloo) in the spatial phases
+SPATIAL_SIZES = ((2160, 3840), (1001, 1500))  # 4K UHD (aligned); unaligned
+SPATIAL_TRAIN_SIZE, SPATIAL_TRAIN_BATCH, SPATIAL_TRAIN_STEPS = 512, 2, 3
+# one rank's shard slabs on the sharded paths with two ranks: (name, n, c,
+# h, w, active rows, relu); the last three are the training path's
+SHARD_SLABS = [
+    ("4k_norm1", 1, 64, 540, 1920, 540, True),
+    ("4k_norm2_res", 1, 256, 270, 960, 270, True),
+    ("4k_norm4", 1, 32, 1080, 3840, 1080, True),
+    ("1001x1500_norm1_rank1", 1, 64, 252, 750, 250, True),  # the extent mask
+    ("adain_relu4_1_1001x1500", 1, 512, 63, 188, 63, False),
+    ("train512_norm1", 2, 64, 128, 256, 128, True),
+    ("train512_norm2_res", 2, 256, 64, 128, 64, True),
+    ("train512_norm4", 2, 32, 256, 512, 256, True),
+]
+# the IN sites of one sharded stylizer forward per rank: (slab, sites) for
+# the 4K forward and the 512^2 B=2 training step (in2's five sites are
+# timed as norm2's, with ReLU)
+SHARD_SITES = {"4k": [("4k_norm1", 2), ("4k_norm2_res", 11), ("4k_norm4", 1)],
+               "train512": [("train512_norm1", 2), ("train512_norm2_res", 11),
+                            ("train512_norm4", 1)]}
+
+
+def nccl_note(phase: str) -> bool:
+    """Whether this machine can run the phase again with NCCL, one rank a
+    card; if not, say so (it does not count as a pass)."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards >= SPATIAL_RANKS:
+        return True
+    emit(f"{phase}_nccl", ran=False, cards=cards,
+         reason=f"NCCL needs a card per rank ({SPATIAL_RANKS} ranks, {cards} card): "
+                "it refuses two ranks on one card; the phase ran on gloo only")
+    return False
+
+
+def free_card() -> None:
+    """Hand this process's cached device memory back before ranks that
+    share the card start."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rank_counts(counts: list, fn: str = "instance_norm_fwd") -> list:
+    """Each rank's nonzero launches by mode of ``fn``."""
+    return [nonzero(c.get(fn, {}).get("launches_by_mode", {})) for c in counts]
+
+
+def phase_sharded_in_vs_plain(seed: int) -> dict:
+    """The sharded IN modes against their plain versions (the same formulas
+    in PyTorch, run on the card on the same inputs) at the shard slabs of
+    the sharded paths (SHARD_SLABS), f32 and bf16, each call twice for
+    bit-for-bit repeats: the statistics-only route (on the route
+    ``plan_fwd`` picks for the active rows), the sharded apply with (C,)
+    and (N, C) affines (rows past the extent relu(beta)), and at the
+    training slabs the backward's sums and apply with both affines.
+    Tolerances: mean |d| <= 1e-5 + 1e-4|mean|, var relative 1e-4 (f32 sums
+    of up to 4M elements in another order); y as the forward's (f32 1e-4 +
+    1e-4|y|, bf16 1e-4 + 2^-7|y|); the sums 1e-5 of the sum of the terms'
+    magnitudes; dx f32 1e-4 of max|dx| + 1e-4|dx|, bf16 1e-4 of max|dx| +
+    2^-7|dx|."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops import cuda_norm as cn
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst = dict.fromkeys(("stats", "sharded_apply", "bwd_sums", "bwd_apply"), 0.0)
+    for name, n, c, h, w, rows, relu in SHARD_SLABS:
+        base = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
+        gy = torch.randn((n, c, h, w), generator=gen, device="cuda")
+        affines = {"channel": (torch.rand(c, generator=gen, device="cuda") + 0.5,
+                               torch.randn(c, generator=gen, device="cuda")),
+                   "sample": (torch.rand((n, c), generator=gen, device="cuda") + 0.5,
+                              torch.randn((n, c), generator=gen, device="cuda"))}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = base.to(dtype).contiguous(memory_format=torch.channels_last)
+            g = gy.to(dtype).contiguous(memory_format=torch.channels_last)
+            plan = cn.fwd_plan(x, rows=rows, sharded=True)
+            with torch.inference_mode():
+                m, v = cn.instance_norm_moments(x, rows)
+                m2, v2 = cn.instance_norm_moments(x, rows)
+                m_r, v_r = cn._moments(x[:, :, :rows].float(), False)
+            rep = torch.equal(bits(m), bits(m2)) and torch.equal(bits(v), bits(v2))
+            m_over = ((m - m_r).abs() / (1e-5 + 1e-4 * m_r.abs())).max().item()
+            v_rel = ((v - v_r).abs() / v_r).max().item()
+            worst["stats"] = max(worst["stats"], (m - m_r).abs().max().item(),
+                                 (v - v_r).abs().max().item())
+            ok = rep and m_over <= 1 and v_rel <= 1e-4
+            emit("sharded_in_vs_plain", mode="stats", slab=name, shape=[n, c, h, w],
+                 rows=rows, dtype=str(dtype).replace("torch.", ""), route=plan.route,
+                 chunks_per_sample=plan.chunks, mean_err_over_tol=m_over,
+                 var_max_rel_err=v_rel, bitwise_repeatable=rep, ok=ok)
+            if not ok:
+                fail(f"sharded IN statistics at {name} {dtype}")
+            rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+            inv_r = torch.rsqrt(v_r + 1e-5)
+            for kind, (gam, bet) in affines.items():
+                with torch.inference_mode():
+                    y, inv = cn.instance_norm_apply_global(x, gam, bet, m_r, v_r,
+                                                           rows=rows, relu=relu)
+                    y2, _ = cn.instance_norm_apply_global(x, gam, bet, m_r, v_r,
+                                                          rows=rows, relu=relu)
+                    y_r, _ = cn.instance_norm_apply_global_reference(
+                        x, gam, bet, m_r, v_r, rows=rows, relu=relu)
+                rep = torch.equal(bits(y), bits(y2))
+                dy = (y.float() - y_r.float()).abs()
+                over = (dy / (1e-4 + rtol * y_r.float().abs())).max().item()
+                worst["sharded_apply"] = max(worst["sharded_apply"], dy.max().item())
+                ok = rep and over <= 1
+                emit("sharded_in_vs_plain", mode="sharded_apply", slab=name,
+                     shape=[n, c, h, w], rows=rows, affine=kind, relu=relu,
+                     dtype=str(dtype).replace("torch.", ""), y_max_abs_err=dy.max().item(),
+                     y_err_over_tol=over, bitwise_repeatable=rep, ok=ok)
+                if not ok:
+                    fail(f"sharded IN apply at {name} {dtype} {kind}")
+                del y, y2, y_r, dy
+                if not name.startswith("train"):
+                    continue
+                args = (x, g, m_r, inv_r, gam, bet)
+                with torch.inference_mode():
+                    s = cn.instance_norm_bwd_sums(*args, relu=relu)
+                    s2 = cn.instance_norm_bwd_sums(*args, relu=relu)
+                    s_r = cn.instance_norm_bwd_sums_reference(*args, relu=relu)
+                    xh, gf = cn._gated(*args, relu)
+                    scale = (gf.abs().sum(dim=(2, 3)), (gf * xh).abs().sum(dim=(2, 3)))
+                rep = all(torch.equal(bits(a), bits(b)) for a, b in zip(s, s2))
+                s_over = max(((a - b).abs() / (1e-5 * sc + 1e-6)).max().item()
+                             for a, b, sc in zip(s, s_r, scale))
+                worst["bwd_sums"] = max(worst["bwd_sums"], *((a - b).abs().max().item()
+                                                              for a, b in zip(s, s_r)))
+                count = SPATIAL_RANKS * h * w  # the global pixels of the test
+                with torch.inference_mode():
+                    dx = cn.instance_norm_bwd_apply(*args, s_r[0], s_r[1], count, relu=relu)
+                    dx2 = cn.instance_norm_bwd_apply(*args, s_r[0], s_r[1], count,
+                                                     relu=relu)
+                    dx_r = cn.instance_norm_bwd_apply_reference(*args, s_r[0], s_r[1],
+                                                                count, relu=relu)
+                rep = rep and torch.equal(bits(dx), bits(dx2))
+                ddx = (dx.float() - dx_r.float()).abs()
+                top = dx_r.float().abs().max().item()
+                dx_over = (ddx / (1e-4 * top + rtol * dx_r.float().abs())).max().item()
+                worst["bwd_apply"] = max(worst["bwd_apply"], ddx.max().item())
+                ok = rep and s_over <= 1 and dx_over <= 1
+                emit("sharded_in_vs_plain", mode="bwd", slab=name, shape=[n, c, h, w],
+                     affine=kind, relu=relu, dtype=str(dtype).replace("torch.", ""),
+                     sums_err_over_tol=s_over, dx_max_abs_err=ddx.max().item(),
+                     dx_err_over_tol=dx_over, bitwise_repeatable=rep, ok=ok)
+                if not ok:
+                    fail(f"sharded IN backward at {name} {dtype} {kind}")
+                del dx, dx2, dx_r, ddx, xh, gf
+            del x, g
+        del base, gy
+        torch.cuda.empty_cache()
+    emit("sharded_in_vs_plain_worst", **worst)
+    return worst
+
+
+def spatial_compare_rank(plan, params: dict, images: dict, precisions) -> dict:
+    """One rank's sharded stylizer on the u8 images (the Stylizer's own u8
+    path: ``u8_to_network``, the forward, ``network_to_u8``) ->
+    {(name, precision): u8 output}, the seconds of each first call and the
+    peak device bytes each call allocated above what was live before it."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+    from fast_neural_style_transfer_tpu_torch.infer.spatial import stylize_spatial
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import (
+        network_to_u8,
+        u8_to_network,
+    )
+
+    net = _spatial_net(plan, params)
+    out, seconds, peak = {}, {}, {}
+    for name, img in images.items():
+        for p in precisions:
+            prec = canonical_compute_dtype(p)
+            exact_f32(plan.device, prec)
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated(plan.device)
+            torch.cuda.reset_peak_memory_stats(plan.device)
+            t0 = time.perf_counter()
+            x = u8_to_network(torch.from_numpy(img[None]).to(plan.device))
+            y = stylize_spatial(net, x, plan, precision=prec)
+            out[name, p] = network_to_u8(y.float())[0].cpu().numpy()
+            seconds[name, p] = time.perf_counter() - t0
+            peak[name, p] = torch.cuda.max_memory_allocated(plan.device) - live
+            del x, y
+    return {"u8": out if plan.space.index == 0 else None, "seconds": seconds,
+            "peak_bytes": peak}
+
+
+def _spatial_net(plan, params: dict):
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.models import TransformerNet
+
+    net = TransformerNet()
+    net.load_state_dict(params, strict=True)
+    return net.eval().to(plan.device, memory_format=torch.channels_last)
+
+
+def spatial_profile_rank(plan, params: dict, image, precisions) -> dict:
+    """One rank's profile of three sharded stylizer calls of each precision
+    on ``image`` (every rank calls alike: the calls exchange rows), and the
+    exchanges alone, host clock per call (the backend's, not NCCL's where
+    gloo runs): a k9 conv's halo at the 4K input (3 channels, 4 rows of
+    3840) and at norm1's scale (64 channels, 4 rows of 1920), and one IN
+    site's moments (3 x 256 float64)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+    from fast_neural_style_transfer_tpu_torch.infer.spatial import stylize_spatial
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+
+    net = _spatial_net(plan, params)
+    x = u8_to_network(torch.from_numpy(image[None]).to(plan.device))
+    profiles = {}
+    for p in precisions:
+        prec = canonical_compute_dtype(p)
+        exact_f32(plan.device, prec)
+        profiles[p] = profile_calls(
+            lambda: stylize_spatial(net, x, plan, precision=prec), reps=3)
+    collective_ms = {}
+    for key, shape, dtype in (("halo_3x4x3840", (1, 3, 4, 3840), torch.float32),
+                              ("halo_64x4x1920", (1, 64, 4, 1920), torch.float32),
+                              ("moments_3x256", (3, 1, 256), torch.float64)):
+        t = torch.randn(shape, dtype=dtype, device=plan.device)
+        op = (lambda: plan.space.shift(t, 1)) if key.startswith("halo") else (
+            lambda: plan.space.gather(t))
+        op()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            op()
+        torch.cuda.synchronize()
+        collective_ms[key] = (time.perf_counter() - t0) * 1e3 / 20
+    return {"profiles": profiles, "collective_ms": collective_ms,
+            "transport": plan.space.transport_for(x)}
+
+
+def phase_spatial(seed: int) -> dict:
+    """The height-sharded inference path (ROADMAP row 15a): the inference
+    CLI with --spatial 2 on the trained checkpoint at 1001x1500 (unaligned,
+    so the extent path runs), two ranks sharing the card over gloo; each
+    rank's launch counts start at 0 in its own process and are read at its
+    end (``parallel.launch.kernel_counts``): every IN site a statistics
+    launch and a sharded-apply launch (14 + 14 a rank), no plain launch.
+    Then the sharded stylizer against the unsharded Stylizer (reflect pad
+    to a multiple of 4, as the sharded route: ``bucket_multiple=4``) on the
+    card at 2160x3840 and 1001x1500: f32 max |du8| <= 1, bf16 SSIM >= 0.98
+    against the unsharded bf16 Stylizer (and, reported, against f32); the
+    CLI's image against the unsharded f32 Stylizer, max |du8| <= 1."""
+    import torch
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import begin_inference
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.models.weights import load_checkpoint
+    from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+    images = {f"{h}x{w}": smooth_image(h, w, seed=4000 + h) for h, w in SPATIAL_SIZES}
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        h, w = SPATIAL_SIZES[1]
+        src = os.path.join(tmp, "content.png")
+        Image.fromarray(images[f"{h}x{w}"]).save(src)
+        free_card()
+        reset_in_counts()
+        launch.kernel_counts = None
+        t0 = time.perf_counter()
+        begin_inference.main(["--model_path", str(CHECKPOINT), "--content_image", src,
+                              "--output_dir", tmp, "--output_name", "spatial.png",
+                              "--spatial", str(SPATIAL_RANKS)])
+        seconds = time.perf_counter() - t0
+        counts = launch.kernel_counts
+        cli_u8 = np.asarray(Image.open(os.path.join(tmp, "spatial.png")).convert("RGB"))
+    by_mode = rank_counts(counts)
+    expected = {"stats": NUM_IN_SITES, "sharded_apply": NUM_IN_SITES}
+    params = load_checkpoint(str(CHECKPOINT))
+    want, unsharded_peak = {}, {}
+    for p in ("f32", "bf16"):
+        sty = Stylizer(params, precision=p, bucket_multiple=4, device="cuda")
+        for name, img in images.items():
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated()  # what earlier phases left
+            torch.cuda.reset_peak_memory_stats()
+            want[name, p] = sty.stylize_u8(img)
+            unsharded_peak[name, p] = torch.cuda.max_memory_allocated() - live
+        del sty
+    free_card()
+    cli_du8 = _du8(cli_u8, want[f"{h}x{w}", "f32"])
+    ok = (len(by_mode) == SPATIAL_RANKS and all(m == expected for m in by_mode)
+          and cli_u8.shape == (h, w, 3) and cli_du8 <= 1)
+    emit("spatial_cli", ok=ok, ranks=SPATIAL_RANKS, size=[h, w], precision="f32",
+         seconds=seconds, launches_by_mode_per_rank=by_mode,
+         expected_per_rank=expected, max_abs_du8_vs_unsharded_stylizer=cli_du8)
+    if not ok:
+        fail("spatial inference CLI")
+    result["counts"] = counts
+
+    def compare(backend):
+        got = launch(spatial_compare_rank, SPATIAL_RANKS,
+                     (params, images, ("f32", "bf16")), device="cuda", backend=backend)
+        checks = {}
+        for name in images:
+            du8 = _du8(got[0]["u8"][name, "f32"], want[name, "f32"])
+            pair = lambda a, b: float(ssim_card(a[None], b[None])[0])  # noqa: E731
+            s_bf16 = pair(got[0]["u8"][name, "bf16"], want[name, "bf16"])
+            s_f32 = pair(got[0]["u8"][name, "bf16"], want[name, "f32"])
+            good = du8 <= 1 and s_bf16 >= 0.98
+            checks[name] = good
+            emit("spatial_vs_unsharded", backend=backend, size=name, ranks=SPATIAL_RANKS,
+                 f32_max_abs_du8=du8, bf16_ssim_vs_unsharded_bf16=s_bf16,
+                 bf16_ssim_vs_unsharded_f32=s_f32,
+                 seconds={p: got[0]["seconds"][name, p] for p in ("f32", "bf16")},
+                 criterion="f32 max|du8|<=1, bf16 SSIM>=0.98", ok=good)
+        # the peak one call allocates above what was live before it, in MiB:
+        # each rank's (each process also holds a CUDA context and its
+        # weights, not counted) and the unsharded Stylizer's
+        mib = lambda b: b / 2 ** 20  # noqa: E731
+        for name in images:
+            for p in ("f32", "bf16"):
+                ranks_mib = [mib(r["peak_bytes"][name, p]) for r in got]
+                emit("spatial_memory", backend=backend, size=name, precision=p,
+                     rank_call_peak_mib=ranks_mib, ranks_sum_mib=sum(ranks_mib),
+                     unsharded_call_peak_mib=mib(unsharded_peak[name, p]))
+        if not all(checks.values()):
+            fail(f"sharded stylizer against the unsharded Stylizer ({backend})")
+
+    compare("gloo")
+    if nccl_note("spatial"):
+        compare("nccl")
+    return result
+
+
+def spatial_step_rank(plan, seed: int, size: int, batch: int) -> dict:
+    """One f32 sharded step (no dropout, deterministic algorithms) from the
+    seeded inputs of ``_one_train_step`` -> loss, grad norm, the gradients
+    the step hands Adam (summed over the ranks), params after."""
+    from fast_neural_style_transfer_tpu_torch.train.spatial_step import (
+        make_spatial_train_step,
+    )
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+
+    with deterministic_algorithms():
+        net, vgg, u8, grams, _ = _train_inputs(str(plan.device), seed, size, batch)
+        state = create_train_state(net)
+        applied = []
+        update = state.optimizer.update
+
+        def spy(grads):  # the gradients the step applies, as it applies them
+            applied.extend(g.detach().float().cpu().clone() for g in grads)
+            return update(grads)
+
+        state.optimizer.update = spy
+        m = make_spatial_train_step(plan, dropout=False)(state, vgg, u8, grams)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "step": state.step, "grads": applied,
+            "params": [p.detach().float().cpu().clone() for p in net.parameters()]}
+
+
+def spatial_step_profile_rank(plan, seed: int, size: int, batch: int) -> dict:
+    """One rank's profile of three sharded f32 steps after a first one
+    (every rank alike)."""
+    from fast_neural_style_transfer_tpu_torch.train.spatial_step import (
+        make_spatial_train_step,
+    )
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+
+    net, vgg, u8, grams, _ = _train_inputs(str(plan.device), seed, size, batch)
+    state = create_train_state(net)
+    step = make_spatial_train_step(plan, dropout=False)
+    step(state, vgg, u8, grams)
+    return profile_calls(lambda: step(state, vgg, u8, grams), reps=3)
+
+
+def unsharded_step_ms(seed: int, size: int, batch: int, reps: int = 3) -> float:
+    """Host-clock p50 of the unsharded f32 step on the same inputs."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+    from fast_neural_style_transfer_tpu_torch.train.step import make_train_step
+
+    net, vgg, u8, grams, _ = _train_inputs("cuda", seed, size, batch)
+    state, step = create_train_state(net), make_train_step(dropout=False)
+    step(state, vgg, u8, grams)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, vgg, u8, grams)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def phase_spatial_train(seed: int) -> dict:
+    """One f32 sharded training step (two ranks sharing the card, gloo) at
+    512x512, B=2, the full-width stylizer and the seeded VGG, against the
+    unsharded card step on the same inputs, both under deterministic
+    algorithms: loss relative 1e-4, grad norm relative 1e-3 (the JAX
+    package's metric tolerance), every gradient the step hands Adam (summed
+    over the ranks) within 1e-3 of the largest gradient, as
+    ``phase_train_parity`` holds them, gradients and params bit-equal across
+    ranks. Params after the step are held within 2.5e-3, the JAX package's
+    own ``tests/test_spatial_train.py`` bound; that check cannot fail after
+    one step (Adam's first update moves an element by at most about lr =
+    1e-3 whatever its gradient), so the gradients carry the check.
+    Then the main path: the training CLI with --spatial 2 for
+    SPATIAL_TRAIN_STEPS steps at 512x512, B=2 on synthetic JPEGs; each
+    rank's counts read at its end: 14 statistics and 14 sharded-apply
+    launches, 14 backward-sums and 14 backward-apply launches a step, no
+    plain IN launch (the sharded VGG's convs are cuDNN's, as the JAX
+    package's sharded convs are plain lax: no conv1_1 dx kernel)."""
+    import torch
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import begin_training
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+    size, batch = SPATIAL_TRAIN_SIZE, SPATIAL_TRAIN_BATCH
+
+    def parity(backend):
+        free_card()
+        ranks = launch(spatial_step_rank, SPATIAL_RANKS, (seed, size, batch),
+                       device="cuda", backend=backend)
+        with deterministic_algorithms():
+            flat = _one_train_step("cuda", seed, size=size, batch=batch)
+        free_card()
+        loss_rel = abs(ranks[0]["loss"] - flat[0]) / abs(flat[0])
+        norm_rel = abs(ranks[0]["grad_norm"] - flat[2]) / flat[2]
+        gmax = max(g.abs().max().item() for g in flat[1])
+        errs = [(a - b).abs().max().item() for a, b in zip(ranks[0]["grads"], flat[1])]
+        grad_err = max(errs) / gmax
+        worst = int(np.argmax(errs))
+        dp = max((a - b).abs().max().item() for a, b in zip(ranks[0]["params"], flat[4]))
+        equal = all(torch.equal(a, b) for r in ranks[1:]
+                    for key in ("grads", "params") for a, b in zip(r[key], ranks[0][key]))
+        ok = (loss_rel <= 1e-4 and norm_rel <= 1e-3 and grad_err <= 1e-3
+              and len(errs) == len(flat[1]) and dp <= 2.5e-3 and equal
+              and all(r["step"] == 1 for r in ranks))
+        emit("spatial_train_parity", backend=backend, ranks=SPATIAL_RANKS,
+             size=[size, size], batch=batch, precision="f32",
+             card_deterministic_algorithms=True, loss_sharded=ranks[0]["loss"],
+             loss_unsharded=flat[0], loss_rel_err=loss_rel,
+             grad_norm_sharded=ranks[0]["grad_norm"], grad_norm_unsharded=flat[2],
+             grad_norm_rel_err=norm_rel, grad_max_abs_err_over_max_grad=grad_err,
+             worst_grad_param=_param_names(1)[worst][0], max_grad=gmax,
+             param_max_abs_err=dp, grads_and_params_bit_equal_across_ranks=equal,
+             ok=ok)
+        if not ok:
+            fail(f"sharded train step parity ({backend})")
+
+    parity("gloo")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        for i in range(8):
+            Image.fromarray(smooth_image(size + 16 * (i % 3), size + 8 * (i % 2),
+                                         seed=5000 + i)).save(
+                os.path.join(data, f"{i:03d}.jpg"), quality=92)
+        style = os.path.join(tmp, "style.jpg")
+        Image.fromarray(smooth_image(size, size, seed=5999)).save(style, quality=95)
+        out = os.path.join(tmp, "out")
+        free_card()
+        reset_in_counts()
+        launch.kernel_counts = None
+        t0 = time.perf_counter()
+        final = begin_training.main([
+            "--dataset_dir", data, "--style_image", style, "--output_dir", out,
+            "--total_steps", str(SPATIAL_TRAIN_STEPS), "--batch_size", str(batch),
+            "--image_size", str(size), str(size), "--spatial", str(SPATIAL_RANKS),
+            "--training_monitor_content_image", "", "--seed", str(seed),
+            "--num_workers", "2"])
+        seconds = time.perf_counter() - t0
+        counts = launch.kernel_counts
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        wrote = os.path.exists(final)
+    per_step = NUM_IN_SITES * SPATIAL_TRAIN_STEPS
+    expected_fwd = {"stats": per_step, "sharded_apply": per_step}
+    expected_bwd = {"bwd_sums": per_step, "bwd_apply": per_step}
+    fwd, bwd = rank_counts(counts), rank_counts(counts, "instance_norm_bwd")
+    finite = all(np.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0 for r in records)
+    ok = (wrote and finite and records and records[-1]["step"] == SPATIAL_TRAIN_STEPS
+          and len(fwd) == SPATIAL_RANKS and all(m == expected_fwd for m in fwd)
+          and all(m == expected_bwd for m in bwd))
+    emit("spatial_training_cli", ok=ok, ranks=SPATIAL_RANKS, steps=SPATIAL_TRAIN_STEPS,
+         batch=batch, size=[size, size], precision="f32", seconds=seconds,
+         metrics=records, fwd_launches_by_mode_per_rank=fwd,
+         bwd_launches_by_mode_per_rank=bwd, expected_fwd=expected_fwd,
+         expected_bwd=expected_bwd)
+    if not ok:
+        fail("spatial training CLI")
+    if nccl_note("spatial_train"):
+        parity("nccl")
+    return {"counts": counts}
+
+
+def phase_spatial_adain(seed: int, decoder=None) -> dict:
+    """Height-sharded AdaIN (ROADMAP row 15a): ``adain stylize --spatial 2``
+    with the ``adain`` phase's decoder (or the seeded one) on a 1001x1500
+    content and two blended styles, against the unsharded stylize CLI on
+    the card (the same reflect pad to a multiple of 8): f32 max |du8| <= 1.
+    Each rank's counts: the AdaIN transform at relu4_1 is one statistics
+    launch and one sharded-apply launch ((C,) affine: the blended style's
+    sigma, mu)."""
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import adain as adain_cli
+    from fast_neural_style_transfer_tpu_torch.models.adain import save_decoder_npz
+    from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+    h, w = SPATIAL_SIZES[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        if decoder is None:
+            decoder = seeded_adain_decoder(tmp, seed)
+        else:
+            save_decoder_npz(decoder, os.path.join(tmp, "decoder.npz"))
+            decoder = os.path.join(tmp, "decoder.npz")
+        content = os.path.join(tmp, "content.png")
+        Image.fromarray(smooth_image(h, w, seed=4100)).save(content)
+        styles = []
+        for i in range(2):
+            styles.append(os.path.join(tmp, f"style{i}.png"))
+            Image.fromarray(smooth_image(256, 320, seed=4200 + i)).save(styles[-1])
+        base = ["stylize", "--decoder", decoder, "--content_image", content,
+                "--style_image", *styles, "--style_blend", "0.3", "0.7", "--alpha", "0.9"]
+        free_card()
+        reset_in_counts()
+        launch.kernel_counts = None
+        t0 = time.perf_counter()
+        adain_cli.main(base + ["--output", os.path.join(tmp, "s.png"),
+                               "--spatial", str(SPATIAL_RANKS)])
+        seconds = time.perf_counter() - t0
+        counts = launch.kernel_counts
+        adain_cli.main(base + ["--output", os.path.join(tmp, "u.png")])
+        got, want = (np.asarray(Image.open(os.path.join(tmp, f)).convert("RGB"))
+                     for f in ("s.png", "u.png"))
+        if nccl_note("spatial_adain"):  # the CLI's rule picks NCCL, a card a rank
+            adain_cli.main(base + ["--output", os.path.join(tmp, "n.png"),
+                                   "--spatial", str(SPATIAL_RANKS)])
+            n_du8 = _du8(np.asarray(Image.open(os.path.join(tmp, "n.png")).convert("RGB")),
+                         want)
+            emit("spatial_adain_nccl", ran=True, max_abs_du8_vs_unsharded=n_du8,
+                 ok=n_du8 <= 1)
+            if n_du8 > 1:
+                fail("spatial AdaIN over NCCL")
+    by_mode = rank_counts(counts)
+    du8 = _du8(got, want)
+    ok = (got.shape == want.shape == (h, w, 3) and du8 <= 1
+          and by_mode == [{"stats": 1, "sharded_apply": 1}] * SPATIAL_RANKS)
+    emit("spatial_adain_cli", ok=ok, ranks=SPATIAL_RANKS, size=[h, w], precision="f32",
+         seconds=seconds, max_abs_du8_vs_unsharded=du8, output_std=float(got.std()),
+         launches_by_mode_per_rank=by_mode, criterion="max|du8|<=1")
+    if not ok:
+        fail("spatial AdaIN against the unsharded AdaIN CLI")
+    return {"counts": counts}
+
+
+def phase_spatial_profile(seed: int) -> None:
+    """Recorded finding, run on request only (not under ``all``): where the
+    sharded paths' time goes with two ranks sharing the card over gloo. A
+    profile of three sharded 4K stylizer calls a precision on each rank,
+    beside the unsharded Stylizer's host-clock p50 of three calls; the
+    exchanges alone (``spatial_profile_rank``); a profile of three sharded
+    f32 steps at 512x512, B=2, beside the unsharded step's p50."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.models.weights import load_checkpoint
+    from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+    h, w = SPATIAL_SIZES[0]
+    name, image = f"{h}x{w}", smooth_image(h, w, seed=4000 + h)
+    params = load_checkpoint(str(CHECKPOINT))
+    unsharded_ms = {}
+    for p in ("f32", "bf16"):
+        sty = Stylizer(params, precision=p, bucket_multiple=4, device="cuda")
+        sty.stylize_u8(image)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sty.stylize_u8(image)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        unsharded_ms[p] = float(np.median(walls))
+        del sty
+    free_card()
+    got = launch(spatial_profile_rank, SPATIAL_RANKS, (params, image, ("f32", "bf16")),
+                 device="cuda", backend="gloo")
+    emit("spatial_collectives", backend="gloo", transport=got[0]["transport"],
+         ranks=SPATIAL_RANKS, ms_per_call=[r["collective_ms"] for r in got])
+    for p, prof in got[0]["profiles"].items():
+        # one rank of two; the wall includes the exchanges and host work
+        emit("spatial_profile", backend="gloo", size=name, precision=p, rank=0,
+             unsharded_stylizer_wall_ms=unsharded_ms[p],
+             rank1_wall_ms_per_call=got[1]["profiles"][p]["wall_ms_per_call"], **prof)
+    size, batch = SPATIAL_TRAIN_SIZE, SPATIAL_TRAIN_BATCH
+    step_ms = unsharded_step_ms(seed, size, batch)
+    free_card()
+    ranks = launch(spatial_step_profile_rank, SPATIAL_RANKS, (seed, size, batch),
+                   device="cuda", backend="gloo")
+    emit("spatial_train_profile", backend="gloo", rank=0, size=[size, size],
+         batch=batch, precision="f32", unsharded_step_wall_ms=step_ms,
+         rank1_wall_ms_per_call=ranks[1]["wall_ms_per_call"], **ranks[0])
+
+
+def sharded_in_times(seed: int) -> dict:
+    """Per-shard device times (CUDA-graph replay, one process) of the
+    sharded IN modes, f32 and bf16, summed over the IN sites of one rank's
+    share of a 2160x3840 forward (the forward's two modes) and of a 512x512
+    B=2 training step (the backward's two passes), two ranks; beside each,
+    its plain version, its bound (bytes: the active slab read once for the
+    statistics; read once and written once for the apply; x and g read for
+    the sums; x and g read and dx written for the apply) and the library
+    call: ``torch.var_mean`` for the statistics,
+    ``F.instance_norm(use_input_stats=False)`` for the apply, autograd of
+    ``F.instance_norm`` less its forward for the backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from fast_neural_style_transfer_tpu_torch.ops import cuda_norm as cn
+
+    slabs = {s[0]: s for s in SHARD_SLABS}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).replace("torch.", "")
+        tot = {}
+        for path, modes in (("4k", ("stats", "sharded_apply")),
+                            ("train512", ("bwd_sums", "bwd_apply"))):
+            for name, sites in SHARD_SITES[path]:
+                _, n, c, h, w, rows, relu = slabs[name]
+                x = (torch.randn((n, c, h, w), generator=gen, device="cuda") * 2 + 0.5
+                     ).to(dtype).contiguous(memory_format=torch.channels_last)
+                g = torch.randn_like(x).contiguous(memory_format=torch.channels_last)
+                gam = torch.rand(c, generator=gen, device="cuda") + 0.5
+                bet = torch.randn(c, generator=gen, device="cuda")
+                mean, var = cn._moments(x.float(), False)
+                inv = torch.rsqrt(var + 1e-5)
+                sums = cn.instance_norm_bwd_sums_reference(x, g, mean, inv, gam, bet,
+                                                           relu=relu)
+                count = SPATIAL_RANKS * h * w
+                numel, item = x.numel(), x.element_size()
+                reps = 3 if numel * item > 2e8 else 10
+                fns = {
+                    "stats": (lambda: cn.instance_norm_moments(x),
+                              lambda: cn._moments(x.float(), False),
+                              lambda: torch.var_mean(x, dim=(2, 3), unbiased=False),
+                              numel * item, 3 * numel),
+                    "sharded_apply": (
+                        lambda: cn.instance_norm_apply_global(x, gam, bet, mean, var,
+                                                              relu=relu),
+                        lambda: cn.instance_norm_apply_global_reference(
+                            x, gam, bet, mean, var, relu=relu),
+                        lambda: F.instance_norm(x, running_mean=mean[0].to(dtype),
+                                                running_var=var[0].to(dtype),
+                                                weight=gam.to(dtype), bias=bet.to(dtype),
+                                                use_input_stats=False),
+                        2 * numel * item, 3 * numel),
+                    "bwd_sums": (
+                        lambda: cn.instance_norm_bwd_sums(x, g, mean, inv, gam, bet,
+                                                          relu=relu),
+                        lambda: cn.instance_norm_bwd_sums_reference(
+                            x, g, mean, inv, gam, bet, relu=relu),
+                        None, 2 * numel * item, 6 * numel),
+                    "bwd_apply": (
+                        lambda: cn.instance_norm_bwd_apply(x, g, mean, inv, gam, bet,
+                                                           sums[0], sums[1], count,
+                                                           relu=relu),
+                        lambda: cn.instance_norm_bwd_apply_reference(
+                            x, g, mean, inv, gam, bet, sums[0], sums[1], count, relu=relu),
+                        None, 3 * numel * item, 8 * numel),
+                }
+                xl = x.detach().clone().requires_grad_(True)
+                wl = gam.to(dtype).requires_grad_(True)
+                bl = bet.to(dtype).requires_grad_(True)
+
+                def lib_fwd():
+                    y = F.instance_norm(xl, weight=wl, bias=bl)
+                    return F.relu(y) if relu else y
+
+                def lib_bwd():
+                    y = lib_fwd()
+                    torch.autograd.grad(y, (xl, wl, bl), g)
+
+                for mode in modes:
+                    kern, plain, lib, nbytes, flops = fns[mode]
+                    with torch.inference_mode():
+                        k_ms = graph_ms(kern, reps)
+                        p_ms = graph_ms(plain, reps)
+                        lib_ms = graph_ms(lib, reps) if lib else None
+                    if mode == "bwd_sums":  # the library's whole backward
+                        lib_ms = graph_ms(lib_bwd, reps) - graph_ms(lib_fwd, reps)
+                    b_ms, b_by = bound(nbytes, flops, dt)
+                    t = tot.setdefault(mode, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                              "library_ms": 0.0, "bound_by": b_by})
+                    t["ms"] += sites * k_ms
+                    t["plain_ms"] += sites * p_ms
+                    t["bound_ms"] += sites * b_ms
+                    if lib_ms is not None:
+                        t["library_ms"] += sites * lib_ms
+                    emit("sharded_in_times_site", dtype=dt, mode=mode, slab=name,
+                         shape=[n, c, h, w], sites=sites, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                del x, g, xl, fns
+                torch.cuda.empty_cache()
+        # the library has one backward: its time stands under bwd_sums, for
+        # the two passes together
+        tot["bwd_apply"]["library_ms"] = None
+        out[dt] = tot
+        emit("sharded_in_times", dtype=dt, ranks=SPATIAL_RANKS,
+             per="one rank's sites: a 2160x3840 forward (stats, sharded_apply); "
+                 "a 512x512 B=2 training step (bwd_sums, bwd_apply)", **tot)
+    return out
+
+
+
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
-          "multi_style", "video", "adain", "export", "int8", "times", "train_times",
-          "in_fwd_budgets", "in_bwd_budgets")
+          "multi_style", "video", "adain", "export", "int8", "spatial", "spatial_train",
+          "spatial_adain", "times", "train_times", "spatial_times", "in_fwd_budgets",
+          "in_bwd_budgets")
 # recorded findings, run on request only
-EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity")
+EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity", "spatial_profile")
 
 
 def main() -> int:
@@ -3064,6 +3803,7 @@ def main() -> int:
         err["conv"] = run("kernels", phase_conv_bwd_vs_plain, args.seed)
         err["in_stats"] = run("kernels", phase_in_stats_vs_plain, args.seed)
         err["adain_in"] = run("kernels", phase_adain_in_vs_plain, args.seed)
+        err["sharded"] = run("kernels", phase_sharded_in_vs_plain, args.seed)
     if "trained_weights" in phases:
         run("trained_weights", phase_trained_weights)
     served = run("serving", phase_serving) if "serving" in phases else None
@@ -3078,12 +3818,21 @@ def main() -> int:
     exported = (run("export", phase_export, args.seed, adain and adain["decoder"])
                 if "export" in phases else None)
     int8 = run("int8", phase_int8, args.seed) if "int8" in phases else None
+    spatial = run("spatial", phase_spatial, args.seed) if "spatial" in phases else None
+    spatial_train = (run("spatial_train", phase_spatial_train, args.seed)
+                     if "spatial_train" in phases else None)
+    spatial_adain = (run("spatial_adain", phase_spatial_adain, args.seed,
+                         adain and adain["decoder"]) if "spatial_adain" in phases else None)
     if "int8_sensitivity" in phases:
         run("int8_sensitivity", phase_int8_sensitivity, args.seed)
     if "train_parity_sensitivity" in phases:
         run("train_parity_sensitivity", phase_train_parity_sensitivity, args.seed)
+    if "spatial_profile" in phases:
+        run("spatial_profile", phase_spatial_profile, args.seed)
     times = run("times", phase_times, args.seed) if "times" in phases else None
     ttimes = run("train_times", phase_train_times, args.seed) if "train_times" in phases else None
+    stimes = (run("spatial_times", sharded_in_times, args.seed)
+              if "spatial_times" in phases else None)
     if "in_fwd_budgets" in phases:
         run("in_fwd_budgets", phase_in_fwd_budgets, args.seed)
     if "in_bwd_budgets" in phases:
@@ -3188,6 +3937,47 @@ def main() -> int:
             "adain_bound_ms": adain["kernel_times"]["float32"]["conv_dx"]["bound_ms"],
             "adain_library_ms": adain["kernel_times"]["float32"]["conv_dx"]["library_ms"],
         }]
+        def by_mode(counts, fn, mode):
+            """A mode's launches summed over the ranks of a spatial run."""
+            return sum(c.get(fn, {}).get("launches_by_mode", {}).get(mode, 0)
+                       for c in counts)
+
+        sc, tc, ac = spatial["counts"], spatial_train["counts"], spatial_adain["counts"]
+        st, sb = stimes["float32"], stimes["bfloat16"]
+        sharded = {"route": "cuda", "source": src + "instance_norm.cu"}
+        for mode, name in (("stats", "instance_norm_fwd_stats"),
+                           ("sharded_apply", "instance_norm_fwd_sharded_apply")):
+            kernels.append({
+                "name": name, **sharded,
+                "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:61",
+                # the spatial inference CLI (two ranks), then the training CLI
+                # and the AdaIN CLI
+                "launches": by_mode(sc, "instance_norm_fwd", mode),
+                "launches_spatial_train": by_mode(tc, "instance_norm_fwd", mode),
+                "launches_spatial_adain": by_mode(ac, "instance_norm_fwd", mode),
+                "max_abs_err": err["sharded"][mode],
+                # one rank's share (of two) of a 2160x3840 f32 forward's sites
+                **{k: st[mode][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")},
+                "bf16": sb[mode],
+            })
+        kernels.append({
+            "name": "instance_norm_bwd_sharded", **sharded,
+            "replaces": "fast_neural_style_transfer_tpu/ops/pallas_norm.py:115",
+            "launches": (by_mode(tc, "instance_norm_bwd", "bwd_sums")
+                         + by_mode(tc, "instance_norm_bwd", "bwd_apply")),
+            "launches_by_mode": {m: by_mode(tc, "instance_norm_bwd", m)
+                                 for m in ("bwd_sums", "bwd_apply")},
+            "max_abs_err": max(err["sharded"]["bwd_sums"], err["sharded"]["bwd_apply"]),
+            # one rank's share (of two) of a 512x512 B=2 f32 step's 14 sites:
+            # both passes; the library time is autograd's whole IN backward
+            **{k: st["bwd_sums"][k] + st["bwd_apply"][k]
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": st["bwd_apply"]["bound_by"],
+            "library_ms": st["bwd_sums"]["library_ms"],
+            "sums_ms": st["bwd_sums"]["ms"], "apply_ms": st["bwd_apply"]["ms"],
+            "bf16": {"sums": sb["bwd_sums"], "apply": sb["bwd_apply"]},
+        })
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}), flush=True)

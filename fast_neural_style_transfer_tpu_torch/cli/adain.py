@@ -15,8 +15,11 @@ Runs on the card (``--device``, default cuda; ``--cpu`` for the CPU).
 ``export`` writes the two-input ONNX graph (or, with ``--style_image``, a
 content-only one with the style baked in) and the two-input TorchScript
 archive: host work, but for the baked styles' moments, which the VGG
-encodes on the device. ``--data_parallel`` and ``--spatial > 1`` (ROADMAP
-row 15) are not yet ported and exit with a message.
+encodes on the device. ``stylize --spatial N`` splits the content's rows
+over N ranks (``infer/spatial_adain.py``; ``parallel/mesh.py::launch``
+spawns them), single-image mode only, as the JAX package's.
+``--data_parallel`` is not yet ported (ROADMAP row 15b) and exits with a
+message.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "with the given style (pipelined batches)")
     s.add_argument("--batch_size", type=int, default=16, help="Bulk mode device batch size")
     s.add_argument("--data_parallel", action="store_true",
-                   help="Bulk mode: shard batches over several cards (not yet ported)")
+                   help="Bulk mode: shard batches over several cards (not yet "
+                        "ported: ROADMAP row 15b)")
     s.add_argument("--skip_bad_images", action="store_true",
                    help="Bulk mode: log and skip undecodable files instead "
                         "of failing the whole job")
@@ -98,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--vgg_weights", default=None)
     s.add_argument("--precision", default="f32", choices=["f32", "bf16"])
     s.add_argument("--spatial", type=int, default=1,
-                   help="Shard content height over N devices (not yet ported)")
+                   help="Split the content's rows over N ranks (processes)")
     _device_flags(s)
 
     e = sub.add_parser("export", help="export the full pipeline (ONNX / TorchScript)")
@@ -143,7 +147,13 @@ def _masks(paths, n_styles: int, hw):
     return np.stack(out)
 
 
-def _stylize_one(args, device: str) -> str:
+def _stylize_one_rank(plan, args) -> str:
+    return _stylize_one(args, plan.device, plan)
+
+
+def _stylize_one(args, device, plan=None) -> str:
+    """One content image; with ``plan`` (``--spatial``) this rank's share of
+    it, rank 0 writing the file."""
     import numpy as np
     import torch
 
@@ -184,13 +194,26 @@ def _stylize_one(args, device: str) -> str:
     masks = None
     if args.style_masks:
         masks = _masks(args.style_masks, len(styles), (h, w))
-        ph, pw = content.shape[1] - h, content.shape[2] - w
-        if ph or pw:  # mirror the content's pad so mask pixels track it
-            masks = np.pad(masks, ((0, 0), (0, ph), (0, pw)), mode="edge")
+    if plan is not None:
+        from fast_neural_style_transfer_tpu_torch.infer.spatial_adain import (
+            stylize_arbitrary_spatial,
+        )
+
+        out = stylize_arbitrary_spatial(
+            decoder, vgg, content_orig, styles, plan, alpha=args.alpha,
+            style_weights=args.style_blend, style_masks=masks, precision=prec).float()
+        if plan.space.index:
+            return out_path
+    else:
+        if masks is not None:
+            ph, pw = content.shape[1] - h, content.shape[2] - w
+            if ph or pw:  # mirror the content's pad so mask pixels track it
+                masks = np.pad(masks, ((0, 0), (0, ph), (0, pw)), mode="edge")
+        with torch.inference_mode():
+            out = stylize_arbitrary(decoder, vgg, content, styles, alpha=args.alpha,
+                                    style_weights=args.style_blend, style_masks=masks,
+                                    precision=prec)[:, :h, :w, :].float()
     with torch.inference_mode():
-        out = stylize_arbitrary(decoder, vgg, content, styles, alpha=args.alpha,
-                                style_weights=args.style_blend, style_masks=masks,
-                                precision=prec)[:, :h, :w, :].float()
         if args.preserve_color == "luma":
             mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
             std = torch.as_tensor(IMAGENET_STD, device=dev)
@@ -295,15 +318,22 @@ def main(argv=None):
         return _export(args, device)
 
     # stylize
-    if args.spatial > 1:
-        raise SystemExit("--spatial > 1: spatial sharding is not yet ported "
-                         "(ROADMAP row 15)")
     if args.data_parallel:
         raise SystemExit("--data_parallel: multi-card stylization is not yet "
-                         "ported (ROADMAP row 15)")
+                         "ported (ROADMAP row 15b)")
     if (args.content_image is None) == (args.content_dir is None):
         raise SystemExit("pass exactly one of --content_image (single) or "
                          "--content_dir (bulk)")
+    if args.spatial > 1:
+        if args.content_dir is not None:
+            raise SystemExit("--content_dir and --spatial cannot be combined yet; "
+                             "run spatial jobs per image, or use --data_parallel "
+                             "(ROADMAP row 15b) on directory batches")
+        from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
+        from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+        return launch(_stylize_one_rank, args.spatial, (args,),
+                      device=resolve_device(device).type, deadline_s=float("inf"))[0]
     if args.content_dir is None:
         return _stylize_one(args, device)
     if args.preserve_color == "match":

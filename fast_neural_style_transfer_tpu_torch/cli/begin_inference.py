@@ -7,8 +7,11 @@
 Single images and ``--content_dir`` jobs run on the card (``--device``).
 ``--style_index`` / ``--style_blend`` pick or blend the styles of a
 multi-style checkpoint. ``--precision int8`` quantizes the convs
-(``infer/quantized.py``). ``--spatial > 1`` and ``--data_parallel`` are not
-yet ported and exit with a message.
+(``infer/quantized.py``). ``--spatial N`` splits one image's rows over N
+ranks (``infer/spatial.py``; ``parallel/mesh.py::launch`` spawns them: NCCL
+with a card each, gloo where they share one or run on the CPU); it refuses
+int8 and ``--content_dir``, as the JAX package's does. ``--data_parallel``
+is not yet ported (ROADMAP row 15b) and exits with a message.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device batch size for --content_dir jobs")
     p.add_argument("--data_parallel", action="store_true",
                    help="Shard --content_dir batches over several cards "
-                        "(not yet ported)")
+                        "(not yet ported: ROADMAP row 15b)")
     p.add_argument("--skip_bad_images", action="store_true",
                    help="--content_dir jobs: log and skip undecodable files "
                         "instead of failing the whole job")
@@ -52,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["f32", "bf16", "int8"],
                    help="compute dtype (int8: quantized convs, float32 elsewhere)")
     p.add_argument("--spatial", type=int, default=1,
-                   help="Shard image height over N devices (not yet ported)")
+                   help="Split the image's rows over N ranks (processes)")
     p.add_argument("--style_index", type=int, default=None,
                    help="Multi-style checkpoints: which trained style to use")
     p.add_argument("--style_blend", type=float, nargs="+", default=None,
@@ -69,10 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.spatial > 1:
-        raise SystemExit("--spatial > 1: spatial sharding is not yet ported")
     if args.data_parallel:
-        raise SystemExit("--data_parallel: multi-card inference is not yet ported")
+        raise SystemExit("--data_parallel: multi-card inference is not yet ported "
+                         "(ROADMAP row 15b)")
 
     from fast_neural_style_transfer_tpu_torch.infer import (
         stylize_directory,
@@ -85,6 +87,23 @@ def main(argv=None) -> None:
         raise SystemExit(str(e))
     size = tuple(args.size) if args.size else None
     os.makedirs(args.output_dir, exist_ok=True)
+    if args.spatial > 1:
+        if args.content_dir:
+            raise SystemExit(
+                "--content_dir and --spatial cannot be combined yet; run spatial "
+                "jobs per image, or use --data_parallel (ROADMAP row 15b) on "
+                "directory batches")
+        if args.precision == "int8":
+            raise SystemExit("--precision int8 is not supported with --spatial "
+                             "(the halo-exchange forward is float-only)")
+        from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
+        from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+        dev = resolve_device(args.device)
+        out_path = launch(_spatial_rank, args.spatial, (vars(args), style, size),
+                          device=dev.type, deadline_s=float("inf"))[0]
+        print(f"saved {out_path}")
+        return
     if args.content_dir:
         written = stylize_directory(
             args.model_path, args.content_dir, args.output_dir,
@@ -102,6 +121,42 @@ def main(argv=None) -> None:
         size=size, precision=args.precision, style=style,
         preserve_color=args.preserve_color, device=args.device)
     print(f"saved {out_path}")
+
+
+def _spatial_rank(plan, opts: dict, style, size) -> str:
+    """One rank of ``--spatial``: the whole image in, this rank's rows
+    stylized, the output gathered; rank 0 writes the file."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+    from fast_neural_style_transfer_tpu_torch.infer.spatial import stylize_spatial
+    from fast_neural_style_transfer_tpu_torch.infer.stylize import load_style_params
+    from fast_neural_style_transfer_tpu_torch.models.transformer import TransformerNet
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
+    from fast_neural_style_transfer_tpu_torch.utils import load_image, save_image
+
+    prec = canonical_compute_dtype(opts["precision"])
+    exact_f32(plan.device, prec)
+    net = TransformerNet()
+    net.load_state_dict(load_style_params(opts["model_path"], style), strict=True)
+    net = net.eval().to(plan.device, memory_format=torch.channels_last)
+    x = torch.from_numpy(load_image(opts["content_image"], size)).to(plan.device)
+    out = stylize_spatial(net, x, plan, precision=prec).float()
+    path = os.path.join(opts["output_dir"], opts["output_name"])
+    if plan.space.index == 0:
+        if opts["preserve_color"] == "luma":
+            from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
+            from fast_neural_style_transfer_tpu_torch.utils.image_io import (
+                IMAGENET_MEAN,
+                IMAGENET_STD,
+            )
+
+            mean = torch.as_tensor(IMAGENET_MEAN, device=out.device)
+            std = torch.as_tensor(IMAGENET_STD, device=out.device)
+            out01 = luminance_transfer(out * std + mean, x * std + mean)
+            out = (out01 - mean) / std
+        save_image(out.cpu().numpy(), path)
+    return path
 
 
 if __name__ == "__main__":

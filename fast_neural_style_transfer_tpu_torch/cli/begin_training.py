@@ -8,8 +8,8 @@ Runs on the card (``--device cpu`` for the CPU). Several ``--style_image``
 paths train one multi-style net (conditional IN); ``--in_stats onepass``
 trains with one-pass IN statistics; a reference training ``.pth`` as
 ``--checkpoint_path`` resumes fully (Adam state, schedule, iteration).
-``--spatial > 1`` (ROADMAP row 15) is not yet ported and exits with a
-message. ``--profile_start`` / ``--profile_stop`` trace with
+``--spatial N`` splits each image's rows over N ranks, spawned by the loop
+(``train/loop.py``, ``train/spatial_step.py``). ``--profile_start`` / ``--profile_stop`` trace with
 ``torch.profiler``.
 """
 
@@ -73,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grad_accum", type=int, default=1,
                    help="Average gradients over N micro-batches per optimizer update")
     p.add_argument("--spatial", type=int, default=1,
-                   help="Shard image height over N devices (not yet ported)")
+                   help="Split each image's rows over N ranks (processes)")
     p.add_argument("--remat", action="store_true",
                    help="Recompute the stylizer and the stylized-branch VGG in "
                         "the backward (torch.utils.checkpoint)")
@@ -104,9 +104,6 @@ def main(argv=None) -> str:
     style = args.style_image
     if isinstance(style, list):
         style = style[0] if len(style) == 1 else tuple(style)
-    if args.spatial > 1:
-        raise SystemExit("--spatial > 1: spatial sharding is not yet ported "
-                         "(ROADMAP row 15)")
 
     from fast_neural_style_transfer_tpu_torch.train.loop import (
         TrainConfig,
@@ -144,6 +141,7 @@ def main(argv=None) -> str:
         profile_start=args.profile_start,
         profile_stop=args.profile_stop,
         device=args.device,
+        spatial=args.spatial,
     )
     return train_style_transfer(cfg)
 

@@ -179,6 +179,28 @@
 //   2. in_bwd_apply: every block adds its channels' chunk partials, the
 //      first chunk's block writes the per-sample dgamma / dbeta, and each
 //      block writes dx for its own chunk from a second read of x and g.
+//
+// Sharded forms (one image's rows split over ranks, ops/sharded.py; the JAX
+// package's instance_norm_sharded, plain jnp with two psums). The wrapper
+// (ops/cuda_norm.py::ShardedInstanceNormFn) puts a cross-rank all_reduce
+// between a statistics pass and an apply pass:
+//   forward: the statistics-only route (y null): either forward kernel with
+//     no y, the one-launch kernel ending with its merge (step 4), the
+//     two-launch kernel with in_fwd_partial alone; x is read once and each
+//     (sample, channel)'s (mean, var) of this rank's rows written. The
+//     wrapper merges the ranks' (count, mean, M2) (Chan's formula, f64, rank
+//     order), then in_fwd_inject normalizes with the global moments. Bound:
+//     1.5x the unsharded forward's bytes: x read twice, y written once.
+//     sstride (pixels from one sample's first pixel to the next's, >= hw)
+//     lets both passes cover a prefix of each sample's rows (the extent mask
+//     of an unaligned height) where they lie: a copy of the active rows
+//     would read and write the slab once more.
+//   backward: fnst_instance_norm_bwd_sums (in_bwd_partial, then
+//     in_bwd_sum_chunks adds the chunk partials in order) gives this rank's
+//     gated sum(g) and sum(g * xhat); the wrapper sums them over the ranks,
+//     and fnst_instance_norm_bwd_apply (in_bwd_apply with the sums given)
+//     writes dx. Bound: read x and g twice, write dx once (5 slab passes
+//     against the unsharded bound's 3).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -567,8 +589,8 @@ __global__ void __launch_bounds__(kThreads, 5)
                    const float* __restrict__ beta, float* __restrict__ mean_out,
                    float* __restrict__ inv_out, float* __restrict__ part,
                    float* __restrict__ ss, unsigned* __restrict__ counters,
-                   int hw, int c, int gstride, int chunk, int chunks,
-                   float eps, StatsIO io) {
+                   int hw, int sstride, int c, int gstride, int chunk,
+                   int chunks, float eps, StatsIO io) {
   // two lane-sum arrays, which merge_chunks takes as one of 2 * kThreads
   __shared__ __align__(16) float red[2 * kThreads * VEC];
   __shared__ int s_last;
@@ -576,7 +598,7 @@ __global__ void __launch_bounds__(kThreads, 5)
   const int j = blockIdx.x;
   const int p0 = j * chunk;
   const int np = min(chunk, hw - p0);
-  const T* xc = x + ((size_t)s * hw + p0) * c;
+  const T* xc = x + ((size_t)s * sstride + p0) * c;
   float* pm = part + ((size_t)s * chunks + j) * 2 * c;
   for (int cv0 = 0; cv0 < c / VEC; cv0 += kThreads) {
     const Group g = group<VEC>(c, cv0);
@@ -632,10 +654,11 @@ __global__ void __launch_bounds__(kThreads, 5)
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
     in_fwd_apply(const T* __restrict__ x, const float* __restrict__ ss,
-                 T* __restrict__ y, int hw, int c, int chunk, int relu) {
+                 T* __restrict__ y, int hw, int sstride, int c, int chunk,
+                 int relu) {
   const int s = blockIdx.y;
   const int p0 = blockIdx.x * chunk;
-  const size_t off = ((size_t)s * hw + p0) * c;
+  const size_t off = ((size_t)s * sstride + p0) * c;
   apply_chunk<T, VEC>(x + off, y + off, min(chunk, hw - p0), c,
                       ss + (size_t)s * 2 * c, relu);
 }
@@ -650,8 +673,8 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
     in_fwd_inject(const T* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, T* __restrict__ y,
-                  float* __restrict__ inv_out, int hw, int c, int gstride,
-                  int chunk, float eps, int relu, StatsIO io) {
+                  float* __restrict__ inv_out, int hw, int sstride, int c,
+                  int gstride, int chunk, float eps, int relu, StatsIO io) {
   extern __shared__ __align__(16) float inject_cst[];  // scale (c), shift (c)
   const int s = blockIdx.y;
   const int p0 = blockIdx.x * chunk;
@@ -666,7 +689,7 @@ __global__ void __launch_bounds__(kThreads)
     inject_cst[c + ch] = shift;
   }
   __syncthreads();
-  const size_t off = ((size_t)s * hw + p0) * c;
+  const size_t off = ((size_t)s * sstride + p0) * c;
   apply_chunk<T, VEC>(x + off, y + off, min(chunk, hw - p0), c, inject_cst,
                       relu);
 }
@@ -681,9 +704,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                     const float* __restrict__ beta, T* __restrict__ y,
                     float* __restrict__ mean_out, float* __restrict__ inv_out,
                     float* __restrict__ part, float* __restrict__ ss,
-                    unsigned* __restrict__ counters, int n, int hw, int c,
-                    int gstride, int chunk, int chunks, float eps, int relu,
-                    StatsIO io) {
+                    unsigned* __restrict__ counters, int n, int hw,
+                    int sstride, int c, int gstride, int chunk, int chunks,
+                    float eps, int relu, StatsIO io) {
   extern __shared__ __align__(16) unsigned char resident_smem_raw[];
   T* xs = reinterpret_cast<T*>(resident_smem_raw);
   float* red = reinterpret_cast<float*>(
@@ -699,7 +722,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int j = (int)(s_ticket % (unsigned)chunks);
   const int p0 = j * chunk;
   const int np = min(chunk, hw - p0);
-  const size_t off = ((size_t)s * hw + p0) * c;
+  const size_t off = ((size_t)s * sstride + p0) * c;
 
   // 2. the chunk into shared memory
   if constexpr (VEC > 1) {
@@ -777,6 +800,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                          gamma + (size_t)s * gstride,
                          beta + (size_t)s * gstride, mean_out + (size_t)s * c,
                          inv_out + (size_t)s * c, ss_s, io, s);
+  // the statistics-only route ends with the merge: no y
+  if (y == nullptr) return;
   __syncthreads();
   if (tid == 0) {
     unsigned* merged = counters + 1 + n + s;
@@ -801,7 +826,7 @@ struct FwdArgs {
   float* inv;
   float* work;
   unsigned* counters;
-  int n, hw, c, gstride, chunk, chunks;
+  int n, hw, sstride, c, gstride, chunk, chunks;
   float eps;
   int relu, onepass, is_bf16, vec, resident;
   cudaStream_t stream;
@@ -824,12 +849,13 @@ cudaError_t launch_two(const FwdArgs& a) {
   cudaError_t err = zero_counters(a, 1 + 2 * (size_t)a.n);
   if (err != cudaSuccess) return err;
   in_fwd_partial<T, VEC, kOnePass><<<grid, kThreads, 0, a.stream>>>(
-          x, a.gamma, a.beta, a.mean, a.inv, a.work, ss, a.counters, a.hw, a.c,
-          a.gstride, a.chunk, a.chunks, a.eps, a.io);
+          x, a.gamma, a.beta, a.mean, a.inv, a.work, ss, a.counters, a.hw,
+          a.sstride, a.c, a.gstride, a.chunk, a.chunks, a.eps, a.io);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  // the statistics-only route: launch 1 alone
+  if (err != cudaSuccess || a.y == nullptr) return err;
   in_fwd_apply<T, VEC><<<grid, kThreads, 0, a.stream>>>(
-      x, ss, static_cast<T*>(a.y), a.hw, a.c, a.chunk, a.relu);
+      x, ss, static_cast<T*>(a.y), a.hw, a.sstride, a.c, a.chunk, a.relu);
   return cudaGetLastError();
 }
 
@@ -895,8 +921,8 @@ cudaError_t launch_resident(const FwdArgs& a) {
   in_fwd_resident<T, VEC, kOnePass>
       <<<a.n * a.chunks, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.x), a.gamma, a.beta, static_cast<T*>(a.y), a.mean,
-      a.inv, a.work, ss, a.counters, a.n, a.hw, a.c, a.gstride, a.chunk,
-      a.chunks, a.eps, a.relu, a.io);
+      a.inv, a.work, ss, a.counters, a.n, a.hw, a.sstride, a.c, a.gstride,
+      a.chunk, a.chunks, a.eps, a.relu, a.io);
   return cudaGetLastError();
 }
 
@@ -905,7 +931,7 @@ cudaError_t launch_inject(const FwdArgs& a) {
   const dim3 grid(a.chunks, a.n);
   in_fwd_inject<T, VEC><<<grid, kThreads, 2 * sizeof(float) * a.c, a.stream>>>(
       static_cast<const T*>(a.x), a.gamma, a.beta, static_cast<T*>(a.y), a.inv,
-      a.hw, a.c, a.gstride, a.chunk, a.eps, a.relu, a.io);
+      a.hw, a.sstride, a.c, a.gstride, a.chunk, a.eps, a.relu, a.io);
   return cudaGetLastError();
 }
 
@@ -1003,7 +1029,34 @@ __global__ void __launch_bounds__(kTileC * kLanes)
   work[plane + slot] = sgx;
 }
 
-template <typename T>
+// The sharded backward's local sums (launch 2 of fnst_instance_norm_bwd_sums):
+// adds in_bwd_partial's chunk partials (2, n, chunks, c) in chunk order into
+// sums (2, n, c), sum(g) then sum(g * xhat) of each (sample, channel) over
+// this rank's pixels. One thread a (sample, channel).
+__global__ void __launch_bounds__(kThreads)
+    in_bwd_sum_chunks(const float* __restrict__ work, float* __restrict__ sums,
+                      int n, int c, int chunks) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n * c) return;
+  const int s = i / c;
+  const int ch = i % c;
+  const size_t plane = (size_t)n * chunks * c;
+  float sg = 0.f, sgx = 0.f;
+  for (int j = 0; j < chunks; ++j) {
+    const size_t slot = ((size_t)s * chunks + j) * c + ch;
+    sg += work[slot];
+    sgx += work[plane + slot];
+  }
+  sums[i] = sg;
+  sums[(size_t)n * c + i] = sgx;
+}
+
+// Launch 2 of the two-launch backward. kGiven (the sharded backward's apply):
+// work holds the caller's sums (2, n, c), sum(g) then sum(g * xhat) over
+// every rank's pixels, `count` pixels in all; dgamma and dbeta are not
+// written. Otherwise work holds in_bwd_partial's chunk partials and count is
+// hw.
+template <typename T, bool kGiven>
 __global__ void __launch_bounds__(kTileC * kLanes)
     in_bwd_apply(const T* __restrict__ x, const T* __restrict__ g,
                  const float* __restrict__ mean, const float* __restrict__ inv,
@@ -1011,7 +1064,8 @@ __global__ void __launch_bounds__(kTileC * kLanes)
                  const float* __restrict__ beta,
                  const float* __restrict__ work, T* __restrict__ dx,
                  float* __restrict__ dgamma, float* __restrict__ dbeta, int n,
-                 int hw, int c, int gstride, int chunk, int chunks, int relu) {
+                 int hw, int c, int gstride, int chunk, int chunks, int relu,
+                 float count) {
   const int cx = threadIdx.x;
   const int ly = threadIdx.y;
   const int ch = blockIdx.y * kTileC + cx;
@@ -1019,7 +1073,7 @@ __global__ void __launch_bounds__(kTileC * kLanes)
 
   // each pixel lane adds every kLanes-th chunk partial, then lane 0 the lanes
   float sg = 0.f, sgx = 0.f;
-  if (ch < c) {
+  if (!kGiven && ch < c) {
     const size_t plane = (size_t)n * chunks * c;
     for (int j = ly; j < chunks; j += kLanes) {
       const size_t slot = ((size_t)s * chunks + j) * c + ch;
@@ -1034,16 +1088,20 @@ __global__ void __launch_bounds__(kTileC * kLanes)
   sh[1][ly][cx] = sgx;
   __syncthreads();
   if (ly == 0 && ch < c) {
-    for (int l = 1; l < kLanes; ++l) {
-      sg += sh[0][l][cx];
-      sgx += sh[1][l][cx];
-    }
-    const float fhw = (float)hw;
-    s_a[cx] = sg / fhw;
-    s_b[cx] = sgx / fhw;
-    if (blockIdx.x == 0) {
-      dgamma[(size_t)s * c + ch] = sgx;
-      dbeta[(size_t)s * c + ch] = sg;
+    if (kGiven) {
+      s_a[cx] = work[(size_t)s * c + ch] / count;
+      s_b[cx] = work[((size_t)n + s) * c + ch] / count;
+    } else {
+      for (int l = 1; l < kLanes; ++l) {
+        sg += sh[0][l][cx];
+        sgx += sh[1][l][cx];
+      }
+      s_a[cx] = sg / count;
+      s_b[cx] = sgx / count;
+      if (blockIdx.x == 0) {
+        dgamma[(size_t)s * c + ch] = sgx;
+        dbeta[(size_t)s * c + ch] = sg;
+      }
     }
   }
   __syncthreads();
@@ -1392,9 +1450,41 @@ cudaError_t launch_bwd_two(const BwdArgs& a) {
       a.chunk, a.chunks, a.relu);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  in_bwd_apply<T><<<grid, block, 0, a.stream>>>(
+  in_bwd_apply<T, false><<<grid, block, 0, a.stream>>>(
       xt, gt, a.mean, a.inv, a.gamma, a.beta, a.work, static_cast<T*>(a.dx),
-      a.dgamma, a.dbeta, a.n, a.hw, a.c, a.gstride, a.chunk, a.chunks, a.relu);
+      a.dgamma, a.dbeta, a.n, a.hw, a.c, a.gstride, a.chunk, a.chunks, a.relu,
+      (float)a.hw);
+  return cudaGetLastError();
+}
+
+// The sharded backward (fnst_instance_norm_bwd_sums, then the caller's
+// all_reduce, then fnst_instance_norm_bwd_apply): the two-launch kernel's
+// passes with the merge of the sums handed to the caller. sums: (2, n, c).
+template <typename T>
+cudaError_t launch_bwd_sums(const BwdArgs& a, float* sums) {
+  const dim3 block(kTileC, kLanes);
+  const dim3 grid(a.chunks, (a.c + kTileC - 1) / kTileC, a.n);
+  in_bwd_partial<T><<<grid, block, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.mean, a.inv,
+      a.gamma, a.beta, a.work, a.n, a.hw, a.c, a.gstride, a.chunk, a.chunks,
+      a.relu);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int pairs = a.n * a.c;
+  in_bwd_sum_chunks<<<(pairs + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
+      a.work, sums, a.n, a.c, a.chunks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_apply_sums(const BwdArgs& a, const float* sums,
+                                  float count) {
+  const dim3 block(kTileC, kLanes);
+  const dim3 grid(a.chunks, (a.c + kTileC - 1) / kTileC, a.n);
+  in_bwd_apply<T, true><<<grid, block, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.mean, a.inv,
+      a.gamma, a.beta, sums, static_cast<T*>(a.dx), nullptr, nullptr, a.n,
+      a.hw, a.c, a.gstride, a.chunk, a.chunks, a.relu, count);
   return cudaGetLastError();
 }
 
@@ -1453,7 +1543,10 @@ struct BwdCapacityOp {
 
 }  // namespace
 
-// x, y: (n, hw, c) NHWC, f32 or bf16 (is_bf16). gamma, beta: f32, sample
+// x, y: (n, hw, c) NHWC, f32 or bf16 (is_bf16): the first hw pixels of
+// each sample, sample s at pixel s * sstride (sstride >= hw; hw for a dense
+// slab). y null: the statistics-only route, which writes mean, inv and var
+// and no y. gamma, beta: f32, sample
 // s's row at s * gstride: one (c,) row for all (gstride 0) or (n, c) rows
 // (gstride c). mean, inv: (n, c) f32 out. var: (n, c) f32 out, the
 // variance inv was taken of (capture mode), or null. work: f32 scratch of
@@ -1468,12 +1561,12 @@ struct BwdCapacityOp {
 extern "C" int fnst_instance_norm_fwd(const void* x, const void* gamma,
                                       const void* beta, void* y, void* mean,
                                       void* inv, void* var, void* work,
-                                      void* counters, int n, int hw, int c,
-                                      int gstride, int chunk, int chunks,
-                                      float eps, int relu, int onepass,
-                                      int is_bf16, int vec, int resident,
-                                      void* stream) {
-  if (n < 1 || hw < 1 || c < 1 || chunk < 1 || c % vec != 0 ||
+                                      void* counters, int n, int hw,
+                                      int sstride, int c, int gstride,
+                                      int chunk, int chunks, float eps,
+                                      int relu, int onepass, int is_bf16,
+                                      int vec, int resident, void* stream) {
+  if (n < 1 || hw < 1 || sstride < hw || c < 1 || chunk < 1 || c % vec != 0 ||
       (gstride != 0 && gstride != c) || chunks != (hw + chunk - 1) / chunk) {
     return cudaErrorInvalidValue;
   }
@@ -1481,7 +1574,7 @@ extern "C" int fnst_instance_norm_fwd(const void* x, const void* gamma,
                   static_cast<const float*>(beta), y,
                   static_cast<float*>(mean), static_cast<float*>(inv),
                   static_cast<float*>(work), static_cast<unsigned*>(counters),
-                  n, hw, c, gstride, chunk, chunks, eps, relu, onepass,
+                  n, hw, sstride, c, gstride, chunk, chunks, eps, relu, onepass,
                   is_bf16, vec, resident, static_cast<cudaStream_t>(stream),
                   StatsIO{static_cast<float*>(var), nullptr, nullptr, 0, 1.f,
                           0.f},
@@ -1502,10 +1595,11 @@ extern "C" int fnst_instance_norm_fwd(const void* x, const void* gamma,
 extern "C" int fnst_instance_norm_fwd_stats(
     const void* x, const void* gamma, const void* beta, const void* ref_mean,
     const void* ref_var, void* y, void* mean, void* inv, void* var, void* work,
-    void* counters, int n, int hw, int c, int gstride, int rstride, int chunk,
-    int chunks, float eps, float blend, float keep, int relu, int is_bf16,
-    int vec, int route, void* stream) {
-  if (n < 1 || hw < 1 || c < 1 || chunk < 1 || c % vec != 0 ||
+    void* counters, int n, int hw, int sstride, int c, int gstride,
+    int rstride, int chunk, int chunks, float eps, float blend, float keep,
+    int relu, int is_bf16, int vec, int route, void* stream) {
+  if (n < 1 || hw < 1 || sstride < hw || c < 1 || chunk < 1 || c % vec != 0 ||
+      y == nullptr ||
       (gstride != 0 && gstride != c) || (rstride != 0 && rstride != c) ||
       route < 0 || route > 2 || ref_mean == nullptr || ref_var == nullptr ||
       chunks != (hw + chunk - 1) / chunk) {
@@ -1515,7 +1609,7 @@ extern "C" int fnst_instance_norm_fwd_stats(
                   static_cast<const float*>(beta), y,
                   static_cast<float*>(mean), static_cast<float*>(inv),
                   static_cast<float*>(work), static_cast<unsigned*>(counters),
-                  n, hw, c, gstride, chunk, chunks, eps, relu, 0,
+                  n, hw, sstride, c, gstride, chunk, chunks, eps, relu, 0,
                   is_bf16, vec, route == 1, static_cast<cudaStream_t>(stream),
                   StatsIO{static_cast<float*>(var),
                           static_cast<const float*>(ref_mean),
@@ -1579,4 +1673,63 @@ extern "C" int fnst_instance_norm_bwd(const void* x, const void* g,
 extern "C" int fnst_instance_norm_bwd_capacity(int is_bf16, int vec,
                                                int* blocks_per_sm, int* sms) {
   return dispatch<BwdCapacityOp>(is_bf16, vec, 0, blocks_per_sm, sms);
+}
+
+// The sharded backward, pass 1 (no extent: every pixel of the slab counts):
+// sums (2, n, c) f32 out, each (sample, channel)'s gated sum(g) and sum(g *
+// xhat) over this rank's hw pixels, xhat from the global (mean, inv). The
+// two-launch backward's in_bwd_partial, whose chunk partials (work: 2 * n *
+// chunks * c f32) in_bwd_sum_chunks then adds in chunk order. The caller sums
+// them over the ranks (the all_reduce) and passes the totals to
+// fnst_instance_norm_bwd_apply; these local sums are also the rank's share
+// of dbeta and dgamma. Other arguments as for fnst_instance_norm_bwd.
+extern "C" int fnst_instance_norm_bwd_sums(const void* x, const void* g,
+                                           const void* mean, const void* inv,
+                                           const void* gamma, const void* beta,
+                                           void* sums, void* work, int n,
+                                           int hw, int c, int gstride,
+                                           int chunk, int chunks, int relu,
+                                           int is_bf16, void* stream) {
+  if (n < 1 || hw < 1 || c < 1 || chunk < 1 || (gstride != 0 && gstride != c) ||
+      chunks != (hw + chunk - 1) / chunk) {
+    return cudaErrorInvalidValue;
+  }
+  const BwdArgs a{x, g, static_cast<const float*>(mean),
+                  static_cast<const float*>(inv),
+                  static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), nullptr, nullptr, nullptr,
+                  static_cast<float*>(work), nullptr, n, hw, c, gstride, chunk,
+                  chunks, relu, 0, static_cast<cudaStream_t>(stream)};
+  float* out = static_cast<float*>(sums);
+  return is_bf16 ? launch_bwd_sums<__nv_bfloat16>(a, out)
+                 : launch_bwd_sums<float>(a, out);
+}
+
+// The sharded backward, pass 2: dx = gamma * inv * (g - a - xhat * b) over
+// this rank's pixels, a = sums[0] / count and b = sums[1] / count from the
+// totals over every rank (sums: (2, n, c) f32, count: the pixels of a sample
+// over all the ranks); x and g are read a second time. The two-launch
+// backward's in_bwd_apply with the sums given. Other arguments as for
+// fnst_instance_norm_bwd_sums.
+extern "C" int fnst_instance_norm_bwd_apply(const void* x, const void* g,
+                                            const void* mean, const void* inv,
+                                            const void* gamma, const void* beta,
+                                            const void* sums, void* dx, int n,
+                                            int hw, int c, int gstride,
+                                            int chunk, int chunks, float count,
+                                            int relu, int is_bf16,
+                                            void* stream) {
+  if (n < 1 || hw < 1 || c < 1 || chunk < 1 || !(count >= (float)hw) ||
+      (gstride != 0 && gstride != c) || chunks != (hw + chunk - 1) / chunk) {
+    return cudaErrorInvalidValue;
+  }
+  const BwdArgs a{x, g, static_cast<const float*>(mean),
+                  static_cast<const float*>(inv),
+                  static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), dx, nullptr, nullptr,
+                  nullptr, nullptr, n, hw, c, gstride, chunk, chunks, relu, 0,
+                  static_cast<cudaStream_t>(stream)};
+  const float* in = static_cast<const float*>(sums);
+  return is_bf16 ? launch_bwd_apply_sums<__nv_bfloat16>(a, in, count)
+                 : launch_bwd_apply_sums<float>(a, in, count);
 }

@@ -51,7 +51,7 @@ class ArbitraryStylizer:
     content chrominance); "match" re-colors the style per content and
     cannot use a cached style. ``bucket_multiple``: content is reflect-padded
     up to a multiple of it, and the padded rows enter the AdaIN moments.
-    ``sharding`` is not yet ported (ROADMAP row 15).
+    ``sharding`` is not yet ported (ROADMAP row 15b).
     """
 
     def __init__(
@@ -72,7 +72,7 @@ class ArbitraryStylizer:
                 "defeats the cached style")
         if sharding is not None:
             raise NotImplementedError(
-                "sharded AdaIN serving is not yet ported (ROADMAP row 15)")
+                "sharded AdaIN serving is not yet ported (ROADMAP row 15b)")
         self.device = resolve_device(device)
         self.precision = canonical_compute_dtype(precision)
         self.preserve_color = preserve_color
@@ -167,7 +167,7 @@ def stylize_directory_arbitrary(
 
     if data_parallel:
         raise NotImplementedError(
-            "data-parallel AdaIN stylization is not yet ported (ROADMAP row 15)")
+            "data-parallel AdaIN stylization is not yet ported (ROADMAP row 15b)")
     styler = ArbitraryStylizer(
         load_decoder(decoder_path), resolve_params(vgg_weights),
         precision=precision, preserve_color=preserve_color, device=device)

@@ -85,7 +85,8 @@ class Stylizer:
                 f"{preserve_color!r})")
         if sharding is not None:
             raise NotImplementedError(
-                "sharded / data-parallel stylization is not yet ported")
+                "sharded / data-parallel stylization is not yet ported "
+                "(ROADMAP row 15b)")
         self.device = resolve_device(device)
         self.preserve_color = preserve_color
         self.bucket_multiple = bucket_multiple
@@ -242,7 +243,8 @@ def stylize_directory(
     for ``stylize_image_file``. Returns the written paths (``None`` where a
     bad image was skipped)."""
     if data_parallel:
-        raise NotImplementedError("data-parallel stylization is not yet ported")
+        raise NotImplementedError(
+            "data-parallel stylization is not yet ported (ROADMAP row 15b)")
     files = scan_image_files(content_dir)
     stylizer = Stylizer.from_checkpoint(model_path, precision=precision,
                                         style=style, device=device,

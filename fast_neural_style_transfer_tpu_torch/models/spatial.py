@@ -1,0 +1,143 @@
+"""Height-sharded model forwards (the JAX package's ``models/spatial.py``).
+
+Mirrors of ``TransformerNet.forward`` and ``VGG19Features.forward`` built
+from ``ops/sharded.py``: a halo exchange per layer makes the convs exact
+and instance norm takes its statistics over the whole image, so outputs
+equal the unsharded forwards' to rounding (``tests/test_torch_spatial*.py``
+hold them against the JAX package's).
+
+Local H per rank: divisible by 4 for the stylizer (two stride-2 encoder
+convs), by 8 for VGG through relu4_3 (three 2x2 pools).
+
+Dropout masks are per (sample, channel): every rank draws the same mask
+from a generator seeded alike on every rank, which is channel dropout on
+the unsharded image.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+from fast_neural_style_transfer_tpu_torch.models.transformer import DROPOUT_RATE
+from fast_neural_style_transfer_tpu_torch.models.vgg import tap_walk
+from fast_neural_style_transfer_tpu_torch.ops import sharded as sh
+
+
+def transformer_forward_sharded(
+    net: nn.Module,
+    x: torch.Tensor,
+    *,
+    axis,
+    precision: Precision = Precision.f32(),
+    generator: Optional[torch.Generator] = None,
+    dropout: bool = True,
+    extent: Optional[int] = None,
+) -> torch.Tensor:
+    """The sharded mirror of a single-style ``TransformerNet``'s forward on
+    this rank's NHWC slab ``x``; NHWC out, x's dtype. Dropout runs in
+    training mode with ``dropout``, its masks from ``generator``.
+
+    ``extent`` (global active H at input scale, a multiple of 4): rows below
+    it compute as the unsharded forward on an extent-tall input. Reflect
+    convs pin the boundary rows an unsharded reflect pad would supply,
+    instance norms leave the dead rows out of their moments, transpose
+    convs zero the one boundary row their padding expects, and the extent
+    follows the stride-2 downs and x2 ups. A k9 stride-1 conv's active
+    outputs read all 4 pad rows, a k9 stride-2 conv's 3, a k3 stride-2
+    conv's none. None (training, aligned serving) is the plain path."""
+    if getattr(net, "num_styles", 1) > 1:
+        raise ValueError("the sharded forward is single-style (bake_style first)")
+    in_dtype = x.dtype
+    dt = precision.compute_dtype
+    h = x.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=torch.channels_last)
+    e = extent  # global active H at the current scale
+
+    def conv(layer, v, stride=1):
+        c = layer.conv
+        if e is not None:
+            pad = c.weight.shape[-1] // 2
+            pin = pad if stride == 1 else pad - stride + 1
+            if pin > 0:
+                v = sh.pin_reflect_rows(v, e, pin, axis)
+        return sh.reflect_conv2d_sharded(v, c.weight, c.bias, stride=stride,
+                                         axis=axis).to(dt)
+
+    def up(layer, v):
+        c = layer.upsample_conv
+        if e is not None:
+            # transpose-conv padding is zeros: the one input row past the
+            # extent that active outputs read must be zero, not slab padding
+            v = sh.set_global_row(v, e, torch.zeros_like(v[:, :, :1]), axis)
+        return sh.conv_transpose2d_sharded(v, c.weight, c.bias, axis=axis).to(dt)
+
+    def inorm(v, norm, relu):
+        return sh.instance_norm_sharded(v, norm.weight, norm.bias, relu=relu,
+                                        axis=axis, extent=e)
+
+    # pins happen inside conv/up at the input scale, so e advances between
+    # the conv and its instance norm (whose mask needs the output scale)
+    h = conv(net.conv1, h, 2)
+    e = None if e is None else e // 2
+    h = inorm(h, net.norm1, True)
+    h = conv(net.conv2, h, 2)
+    e = None if e is None else e // 2
+    h = inorm(h, net.norm2, True)
+    drop = net.training and dropout
+    for block in net.res_blocks:
+        y = inorm(conv(block.conv1, h), block.in1, True)
+        if drop:
+            u = torch.rand((y.shape[0], y.shape[1], 1, 1), generator=generator,
+                           device=y.device)
+            y = torch.where(u < 1.0 - DROPOUT_RATE, y / (1.0 - DROPOUT_RATE),
+                            torch.zeros((), dtype=y.dtype, device=y.device)).to(y.dtype)
+        y = inorm(conv(block.conv2, y), block.in2, False)
+        h = h + y
+    h = up(net.up1, h)
+    e = None if e is None else e * 2
+    h = inorm(h, net.norm3, True)
+    h = up(net.up2, h)
+    e = None if e is None else e * 2
+    h = inorm(h, net.norm4, True)
+    return conv(net.final_conv, h).permute(0, 2, 3, 1).to(in_dtype)
+
+
+def vgg_features_sharded(
+    vgg: nn.Module,
+    x: torch.Tensor,
+    taps: Sequence[str],
+    *,
+    axis,
+    precision: Precision = Precision.f32(),
+    extent: Optional[int] = None,
+) -> List[torch.Tensor]:
+    """The sharded mirror of ``VGG19Features.forward``: ``tap_walk`` with
+    halo-exchanging convs and local pools; NHWC slab in, NHWC taps out.
+
+    ``extent`` (global active H at input scale, a multiple of 8): rows at or
+    past it are zeroed after every conv, which makes rows below it equal to
+    an unsharded forward on an input of exactly ``extent`` rows (zero-SAME
+    convs see zeros past the true boundary either way), provided the
+    caller zero-fills the input past it. Pools halve the extent."""
+    if extent is None:
+        def conv_fn(name, conv, h):
+            return sh.conv2d_same_sharded(h, conv.weight, conv.bias, axis=axis)
+
+        pool_fn = sh.max_pool2d_sharded
+    else:
+        state = {"e": extent}
+
+        def conv_fn(name, conv, h):
+            out = sh.conv2d_same_sharded(h, conv.weight, conv.bias, axis=axis)
+            # re-zero the dead rows: the bias (then the ReLU) would revive
+            # them and leak into the next layer's boundary rows
+            return sh.mask_rows_from(out, state["e"], axis)
+
+        def pool_fn(h):
+            state["e"] //= 2
+            return sh.max_pool2d_sharded(h)
+
+    return tap_walk(vgg, x, taps, conv_fn=conv_fn, pool_fn=pool_fn, precision=precision)

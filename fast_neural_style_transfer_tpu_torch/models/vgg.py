@@ -17,7 +17,7 @@ gradients flow through to the input, never into the weights.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -97,36 +97,57 @@ class VGG19Features(nn.Module):
         precision: Precision = Precision.f32(),
     ) -> List[torch.Tensor]:
         """NHWC in; the requested activations, NHWC, in tap order."""
-        for t in taps:
-            if t not in ADDRESSABLE:
-                raise ValueError(f"unknown VGG19 tap {t!r}; valid: {ADDRESSABLE}")
-        wanted = set(taps)
-        deepest = max(ADDRESSABLE.index(t) for t in taps)
+        return tap_walk(self, x, taps, conv_fn=_conv_same, pool_fn=max_pool2d,
+                        precision=precision)
 
-        acts: Dict[str, torch.Tensor] = {}
-        h = x.permute(0, 3, 1, 2).to(precision.compute_dtype)
-        h = h.contiguous(memory_format=torch.channels_last)
-        pos = -1
-        for name, cout in _CFG:
+
+def _conv_same(name: str, conv: nn.Conv2d, h: torch.Tensor) -> torch.Tensor:
+    return conv2d_same(h, conv.weight, conv.bias,
+                       small_cin_kernel=name == SMALL_CIN_CONV)
+
+
+def tap_walk(
+    vgg: nn.Module,
+    x: torch.Tensor,
+    taps: Sequence[str],
+    *,
+    conv_fn: Callable[[str, nn.Conv2d, torch.Tensor], torch.Tensor],
+    pool_fn: Callable[[torch.Tensor], torch.Tensor],
+    precision: Precision = Precision.f32(),
+) -> List[torch.Tensor]:
+    """The VGG19 walk with its conv and pool supplied (the JAX package's
+    ``tap_walk``): ``conv_fn(name, conv, h)`` and ``pool_fn(h)`` on (N, C,
+    H, W) channels_last activations; the height-sharded forward
+    (``models/spatial.py``) passes halo-exchanging ones. NHWC in; the
+    requested activations, NHWC, in tap order."""
+    for t in taps:
+        if t not in ADDRESSABLE:
+            raise ValueError(f"unknown VGG19 tap {t!r}; valid: {ADDRESSABLE}")
+    wanted = set(taps)
+    deepest = max(ADDRESSABLE.index(t) for t in taps)
+
+    acts: Dict[str, torch.Tensor] = {}
+    h = x.permute(0, 3, 1, 2).to(precision.compute_dtype)
+    h = h.contiguous(memory_format=torch.channels_last)
+    pos = -1
+    for name, cout in _CFG:
+        if pos >= deepest:
+            break
+        if cout:
+            h = conv_fn(name, getattr(vgg, name), h)
+            pos += 1
+            if name in wanted:
+                acts[name] = h
             if pos >= deepest:
                 break
-            if cout:
-                conv = getattr(self, name)
-                h = conv2d_same(h, conv.weight, conv.bias,
-                                small_cin_kernel=name == SMALL_CIN_CONV)
-                pos += 1
-                if name in wanted:
-                    acts[name] = h
-                if pos >= deepest:
-                    break
-                rname = "relu" + name[4:]
-                h = torch.relu(h)
-                pos += 1
-                if rname in wanted:
-                    acts[rname] = h
-            else:
-                h = max_pool2d(h)
-                pos += 1
-                if name in wanted:
-                    acts[name] = h
-        return [acts[t].permute(0, 2, 3, 1) for t in taps]
+            rname = "relu" + name[4:]
+            h = torch.relu(h)
+            pos += 1
+            if rname in wanted:
+                acts[rname] = h
+        else:
+            h = pool_fn(h)
+            pos += 1
+            if name in wanted:
+                acts[name] = h
+    return [acts[t].permute(0, 2, 3, 1) for t in taps]

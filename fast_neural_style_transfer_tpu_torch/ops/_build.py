@@ -21,6 +21,8 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# every source of the package, for building ahead (parallel.mesh.launch)
+SOURCES = ("instance_norm", "conv_same_bwd")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -26,6 +26,11 @@ kernel normalized with) and inject (``instance_norm_apply_stats``: normalize
 with reference moments, or a blend of them with x's own). Both share the
 kernel's scale/shift and apply code, so capture then inject at blend 1 is
 the plain forward bit for bit. ``launches_by_mode`` counts them.
+
+The sharded forms (an image's rows split over ranks, ``ops/sharded.py``):
+the statistics-only route and the inject apply with the ranks' merged
+moments forward, the sums and dx passes with the ranks' summed sums
+backward (``ShardedInstanceNormFn``; the section at the end of this file).
 """
 
 from __future__ import annotations
@@ -60,6 +65,8 @@ class _Lib(NamedTuple):
     bwd: Callable
     fwd_capacity: Callable
     bwd_capacity: Callable
+    bwd_sums: Callable
+    bwd_apply: Callable
 
 
 def _kernels() -> _Lib:
@@ -67,12 +74,12 @@ def _kernels() -> _Lib:
     if _fns is None:
         lib = _build.load("instance_norm")
         fwd = lib.fnst_instance_norm_fwd
-        fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                         + [ctypes.c_float] + [ctypes.c_int] * 5
                         + [ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         fwd_stats = lib.fnst_instance_norm_fwd_stats
-        fwd_stats.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+        fwd_stats.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                               + [ctypes.c_float] * 3 + [ctypes.c_int] * 4
                               + [ctypes.c_void_p])
         fwd_stats.restype = ctypes.c_int
@@ -86,7 +93,14 @@ def _kernels() -> _Lib:
         bwd_cap = lib.fnst_instance_norm_bwd_capacity
         bwd_cap.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
         bwd_cap.restype = ctypes.c_int
-        _fns = _Lib(fwd, fwd_stats, bwd, fwd_cap, bwd_cap)
+        bwd_sums = lib.fnst_instance_norm_bwd_sums
+        bwd_sums.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        bwd_sums.restype = ctypes.c_int
+        bwd_apply = lib.fnst_instance_norm_bwd_apply
+        bwd_apply.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                              + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        bwd_apply.restype = ctypes.c_int
+        _fns = _Lib(fwd, fwd_stats, bwd, fwd_cap, bwd_cap, bwd_sums, bwd_apply)
     return _fns
 
 
@@ -178,7 +192,8 @@ def fwd_smem_bytes(chunk: int, c: int, itemsize: int, vec: int) -> int:
 
 
 def plan_fwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
-             blocks_per_sm: int, one_launch: bool = True) -> FwdPlan:
+             blocks_per_sm: int, one_launch: bool = True,
+             sharded: bool = False) -> FwdPlan:
     """The forward's kernel and chunks for n samples of hw pixels x c
     channels, on a card of ``sms`` SMs that holds ``blocks_per_sm``
     one-launch blocks each (``capacity`` = their product).
@@ -191,7 +206,12 @@ def plan_fwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
     capacity: a slab up to ~capacity * 80 KB (21 MB on an H100).
     Otherwise (a larger slab, a pixel row above the budget, or
     ``one_launch=False``) two launches: G for about four blocks per SM, at
-    most _FWD_PARTIALS / c chunks, at least one pixel each."""
+    most _FWD_PARTIALS / c chunks (the partials a sample's last block
+    merges), at least one pixel each. ``sharded`` (the sharded statistics
+    pass and apply) drops that cap: a shard is often one large sample (a 4K
+    image's rows), which the cap would give 32 blocks at 256 channels; the
+    statistics' merge then reads G * c partials, ~1 MB from L2 at c = 512,
+    against a slab of hundreds of MB, and the apply merges nothing."""
     row = c * itemsize
     capacity = blocks_per_sm * sms
     fixed = fwd_smem_bytes(0, c, itemsize, vec)
@@ -206,7 +226,10 @@ def plan_fwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
         if g <= capacity:
             return FwdPlan("one_launch", vec, chunk, g, n * g, chunk * row,
                            fwd_smem_bytes(chunk, c, itemsize, vec), capacity)
-    g = max(1, min(hw, -(-4 * sms // n), _FWD_PARTIALS // c))
+    g = -(-4 * sms // n)
+    if not sharded:
+        g = min(g, max(_FWD_PARTIALS // c, 1))
+    g = max(1, min(hw, g))
     chunk = -(-hw // g)
     g = -(-hw // chunk)
     return FwdPlan("two_launch", vec, chunk, g, n * g, chunk * row, 0, capacity)
@@ -277,15 +300,19 @@ def instance_norm_fwd(
 
 
 def fwd_plan(x: torch.Tensor, *, onepass: bool = False,
-             one_launch: bool = True) -> FwdPlan:
+             one_launch: bool = True, rows: Optional[int] = None,
+             sharded: bool = False) -> FwdPlan:
     """The plan ``instance_norm_fwd`` follows for the CUDA tensor x (with
-    ``one_launch=False``: the two-launch kernel's plan, for timing it)."""
+    ``one_launch=False``: the two-launch kernel's plan, for timing it);
+    ``rows``: over the first ``rows`` rows of each sample only (the sharded
+    forms' extent); ``sharded``: ``plan_fwd``'s."""
     n, c, h, w = x.shape
     is_bf16 = x.dtype == torch.bfloat16
     vec = pack_vec(c, x.element_size(), x.data_ptr())
     per_sm, sms = _capacity(x.device, "fwd_capacity", int(is_bf16), vec, int(onepass))
-    return plan_fwd(n, h * w, c, x.element_size(), vec, sms=sms,
-                    blocks_per_sm=per_sm, one_launch=one_launch)
+    return plan_fwd(n, (h if rows is None else rows) * w, c, x.element_size(), vec,
+                    sms=sms, blocks_per_sm=per_sm, one_launch=one_launch,
+                    sharded=sharded)
 
 
 def _affine_rows(gamma: torch.Tensor, beta: torch.Tensor, c: int):
@@ -334,8 +361,8 @@ def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     err = _kernels().fwd(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
         mean.data_ptr(), inv.data_ptr(), var.data_ptr() if capture else None,
-        work.data_ptr(), counters.data_ptr(), n, h * w, c, gstride, plan.chunk,
-        plan.chunks, float(eps),
+        work.data_ptr(), counters.data_ptr(), n, h * w, h * w, c, gstride,
+        plan.chunk, plan.chunks, float(eps),
         int(relu), int(onepass), int(x.dtype == torch.bfloat16), plan.vec,
         int(plan.route == "one_launch"), stream)
     if err != 0:
@@ -348,11 +375,14 @@ def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 # calls that launched a forward kernel: in all, by route ("inject": the
 # blend-1 inject kernel), by affine ("channel": one (C,) row; "sample": an
 # (N, C) row per sample) and by mode ("plain"; "capture": var written too;
-# "inject": reference moments)
+# "inject": reference moments; the sharded forward's two passes, "stats":
+# the statistics-only route, and "sharded_apply": the inject kernel with the
+# global moments)
 instance_norm_fwd.launches = 0
 instance_norm_fwd.launches_by_route = {"one_launch": 0, "two_launch": 0, "inject": 0}
 instance_norm_fwd.launches_by_affine = {"channel": 0, "sample": 0}
-instance_norm_fwd.launches_by_mode = {"plain": 0, "capture": 0, "inject": 0}
+instance_norm_fwd.launches_by_mode = {"plain": 0, "capture": 0, "inject": 0,
+                                      "stats": 0, "sharded_apply": 0}
 
 
 def _ref_rows(ref: torch.Tensor, n: int, c: int, name: str) -> Tuple[torch.Tensor, int]:
@@ -442,8 +472,8 @@ def instance_norm_apply_stats(
     err = _kernels().fwd_stats(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), rm.data_ptr(), rv.data_ptr(),
         y.data_ptr(), mean.data_ptr(), inv.data_ptr(), var.data_ptr(),
-        work.data_ptr(), counters.data_ptr(), n, h * w, c, gstride, rstride,
-        plan.chunk, plan.chunks, float(eps), float(blend), float(1.0 - blend),
+        work.data_ptr(), counters.data_ptr(), n, h * w, h * w, c, gstride,
+        rstride, plan.chunk, plan.chunks, float(eps), float(blend), float(1.0 - blend),
         int(relu), int(x.dtype == torch.bfloat16), plan.vec, route[1], stream)
     if err != 0:
         raise RuntimeError(f"instance-norm inject kernel launch failed: CUDA error "
@@ -469,19 +499,39 @@ def instance_norm_bwd_reference(
     (dx in x's dtype, per-sample dgamma (N, C) f32, per-sample dbeta (N, C)
     f32)."""
     hw = x.shape[2] * x.shape[3]
-    col = lambda t: t.float()[:, :, None, None]
-    # (C,) -> (1, C, 1, 1); (N, C) -> (N, C, 1, 1)
-    aff = lambda t: t.float().reshape(-1, x.shape[1])[:, :, None, None]
-    xhat = (x.float() - col(mean)) * col(inv)
-    gf = g.float()
-    gam = aff(gamma)
-    if relu:
-        gf = torch.where(xhat * gam + aff(beta) > 0,
-                         gf, torch.zeros((), device=gf.device))
+    xhat, gf = _gated(x, g, mean, inv, gamma, beta, relu)
     g_sum = gf.sum(dim=(2, 3))
     gx_sum = (gf * xhat).sum(dim=(2, 3))
-    dx = (gam * col(inv)) * (gf - col(g_sum) / hw - xhat * (col(gx_sum) / hw))
-    return dx.to(x.dtype), gx_sum, g_sum
+    return _dx(x, xhat, gf, inv, gamma, g_sum, gx_sum, hw), gx_sum, g_sum
+
+
+def _col(t: torch.Tensor) -> torch.Tensor:
+    """(N, C) -> (N, C, 1, 1) float32."""
+    return t.float()[:, :, None, None]
+
+
+def _aff(t: torch.Tensor, c: int) -> torch.Tensor:
+    """An affine (C,) -> (1, C, 1, 1), (N, C) -> (N, C, 1, 1), float32."""
+    return t.float().reshape(-1, c)[:, :, None, None]
+
+
+def _gated(x, g, mean, inv, gamma, beta, relu: bool):
+    """The backward kernels' xhat = (x - mean) * inv and gradient g, gated
+    with ``relu`` by xhat * gamma + beta > 0 in f32."""
+    xhat = (x.float() - _col(mean)) * _col(inv)
+    gf = g.float()
+    if relu:
+        gf = torch.where(xhat * _aff(gamma, x.shape[1]) + _aff(beta, x.shape[1]) > 0,
+                         gf, torch.zeros((), device=gf.device))
+    return xhat, gf
+
+
+def _dx(x, xhat, gf, inv, gamma, g_sum, gx_sum, count):
+    """dx = gamma * inv * (g - sum(g) / count - xhat * sum(g * xhat) / count)
+    in x's dtype."""
+    gam = _aff(gamma, x.shape[1])
+    dx = (gam * _col(inv)) * (gf - _col(g_sum) / count - xhat * (_col(gx_sum) / count))
+    return dx.to(x.dtype)
 
 
 # one-launch backward: most bytes of x and g together a block holds, so
@@ -543,7 +593,10 @@ def plan_bwd(n: int, hw: int, c: int, itemsize: int, vec: int, *, sms: int,
     whole samples a wave holds at the fewest chunks. Otherwise (a larger
     slab, a pixel row above the budget, or ``one_launch=False``) two
     launches, element by element: G = ``_num_chunks`` per tile of 32
-    channels."""
+    channels. The sharded backward (``ShardedInstanceNormFn``) always takes
+    the two-launch kernel's passes, each launched on its own: the ranks'
+    sums are added between them, and the one-launch kernel merges inside
+    its launch."""
     row = 2 * c * itemsize
     capacity = blocks_per_sm * sms
     fixed = bwd_smem_bytes(0, c, itemsize, vec)
@@ -640,16 +693,24 @@ def _launch_bwd(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"instance-norm backward kernel launch failed: CUDA "
                            f"error {err} ({plan})")
-    instance_norm_bwd.launches += 1
-    instance_norm_bwd.launches_by_route[plan.route] += 1
-    _count_affine(instance_norm_bwd, gstride)
+    _count_bwd(plan.route, "plain", gstride)
     return dx, dgamma, dbeta
 
 
-# calls that launched a backward kernel: in all, by route, and by affine
+def _count_bwd(route: str, mode: str, gstride: int) -> None:
+    instance_norm_bwd.launches += 1
+    instance_norm_bwd.launches_by_route[route] += 1
+    instance_norm_bwd.launches_by_mode[mode] += 1
+    _count_affine(instance_norm_bwd, gstride)
+
+
+# calls that launched a backward kernel: in all, by route, by affine and by
+# mode ("plain"; the sharded backward's two passes, "bwd_sums" and
+# "bwd_apply", both on the two-launch kernel's passes)
 instance_norm_bwd.launches = 0
 instance_norm_bwd.launches_by_route = {"one_launch": 0, "two_launch": 0}
 instance_norm_bwd.launches_by_affine = {"channel": 0, "sample": 0}
+instance_norm_bwd.launches_by_mode = {"plain": 0, "bwd_sums": 0, "bwd_apply": 0}
 
 
 class InstanceNormFn(torch.autograd.Function):
@@ -677,3 +738,306 @@ class InstanceNormFn(torch.autograd.Function):
         if gamma.dim() == 1:
             dgn, dbn = dgn.sum(dim=0), dbn.sum(dim=0)
         return dx, dgn.to(gamma.dtype), dbn.to(beta.dtype), None, None, None
+
+
+# -- the sharded forms (one image's rows split over ranks, ops/sharded.py) ----
+#
+# The JAX package's ``ops/sharded.py::instance_norm_sharded`` takes global
+# statistics with two ``lax.psum``s. Here each direction is two passes with a
+# cross-rank exchange between them: forward, this rank's moments (the
+# statistics-only route), then the ranks' moments merged (Chan's formula),
+# then the inject kernel with the global moments; backward, this rank's
+# gated sum(g) and sum(g * xhat), then their sum over the ranks, then dx.
+# ``rows``: the first ``rows`` rows of each sample are active (an unaligned
+# height's extent), the rest are left out of the statistics and written as
+# relu(beta), the JAX formula's value there. The exchange goes through
+# ``axis.gather`` (``parallel/mesh.py::SpaceAxis``): every rank gets every
+# rank's rows exactly and merges them in rank order, so all ranks hold the
+# same bits.
+
+_units: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _unit_affine(c: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ones, zeros) of (C,) float32 on ``device``: the statistics-only
+    route's affine, which its merge reads and nothing uses."""
+    key = (c, str(device))
+    if key not in _units:
+        _units[key] = (torch.ones(c, device=device), torch.zeros(c, device=device))
+    return _units[key]
+
+
+def instance_norm_moments(x: torch.Tensor, rows: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's (mean, biased var), each (N, C) float32 (stable), over
+    the first ``rows`` rows of each sample (None: all); zeros where ``rows``
+    is 0. A CPU tensor takes the plain version; a CUDA tensor launches the
+    statistics-only route of the kernel ``plan_fwd`` picks for those pixels
+    (x read once, no y; mode "stats"), or raises."""
+    n, c, h, w = x.shape
+    rows = h if rows is None else rows
+    if not 0 <= rows <= h:
+        raise ValueError(f"rows {rows} outside [0, {h}]")
+    if rows == 0:
+        zero = torch.zeros((n, c), dtype=torch.float32, device=x.device)
+        return zero, zero.clone()
+    if x.device.type == "cpu":
+        return _moments(x[:, :, :rows].float(), False)
+    if x.device.type != "cuda":
+        raise ValueError(f"instance_norm_moments runs on cuda or cpu, not {x.device}")
+    ones, zeros = _unit_affine(c, x.device)
+    _check(x, ones, zeros)
+    plan = fwd_plan(x, rows=rows, sharded=True)
+    mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    inv, var = torch.empty_like(mean), torch.empty_like(mean)
+    work = torch.empty((n * plan.chunks + n) * 2 * c, dtype=torch.float32,
+                       device=x.device)
+    counters = torch.empty(1 + 2 * n, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernels().fwd(
+        x.data_ptr(), ones.data_ptr(), zeros.data_ptr(), None, mean.data_ptr(),
+        inv.data_ptr(), var.data_ptr(), work.data_ptr(), counters.data_ptr(), n,
+        rows * w, h * w, c, 0, plan.chunk, plan.chunks, 1e-5, 0, 0,
+        int(x.dtype == torch.bfloat16), plan.vec, int(plan.route == "one_launch"),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"instance-norm statistics kernel launch failed: CUDA "
+                           f"error {err} ({plan}, rows {rows})")
+    _count_fwd(plan.route, "stats", 0)
+    return mean, var
+
+
+def merge_moments(stats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global (mean, biased var), each (N, C) float32, from the ranks'
+    ``stats`` (R, 3, N, C) = (count, mean, var) per rank: Chan's merge in
+    float64, in rank order, mean = sum c_r mean_r / C and M2 = sum (c_r
+    var_r + c_r (mean_r - mean)^2). It differs from the JAX package's
+    two-pass psum by rounding only."""
+    st = stats.double()
+    count = st[0, 0]
+    for r in range(1, st.shape[0]):
+        count = count + st[r, 0]
+    mean = st[0, 0] * st[0, 1]
+    for r in range(1, st.shape[0]):
+        mean = mean + st[r, 0] * st[r, 1]
+    mean = mean / count
+    m2 = st[0, 0] * (st[0, 2] + (st[0, 1] - mean).square())
+    for r in range(1, st.shape[0]):
+        m2 = m2 + st[r, 0] * (st[r, 2] + (st[r, 1] - mean).square())
+    return mean.float(), (m2 / count).float()
+
+
+def _dead_rows(y: torch.Tensor, beta: torch.Tensor, rows: int, relu: bool) -> None:
+    """Rows from ``rows`` on get the JAX formula's value there, (0 * inv) *
+    gamma + beta, then the ReLU."""
+    if rows < y.shape[2]:
+        fill = _aff(beta, y.shape[1])
+        if relu:
+            fill = torch.relu(fill)
+        y[:, :, rows:] = fill.to(y.dtype)
+
+
+def instance_norm_apply_global_reference(x, gamma, beta, mean, var, *, rows=None,
+                                         relu: bool = False, eps: float = 1e-5):
+    """Plain PyTorch version of the sharded forward's apply pass -> (y, inv):
+    the first ``rows`` rows of each sample normalized with the global (N, C)
+    moments (the forward's scale and shift), the rest relu(beta)."""
+    n, c, h, w = x.shape
+    rows = h if rows is None else rows
+    y, inv = _normalize(x[:, :, :rows].float(), mean, var, gamma, beta, eps=eps,
+                        relu=relu)
+    out = torch.empty_like(x)
+    out[:, :, :rows] = y.to(x.dtype)
+    _dead_rows(out, beta, rows, relu)
+    return out, inv
+
+
+def instance_norm_apply_global(x, gamma, beta, mean, var, *, rows=None,
+                               relu: bool = False, eps: float = 1e-5):
+    """The sharded forward's apply pass -> (y, inv (N, C) f32): normalize
+    the first ``rows`` rows of each sample (None: all) with the global (N, C)
+    ``mean`` and ``var`` and the (C,) or (N, C) affine (+ReLU); the other
+    rows are relu(beta). A CPU tensor takes the plain version; a CUDA tensor
+    launches the blend-1 inject kernel over the active rows (mode
+    "sharded_apply"), or raises."""
+    n, c, h, w = x.shape
+    rows = h if rows is None else rows
+    if x.device.type == "cpu":
+        return instance_norm_apply_global_reference(
+            x, gamma, beta, mean, var, rows=rows, relu=relu, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"instance_norm_apply_global runs on cuda or cpu, not {x.device}")
+    _check(x, gamma, beta)
+    rm, _ = _ref_rows(mean, n, c, "mean")
+    rv, rstride = _ref_rows(var, n, c, "var")
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    if rows == 0:
+        _dead_rows(y, beta, 0, relu)
+        return y, torch.rsqrt(rv.expand(n, c) + eps)
+    plan = fwd_plan(x, one_launch=False, rows=rows, sharded=True)
+    inv = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    g, b, gstride = _affine_rows(gamma, beta, c)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernels().fwd_stats(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), rm.data_ptr(), rv.data_ptr(),
+        y.data_ptr(), None, inv.data_ptr(), None, None, None, n, rows * w, h * w,
+        c, gstride, rstride, plan.chunk, plan.chunks, float(eps), 1.0, 0.0,
+        int(relu), int(x.dtype == torch.bfloat16), plan.vec, 0, stream)
+    if err != 0:
+        raise RuntimeError(f"instance-norm sharded apply launch failed: CUDA error "
+                           f"{err} ({plan}, rows {rows})")
+    _count_fwd("inject", "sharded_apply", gstride)
+    _dead_rows(y, beta, rows, relu)
+    return y, inv
+
+
+def instance_norm_bwd_sums_reference(x, g, mean, inv, gamma, beta, *,
+                                     relu: bool = False):
+    """Plain PyTorch version of the sharded backward's first pass -> this
+    rank's gated (sum(g), sum(g * xhat)), each (N, C) f32."""
+    xhat, gf = _gated(x, g, mean, inv, gamma, beta, relu)
+    return gf.sum(dim=(2, 3)), (gf * xhat).sum(dim=(2, 3))
+
+
+def _check_bwd(x, g, mean, inv, gamma, beta) -> None:
+    _check(x, gamma, beta)
+    n, c = x.shape[:2]
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not g.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("the IN backward wants a channels_last contiguous g")
+    for name, r in (("mean", mean), ("inv", inv)):
+        if r.shape != (n, c) or r.dtype != torch.float32 or not r.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({n}, {c}) float32 tensor")
+
+
+def instance_norm_bwd_sums(x, g, mean, inv, gamma, beta, *, relu: bool = False):
+    """The sharded backward's first pass -> this rank's gated (sum(g),
+    sum(g * xhat)), each (N, C) f32, xhat from the global (mean, inv); also
+    this rank's share of (dbeta, dgamma). A CPU tensor takes the plain
+    version; a CUDA tensor launches the two-launch backward's sums
+    (``fnst_instance_norm_bwd_sums``, mode "bwd_sums"), or raises."""
+    if x.device.type == "cpu":
+        return instance_norm_bwd_sums_reference(x, g, mean, inv, gamma, beta, relu=relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"instance_norm_bwd_sums runs on cuda or cpu, not {x.device}")
+    _check_bwd(x, g, mean, inv, gamma, beta)
+    n, c, h, w = x.shape
+    plan = bwd_plan(x, g, one_launch=False)
+    sums = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    work = torch.empty(2 * n * plan.chunks * c, dtype=torch.float32, device=x.device)
+    gm, bt, gstride = _affine_rows(gamma, beta, c)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernels().bwd_sums(
+        x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(), gm.data_ptr(),
+        bt.data_ptr(), sums.data_ptr(), work.data_ptr(), n, h * w, c, gstride,
+        plan.chunk, plan.chunks, int(relu), int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"instance-norm backward sums launch failed: CUDA error "
+                           f"{err} ({plan})")
+    _count_bwd("two_launch", "bwd_sums", gstride)
+    return sums[0], sums[1]
+
+
+def instance_norm_bwd_apply_reference(x, g, mean, inv, gamma, beta, g_sum, gx_sum,
+                                      count: int, *, relu: bool = False):
+    """Plain PyTorch version of the sharded backward's second pass: dx from
+    the global sums (``count`` pixels a sample over the ranks)."""
+    xhat, gf = _gated(x, g, mean, inv, gamma, beta, relu)
+    return _dx(x, xhat, gf, inv, gamma, g_sum, gx_sum, count)
+
+
+def instance_norm_bwd_apply(x, g, mean, inv, gamma, beta, g_sum, gx_sum,
+                            count: int, *, relu: bool = False):
+    """The sharded backward's second pass -> dx = gamma * inv * (g -
+    sum(g) / count - xhat * sum(g * xhat) / count), the sums (N, C) f32 over
+    every rank's pixels, ``count`` pixels a sample in all. A CPU tensor takes
+    the plain version; a CUDA tensor launches the two-launch backward's apply
+    with the sums given (``fnst_instance_norm_bwd_apply``, mode
+    "bwd_apply"), or raises."""
+    if x.device.type == "cpu":
+        return instance_norm_bwd_apply_reference(x, g, mean, inv, gamma, beta, g_sum,
+                                                 gx_sum, count, relu=relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"instance_norm_bwd_apply runs on cuda or cpu, not {x.device}")
+    _check_bwd(x, g, mean, inv, gamma, beta)
+    n, c, h, w = x.shape
+    sums = torch.stack([g_sum, gx_sum]).to(device=x.device, dtype=torch.float32)
+    plan = bwd_plan(x, g, one_launch=False)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    gm, bt, gstride = _affine_rows(gamma, beta, c)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernels().bwd_apply(
+        x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(), gm.data_ptr(),
+        bt.data_ptr(), sums.data_ptr(), dx.data_ptr(), n, h * w, c, gstride,
+        plan.chunk, plan.chunks, float(count), int(relu),
+        int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"instance-norm backward apply launch failed: CUDA error "
+                           f"{err} ({plan})")
+    _count_bwd("two_launch", "bwd_apply", gstride)
+    return dx
+
+
+def sharded_instance_norm_fwd(x, gamma, beta, axis, *, rows=None, eps: float = 1e-5,
+                              relu: bool = False):
+    """Instance norm with statistics over the whole image, whose rows are
+    split over the ranks of ``axis`` (``SpaceAxis``) -> (y, mean, inv), the
+    global moments (N, C) f32. ``rows``: this rank's active rows (None: all).
+    Statistics pass, ``axis.gather`` of (count, mean, var), ``merge_moments``,
+    apply pass."""
+    n, c, h, w = x.shape
+    rows = h if rows is None else rows
+    mean, var = instance_norm_moments(x, rows)
+    count = torch.full_like(mean, float(rows * w))
+    stats = axis.gather(torch.stack([count, mean, var]).double())
+    gmean, gvar = merge_moments(stats)
+    y, inv = instance_norm_apply_global(x, gamma, beta, gmean, gvar, rows=rows,
+                                        relu=relu, eps=eps)
+    return y, gmean, inv
+
+
+class ShardedInstanceNormFn(torch.autograd.Function):
+    """The sharded IN under autograd: forward ``sharded_instance_norm_fwd``
+    (saving x, gamma, beta and the global (mean, inv)), backward the two
+    passes with the ranks' sums added between them (``axis.gather``, rank
+    order, f64). dgamma / dbeta are this rank's sums only: the caller sums
+    the parameter gradients over the ranks once, at the end
+    (``train/spatial_step.py``); all-reducing them here too would count them
+    once per rank. Per sample for an (N, C) affine, summed over the batch
+    for (C,). ``rows``: this rank's active rows; ``masked``: whether any
+    rank's are fewer than its slab's (an extent below the image's height),
+    which the backward refuses on every rank alike: no training path masks
+    rows."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, axis, rows, masked, eps, relu):
+        y, mean, inv = sharded_instance_norm_fwd(x, gamma, beta, axis, rows=rows,
+                                                 eps=eps, relu=relu)
+        ctx.save_for_backward(x, gamma, beta, mean, inv)
+        ctx.axis, ctx.relu, ctx.masked = axis, relu, masked
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, gamma, beta, mean, inv = ctx.saved_tensors
+        n, c, h, w = x.shape
+        if ctx.masked:
+            raise NotImplementedError(
+                "the sharded instance norm's backward takes no extent: only "
+                "inference masks rows")
+        g = gy.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        g_sum, gx_sum = instance_norm_bwd_sums(x, g, mean, inv, gamma, beta,
+                                               relu=ctx.relu)
+        ranks = ctx.axis.gather(torch.stack([g_sum, gx_sum]).double())
+        total = ranks[0]
+        for r in range(1, ranks.shape[0]):
+            total = total + ranks[r]
+        total = total.float()
+        dx = instance_norm_bwd_apply(x, g, mean, inv, gamma, beta, total[0], total[1],
+                                     h * w * ctx.axis.size, relu=ctx.relu)
+        dgn, dbn = gx_sum, g_sum
+        if gamma.dim() == 1:
+            dgn, dbn = dgn.sum(dim=0), dbn.sum(dim=0)
+        return dx, dgn.to(gamma.dtype), dbn.to(beta.dtype), None, None, None, None, None

@@ -236,7 +236,7 @@ def main(argv: Optional[list] = None) -> None:
                    help=">0: resize every request to SIZE x SIZE; 0: native "
                         "sizes, bucketed")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard batches over several cards (not yet ported)")
+                   help="shard batches over several cards (not yet ported: ROADMAP row 15b)")
     p.add_argument("--max_batch", type=int, default=8)
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--max_pending", type=int, default=256)
@@ -247,7 +247,8 @@ def main(argv: Optional[list] = None) -> None:
     args = p.parse_args(argv)
 
     if args.data_parallel:
-        raise SystemExit("--data_parallel: multi-card serving is not yet ported")
+        raise SystemExit("--data_parallel: multi-card serving is not yet ported "
+                         "(ROADMAP row 15b)")
     forward, family, device = _build_forward(args, "cpu" if args.cpu else args.device)
     # warm the canonical bucket at every batch size the batcher can form
     # (kernel build, cuDNN handles and plans) before traffic

@@ -14,9 +14,15 @@ example each step, one monitor sample per style. ``init_checkpoint`` warm
 starts the params (the style counts must match), or, for a reference
 training ``.pth``, resumes fully (params, Adam state, schedule, step;
 single-style only). ``in_stats="onepass"`` trains with one-pass IN
-statistics. ``spatial > 1`` is not ported yet (ROADMAP row 15); loss-curve
-PNGs wait for row 16. ``profile_start`` / ``profile_stop`` trace those
-steps with ``torch.profiler`` into ``<output_dir>/profile``.
+statistics. ``spatial = N > 1`` splits each image's rows over N ranks
+(``train/spatial_step.py``): called outside a process group, the loop
+spawns the ranks itself (``parallel/mesh.py::launch``), and each runs this
+loop on the same seeded data; rank 0 alone prints, logs, samples and
+writes checkpoints. It keeps the JAX package's refusals: a height that is
+not a multiple of 8 * spatial, one-pass statistics, several styles and
+``pad_batch``. Loss-curve PNGs wait for row 16. ``profile_start`` /
+``profile_stop`` trace those steps with ``torch.profiler`` into
+``<output_dir>/profile``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from fast_neural_style_transfer_tpu_torch.train.state import (
     is_reference_training_checkpoint,
     state_from_reference_checkpoint,
 )
+from fast_neural_style_transfer_tpu_torch.train.spatial_step import make_spatial_train_step
 from fast_neural_style_transfer_tpu_torch.train.step import (
     exact_f32,
     make_eval_forward,
@@ -113,26 +120,59 @@ def _check_config(cfg: TrainConfig) -> None:
     if cfg.in_stats not in ("stable", "onepass"):
         raise ValueError(f"unknown in_stats {cfg.in_stats!r}")
     if cfg.spatial > 1:
-        raise NotImplementedError(
-            "spatial > 1: spatial sharding is not yet ported (ROADMAP row 15)")
+        if cfg.in_stats == "onepass":
+            raise ValueError("in_stats='onepass' is not supported with spatial "
+                             "sharding (spatial > 1)")
+        if cfg.image_size[0] % (8 * cfg.spatial):
+            raise ValueError(
+                f"image height {cfg.image_size[0]} must divide 8 * spatial "
+                f"({8 * cfg.spatial}): stylizer needs 4, VGG's pools need 8 rows "
+                "per shard")
+        if not isinstance(cfg.style_image, str) and len(cfg.style_image) > 1:
+            raise ValueError("multi-style training and --spatial height sharding "
+                             "cannot be combined yet (the halo-exchange step is "
+                             "single-style)")
+        if cfg.pad_batch:
+            raise ValueError("--pad_batch is not supported with --spatial height "
+                             "sharding (the halo-exchange step has no batch-mask "
+                             "plumbing)")
 
 
-def train_style_transfer(cfg: TrainConfig) -> str:
-    """Run training; returns the path of the final params artifact."""
+def _train_rank(plan, cfg: TrainConfig) -> str:
+    return train_style_transfer(cfg, plan)
+
+
+def train_style_transfer(cfg: TrainConfig, plan=None) -> str:
+    """Run training; returns the path of the final params artifact. With
+    ``spatial > 1``, ``plan`` is this rank's ``MeshPlan``; None spawns the
+    ranks (on ``cfg.device``) and returns rank 0's path."""
     _check_config(cfg)
     style_paths = ([cfg.style_image] if isinstance(cfg.style_image, str)
                    else list(cfg.style_image))
     styles = len(style_paths)
-    device = resolve_device(cfg.device)
+    if cfg.spatial > 1 and plan is None:
+        from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+        device = resolve_device(cfg.device)
+        return launch(_train_rank, cfg.spatial, (cfg,), device=device.type,
+                      deadline_s=float("inf"))[0]
+    spatial = plan is not None and cfg.spatial > 1
+    if spatial and plan.spatial != cfg.spatial:
+        raise ValueError(f"spatial={cfg.spatial} but the plan has {plan.spatial} ranks")
+    device = plan.device if spatial else resolve_device(cfg.device)
+    lead = not spatial or plan.space.index == 0
+    say = print if lead else (lambda *a, **k: None)
     os.makedirs(cfg.output_dir, exist_ok=True)
     prec = canonical_compute_dtype(cfg.precision)
     exact_f32(device, prec)
     taps = LossTaps(style_taps=tuple(cfg.style_taps),
                     style_weights=tuple(cfg.style_tap_weights),
                     content_tap=cfg.content_tap)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-          + f"; batch {cfg.batch_size}; precision {cfg.precision}", flush=True)
+    say(f"device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+        + f"; batch {cfg.batch_size}; precision {cfg.precision}"
+        + (f"; rows split over {cfg.spatial} ranks ({plan.backend})" if spatial else ""),
+        flush=True)
 
     # frozen VGG19 and the style targets, once
     vgg = make_vgg(resolve_params(cfg.vgg_weights, seed=cfg.seed), device)
@@ -146,7 +186,7 @@ def train_style_transfer(cfg: TrainConfig) -> str:
         style_grams = per_style[0]
     else:  # per-layer (S, c, c) banks for the per-example selection
         style_grams = [torch.stack(layer) for layer in zip(*per_style)]
-        print(f"multi-style run: {styles} styles via conditional IN", flush=True)
+        say(f"multi-style run: {styles} styles via conditional IN", flush=True)
 
     torch.manual_seed(cfg.seed)  # PyTorch-default init of the stylizer
     net = TransformerNet(num_styles=styles)
@@ -164,13 +204,13 @@ def train_style_transfer(cfg: TrainConfig) -> str:
                 f"init_checkpoint has {num_styles(loaded)} style(s) but this run "
                 f"trains {styles} — style counts must match to warm-start")
         net.load_state_dict(loaded, strict=True)
-        print(f"warm-started params from {cfg.init_checkpoint}", flush=True)
+        say(f"warm-started params from {cfg.init_checkpoint}", flush=True)
     net = net.to(device, memory_format=torch.channels_last)
     if full_resume:
         state = state_from_reference_checkpoint(
             cfg.init_checkpoint, net, cfg.lr, cfg.total_steps, grad_accum=cfg.grad_accum)
-        print(f"fully resumed reference training checkpoint {cfg.init_checkpoint} "
-              f"at iteration {state.step}", flush=True)
+        say(f"fully resumed reference training checkpoint {cfg.init_checkpoint} "
+            f"at iteration {state.step}", flush=True)
     else:
         state = create_train_state(net, cfg.lr, cfg.total_steps, grad_accum=cfg.grad_accum)
 
@@ -180,17 +220,25 @@ def train_style_transfer(cfg: TrainConfig) -> str:
     if cfg.resume and ckpt.latest_step() is not None:
         resume_label = ckpt.latest_step()
         state.load_state_dict(ckpt.restore(resume_label))
-        print(f"resumed from checkpoint {resume_label} (optimizer step "
-              f"{state.step})", flush=True)
+        say(f"resumed from checkpoint {resume_label} (optimizer step "
+            f"{state.step})", flush=True)
 
-    train_step = make_train_step(
-        taps=taps,
-        weight_schedule=LossWeightSchedule(
-            content=cfg.content_weight, style=cfg.style_weight,
-            tv=cfg.tv_weight, decay_every=cfg.weight_decay_every),
-        precision=prec, lr=cfg.lr, total_steps=cfg.total_steps,
-        grad_accum=cfg.grad_accum, remat=cfg.remat, num_styles=styles,
-        norm_method="onepass" if cfg.in_stats == "onepass" else "auto")
+    schedule = LossWeightSchedule(
+        content=cfg.content_weight, style=cfg.style_weight,
+        tv=cfg.tv_weight, decay_every=cfg.weight_decay_every)
+    if spatial:
+        spatial_step = make_spatial_train_step(
+            plan, taps=taps, weight_schedule=schedule, precision=prec, lr=cfg.lr,
+            total_steps=cfg.total_steps, grad_accum=cfg.grad_accum, remat=cfg.remat)
+
+        def train_step(state, vgg, batch, style_grams, generator, batch_mask=None):
+            return spatial_step(state, vgg, batch, style_grams, generator)
+    else:
+        train_step = make_train_step(
+            taps=taps, weight_schedule=schedule,
+            precision=prec, lr=cfg.lr, total_steps=cfg.total_steps,
+            grad_accum=cfg.grad_accum, remat=cfg.remat, num_styles=styles,
+            norm_method="onepass" if cfg.in_stats == "onepass" else "auto")
     eval_forward = make_eval_forward(precision=prec)
 
     dataset = ImageFolderDataset(cfg.dataset_dir, cfg.image_size, seed=cfg.seed)
@@ -200,18 +248,18 @@ def train_style_transfer(cfg: TrainConfig) -> str:
     batch_mask = None
     if pipeline.batch_mask is not None:
         batch_mask = torch.from_numpy(pipeline.batch_mask).to(device)
-        print(f"pad_batch: batch {cfg.batch_size} -> {pipeline.padded_size} "
-              "(loss-masked padding; gradients are the real batch's)", flush=True)
+        say(f"pad_batch: batch {cfg.batch_size} -> {pipeline.padded_size} "
+            "(loss-masked padding; gradients are the real batch's)", flush=True)
 
     monitor_img = None
-    if cfg.monitor_image:
+    if cfg.monitor_image and lead:
         if os.path.exists(cfg.monitor_image):
             monitor_img = torch.from_numpy(load_image(cfg.monitor_image, cfg.image_size)).to(device)
         else:
-            print(f"monitor image {cfg.monitor_image} not found; skipping "
-                  "monitor sampling", flush=True)
+            say(f"monitor image {cfg.monitor_image} not found; skipping "
+                "monitor sampling", flush=True)
 
-    logger = MetricLogger(os.path.join(cfg.output_dir, "metrics.jsonl"),
+    logger = MetricLogger(os.path.join(cfg.output_dir, "metrics.jsonl") if lead else None,
                           print_every=cfg.log_every)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     start_step = state.step if resume_label is None else resume_label
@@ -222,7 +270,7 @@ def train_style_transfer(cfg: TrainConfig) -> str:
     prev_handler = None
     if threading.current_thread() is threading.main_thread():
         def _on_sigterm(signum, frame):
-            print("SIGTERM received: checkpointing and stopping", flush=True)
+            say("SIGTERM received: checkpointing and stopping", flush=True)
             stop_requested.set()
 
         prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
@@ -232,7 +280,10 @@ def train_style_transfer(cfg: TrainConfig) -> str:
     step = start_step
     try:
         for batch in pipeline.device_batches(cfg.num_epochs):
-            if step >= cfg.total_steps or stop_requested.is_set():
+            stop = stop_requested.is_set()
+            if spatial:  # every rank stops at the same step, or the others hang
+                stop = plan.space.any(stop, device)
+            if step >= cfg.total_steps or stop:
                 break
             if cfg.profile_stop > cfg.profile_start:
                 if step == cfg.profile_start and profiler is None:
@@ -247,13 +298,14 @@ def train_style_transfer(cfg: TrainConfig) -> str:
             metrics = train_step(state, vgg, batch, style_grams, generator,
                                  batch_mask=batch_mask)
             step += 1
-            logger.update(metrics)
+            if lead:
+                logger.update(metrics)
             if logger.should_log(step):
                 logger.flush(step)
             if monitor_img is not None and step % cfg.monitor_every == 0:
                 _monitor_samples(state.net, eval_forward, monitor_img,
                                  cfg.output_dir, step)
-            if step % cfg.checkpoint_every == 0:
+            if step % cfg.checkpoint_every == 0 and lead:
                 ckpt.save(step, state.state_dict())
                 print(f"checkpoint saved at step {step}", flush=True)
     finally:
@@ -270,7 +322,7 @@ def train_style_transfer(cfg: TrainConfig) -> str:
             _cleanup("profiler stop", lambda: _stop_profiler(profiler, cfg.output_dir))
         if logger.pending:
             _cleanup("metrics flush", lambda: logger.flush(step))
-        if step > start_step and ckpt.latest_step() != step:
+        if step > start_step and ckpt.latest_step() != step and lead:
             _cleanup("final checkpoint", lambda: ckpt.save(step, state.state_dict()))
         _cleanup("logger close", logger.close)
         if handler_installed:
@@ -279,11 +331,12 @@ def train_style_transfer(cfg: TrainConfig) -> str:
     wall = time.perf_counter() - t_start
     done = step - start_step
     if done:
-        print(f"trained {done} steps in {wall:.1f}s ({done / wall:.2f} steps/s)",
-              flush=True)
+        say(f"trained {done} steps in {wall:.1f}s ({done / wall:.2f} steps/s)",
+            flush=True)
     final_path = os.path.join(cfg.output_dir, "style_transfer_final.npz")
-    save_params_npz(state.net.state_dict(), final_path)
-    print(f"final params saved to {final_path}", flush=True)
+    if lead:
+        save_params_npz(state.net.state_dict(), final_path)
+        print(f"final params saved to {final_path}", flush=True)
     return final_path
 
 

@@ -394,7 +394,7 @@ def test_cli_flags_match_jax(cmd):
     (["export", "--decoder", "d.npz"], "pass --onnx and/or --torchscript"),
     (["stylize", "--decoder", "d.npz", "--content_dir", "c", "--style_image", "s",
       "--data_parallel"], "row 15"),
-    (["stylize", "--decoder", "d.npz", "--content_image", "c", "--style_image", "s",
+    (["stylize", "--decoder", "d.npz", "--content_dir", "c", "--style_image", "s",
       "--spatial", "2"], "row 15"),
     (["stylize", "--decoder", "d.npz", "--style_image", "s"], "exactly one"),
     (["stylize", "--decoder", "d.npz", "--content_dir", "c", "--style_image", "s",

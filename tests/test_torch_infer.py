@@ -239,9 +239,16 @@ def test_begin_inference_cli(ckpt_pth, tmp_path, capsys):
                           "--output_dir", str(tmp_path / "o"), "--device", "cpu",
                           "--output_name", "q.png", "--precision", "int8"])
     assert Image.open(tmp_path / "o" / "q.png").size == (28, 24)
-    for flags in (["--spatial", "2"], ["--data_parallel"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="not yet ported"):
+        begin_inference.main(["--model_path", ckpt_pth, "--device", "cpu",
+                              "--data_parallel"])
+    # --spatial runs (tests/test_torch_spatial.py) but keeps the JAX CLI's
+    # two refusals
+    for flags, match in ((["--content_dir", str(tmp_path)], "cannot be combined"),
+                         (["--content_image", src, "--precision", "int8"], "int8")):
+        with pytest.raises(SystemExit, match=match):
             begin_inference.main(["--model_path", ckpt_pth, "--device", "cpu",
+                                  "--output_dir", str(tmp_path / "o"), "--spatial", "2",
                                   *flags])
     # a style flag on a single-style checkpoint raises JAX's error
     with pytest.raises(ValueError, match="single-style checkpoint"):

@@ -507,3 +507,114 @@ def test_onnx_runtime_on_card(tmp_path):
     got = network_to_u8(out.permute(0, 2, 3, 1)).cpu().numpy().astype(int)
     want = network_to_u8(torch.from_numpy(sty(x))).numpy().astype(int)
     assert np.abs(got - want).max() <= 1
+
+
+# the sharded IN modes (ROADMAP row 15a): (n, c, h, w, active rows), the
+# last a slab above the one-launch capacity with an extent
+_SHARD_CASES = [(1, 64, 96, 80, 96), (2, 256, 32, 24, 30), (1, 32, 1024, 640, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("affine", ["channel", "sample"])
+def test_sharded_forward_modes_match_plain_on_card(dtype, affine):
+    """The statistics-only route and the sharded apply against their plain
+    versions, each launched once a call and repeating bit for bit; rows past
+    the extent come out as relu(beta)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    for n, c, h, w, rows in _SHARD_CASES:
+        x, g, b = _site_inputs(rng, n, h, w, c, dt)
+        if affine == "sample":
+            g, b = g.expand(n, c).contiguous() + 0.1, b.expand(n, c).contiguous()
+        modes = dict(cuda_norm.instance_norm_fwd.launches_by_mode)
+        with torch.inference_mode():
+            mean, var = cuda_norm.instance_norm_moments(x, rows)
+            again = cuda_norm.instance_norm_moments(x, rows)
+            mean_r, var_r = cuda_norm._moments(x[:, :, :rows].float(), False)
+            y, inv = cuda_norm.instance_norm_apply_global(x, g, b, mean_r, var_r,
+                                                          rows=rows, relu=True)
+            y2, _ = cuda_norm.instance_norm_apply_global(x, g, b, mean_r, var_r,
+                                                         rows=rows, relu=True)
+            y_r, _ = cuda_norm.instance_norm_apply_global_reference(
+                x, g, b, mean_r, var_r, rows=rows, relu=True)
+        after = cuda_norm.instance_norm_fwd.launches_by_mode
+        assert after["stats"] - modes["stats"] == 2
+        assert after["sharded_apply"] - modes["sharded_apply"] == 2
+        assert torch.equal(mean, again[0]) and torch.equal(var, again[1])
+        assert torch.equal(y, y2)
+        torch.testing.assert_close(mean, mean_r, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(var, var_r, rtol=1e-4, atol=0)
+        tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+            dict(rtol=1 / 128, atol=1e-2)
+        torch.testing.assert_close(y.float(), y_r.float(), **tol)
+        torch.testing.assert_close(inv, torch.rsqrt(var_r + 1e-5), rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+def test_sharded_backward_passes_match_plain_on_card(dtype, relu):
+    """The sharded backward's sums and apply against their plain versions
+    ((C,) and (N, C) affines), launched once a call, bit for bit again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(2)
+    for n, c, h, w, _ in _SHARD_CASES[:2]:
+        x, g, b = _site_inputs(rng, n, h, w, c, dt)
+        gy = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32))
+        gy = gy.to("cuda", dt).contiguous(memory_format=torch.channels_last)
+        mean, var = cuda_norm._moments(x.float(), False)
+        inv = torch.rsqrt(var + 1e-5)
+        for gam, bet in ((g, b), (g.expand(n, c).contiguous(), b.expand(n, c).contiguous())):
+            args = (x, gy, mean, inv, gam, bet)
+            modes = dict(cuda_norm.instance_norm_bwd.launches_by_mode)
+            sums = cuda_norm.instance_norm_bwd_sums(*args, relu=relu)
+            again = cuda_norm.instance_norm_bwd_sums(*args, relu=relu)
+            sums_r = cuda_norm.instance_norm_bwd_sums_reference(*args, relu=relu)
+            dx = cuda_norm.instance_norm_bwd_apply(*args, *sums_r, 3 * h * w, relu=relu)
+            dx2 = cuda_norm.instance_norm_bwd_apply(*args, *sums_r, 3 * h * w, relu=relu)
+            dx_r = cuda_norm.instance_norm_bwd_apply_reference(*args, *sums_r, 3 * h * w,
+                                                               relu=relu)
+            after = cuda_norm.instance_norm_bwd.launches_by_mode
+            assert after["bwd_sums"] - modes["bwd_sums"] == 2
+            assert after["bwd_apply"] - modes["bwd_apply"] == 2
+            assert all(torch.equal(a, b2) for a, b2 in zip(sums, again))
+            assert torch.equal(dx, dx2)
+            for a, r in zip(sums, sums_r):
+                torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-3 * r.abs().max().item())
+            top = dx_r.float().abs().max().item()
+            tol = dict(rtol=1e-4, atol=1e-4 * top) if dtype == "float32" else \
+                dict(rtol=1 / 128, atol=1e-3 * top)
+            torch.testing.assert_close(dx.float(), dx_r.float(), **tol)
+
+
+def test_sharded_modes_take_the_plain_versions_on_the_cpu():
+    """On a CPU tensor the sharded modes run their plain versions and
+    launch nothing."""
+    x = torch.randn(2, 8, 6, 5).contiguous(memory_format=torch.channels_last)
+    g, b = torch.rand(8) + 0.5, torch.randn(8)
+    fwd = dict(cuda_norm.instance_norm_fwd.launches_by_mode)
+    bwd = dict(cuda_norm.instance_norm_bwd.launches_by_mode)
+    mean, var = cuda_norm.instance_norm_moments(x, 4)
+    torch.testing.assert_close(mean, x[:, :, :4].mean(dim=(2, 3)))
+    y, inv = cuda_norm.instance_norm_apply_global(x, g, b, mean, var, rows=4, relu=True)
+    assert torch.equal(y[:, :, 4:], torch.relu(b)[None, :, None, None].expand(2, 8, 2, 5))
+    sums = cuda_norm.instance_norm_bwd_sums(x, x, mean, inv, g, b)
+    cuda_norm.instance_norm_bwd_apply(x, x, mean, inv, g, b, *sums, 30)
+    assert cuda_norm.instance_norm_fwd.launches_by_mode == fwd
+    assert cuda_norm.instance_norm_bwd.launches_by_mode == bwd
+
+
+def test_sharded_plans_fill_the_card():
+    """A shard of one large sample (a 4K image's rows, 256 channels): the
+    statistics pass and the apply take ~4 blocks an SM, not the 32 blocks
+    the two-launch forward's merge budget would give them."""
+    kw = dict(sms=132, blocks_per_sm=2, one_launch=False)
+    hw = 270 * 960
+    assert cuda_norm.plan_fwd(1, hw, 256, 4, 4, **kw).chunks == 32
+    assert cuda_norm.plan_fwd(1, hw, 256, 4, 4, sharded=True, **kw).chunks == 528
+    assert cuda_norm.plan_fwd(2, hw, 256, 4, 4, sharded=True, **kw).chunks == 264

@@ -316,10 +316,16 @@ def test_cli_writes_an_npz_the_jax_package_reads(tmp_path, capsys):
 
 
 def test_cli_unported_options_exit(tmp_path):
+    """--spatial trains (tests/test_torch_spatial_train.py); what the JAX
+    loop refuses with it, the port's refuses before any rank starts."""
     base = ["--device", "cpu", "--dataset_dir", str(tmp_path), "--output_dir",
-            str(tmp_path / "o")]
-    with pytest.raises(SystemExit, match="row 15"):
-        begin_training.main(base + ["--spatial", "2"])
+            str(tmp_path / "o"), "--style_image", "s.jpg", "--spatial", "2"]
+    for flags, match in ((["--in_stats", "onepass"], "onepass"),
+                         (["--image_size", "40", "40"], "must divide 8 \\* spatial"),
+                         (["--style_image", "a.jpg", "b.jpg"], "multi-style"),
+                         (["--pad_batch"], "pad_batch")):
+        with pytest.raises(ValueError, match=match):
+            begin_training.main(base + flags)
 
 
 # -- row 6: full resume from a reference training .pth -------------------------

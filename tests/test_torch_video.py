@@ -233,7 +233,8 @@ def test_inject_refusals():
     with pytest.raises(ValueError, match="blend"):
         cuda_norm.instance_norm_apply_stats(x, g, b, torch.zeros(1, 16), torch.ones(1, 16),
                                             blend=-0.1)
-    assert set(cuda_norm.instance_norm_fwd.launches_by_mode) == {"plain", "capture", "inject"}
+    assert set(cuda_norm.instance_norm_fwd.launches_by_mode) == {
+        "plain", "capture", "inject", "stats", "sharded_apply"}
 
 
 def test_norm_stats_functions_match_jax():
