@@ -40,7 +40,17 @@ before and read just after:
 - int8 (slice 9): the int8 Stylizer (the IN forward kernel at 14 sites)
   against its CPU path with dynamic and calibrated scales at batch 1 and 8,
   the inference CLI and fnst-serve --precision int8, and its times beside
-  f32 and bf16, split by stage.
+  f32 and bf16, split by stage;
+- height sharding (slice 10): the spatial inference, training and AdaIN
+  paths on ranks that split an image's rows;
+- data parallelism (slice 11): one launch of two data ranks (sharing the
+  card over gloo where there is one card) holding the stylizer step at
+  B=20 and the AdaIN step at B=8 against the one-process step, then the
+  training loop with each rank's launch counts; one launch of four ranks
+  (data 2 x space 2) holding the 2-D step against the unsharded one; and
+  the Stylizer's replicas in one process (two on the card) against the
+  unsharded Stylizer (f32, bf16, int8 with shared scales, luma), the
+  inference CLI with --data_parallel and fnst-serve --data_parallel.
 Last it times the kernels, their plain versions and the library ops, the
 training step (single-style, 4-style and one-pass), and the IN forward and
 backward at three chunk budgets each. Every phase
@@ -2720,8 +2730,9 @@ def int8_stage_times(sty, x_u8) -> dict:
     from fast_neural_style_transfer_tpu_torch.infer import quantized as q
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd_reference
 
-    names = {"quantize": "_quantize_act", "pad": "_reflect_pad", "zero_insert": "_zero_insert",
-             "patches": "_patches", "dequantize": "_dequantize", "in_kernel": "instance_norm"}
+    names = {"scale": "_shared_scales", "quantize": "_quantize_act", "pad": "_reflect_pad",
+             "zero_insert": "_zero_insert", "patches": "_patches", "dequantize": "_dequantize",
+             "in_kernel": "instance_norm"}
     caps = {k: capture_calls(q, n) for k, n in names.items()}
     mm = capture_calls(torch, "_int_mm")
     with torch.inference_mode():
@@ -2736,6 +2747,7 @@ def int8_stage_times(sty, x_u8) -> dict:
                          for a, kw in cap.calls)
         out["int_mm"] = sum(graph_ms(lambda a=a: torch._int_mm(*a), reps=5)
                             for a, _ in mm.calls)
+    out["quantize"] += out.pop("scale")
     out["patch_materialization"] = out.pop("pad") + out.pop("zero_insert") + out.pop("patches")
     out["sum"] = sum(out.values())
     # the IN sites beside their bound, the kernel's plain version and
@@ -3370,8 +3382,11 @@ def phase_spatial(seed: int) -> dict:
 
 def spatial_step_rank(plan, seed: int, size: int, batch: int) -> dict:
     """One f32 sharded step (no dropout, deterministic algorithms) from the
-    seeded inputs of ``_one_train_step`` -> loss, grad norm, the gradients
-    the step hands Adam (summed over the ranks), params after."""
+    seeded inputs of ``_one_train_step``, on this rank's data shard of the
+    batch (all of it with a data degree of 1) -> loss, grad norm, the
+    gradients the step hands Adam (summed over the ranks), params after,
+    and the step's kernel counts (set to 0 just before it)."""
+    from fast_neural_style_transfer_tpu_torch.parallel.mesh import kernel_counts
     from fast_neural_style_transfer_tpu_torch.train.spatial_step import (
         make_spatial_train_step,
     )
@@ -3388,9 +3403,14 @@ def spatial_step_rank(plan, seed: int, size: int, batch: int) -> dict:
             return update(grads)
 
         state.optimizer.update = spy
-        m = make_spatial_train_step(plan, dropout=False)(state, vgg, u8, grams)
+        step, local = make_spatial_train_step(plan, dropout=False), rank_slice(u8, plan.data)
+        reset_in_counts()
+        reset_conv_counts()
+        m = step(state, vgg, local, grams)
+        counts = kernel_counts()
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "step": state.step, "grads": applied,
+            "step": state.step, "grads": applied, "backend": plan.backend, "counts": counts,
+            "layout": [plan.world.index, plan.data.index, plan.space.index],
             "params": [p.detach().float().cpu().clone() for p in net.parameters()]}
 
 
@@ -3752,12 +3772,610 @@ def sharded_in_times(seed: int) -> dict:
 
 
 
+DP_SIZE, DP_BATCH, DP_LOOP_STEPS = 256, 20, 3  # the stylizer's data-parallel step
+DP_RANKS = 2  # data ranks sharing the card over gloo (data 2 x space 1)
+DP_SERVE_BATCH = 8
+
+
+def reset_conv_counts() -> None:
+    """Set conv1_1 dx's launch counts, in all and by route, to 0."""
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import conv2d_same_dx
+
+    conv2d_same_dx.launches = 0
+    conv2d_same_dx.launches_by_route = dict.fromkeys(conv2d_same_dx.launches_by_route, 0)
+
+
+def rank_slice(t, data):
+    """This rank's contiguous slice of a global batch on the data axis."""
+    k = t.shape[0] // data.size
+    return t[data.index * k:(data.index + 1) * k]
+
+
+def _write_jpegs(d: str, n: int, size: int, seed: int) -> str:
+    from PIL import Image
+
+    os.makedirs(d)
+    for i in range(n):
+        Image.fromarray(smooth_image(size + 16 * (i % 3), size + 8 * (i % 2),
+                                     seed=seed + i)).save(
+            os.path.join(d, f"{i:03d}.jpg"), quality=92)
+    return d
+
+
+def dp_rank(plan, seed: int, data_dir: str, style: str, out: str) -> dict:
+    """One rank of the data_parallel phase. On its slice of the global
+    batch: one f32 stylizer step (256x256, B=20) and one AdaIN step
+    (256x256, B=8) from ``_one_train_step``'s and ``_one_adain_step``'s
+    seeded inputs under deterministic algorithms -> the global metrics, the
+    gradients Adam was handed (summed over the ranks; the AdaIN step's
+    averaged), params after; the step's host-clock walls and the flat
+    gradient all_reduce's. Then the main path: the training loop
+    (``train_style_transfer(cfg, plan)``) for DP_LOOP_STEPS steps at B=20,
+    this rank's kernel counts set to 0 just before and read just after."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+    from fast_neural_style_transfer_tpu_torch.models.adain import make_decoder
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+    from fast_neural_style_transfer_tpu_torch.parallel.mesh import kernel_counts
+    from fast_neural_style_transfer_tpu_torch.train.adain import (
+        create_adain_train_state,
+        make_adain_train_step,
+    )
+    from fast_neural_style_transfer_tpu_torch.train.loop import TrainConfig, train_style_transfer
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32, make_train_step
+
+    d, dev = plan.data, plan.device
+    cpu = lambda ts: [t.detach().float().cpu().clone() for t in ts]  # noqa: E731
+    res = {"layout": [plan.world.index, d.index, plan.space.index], "backend": plan.backend}
+    with deterministic_algorithms():
+        net, vgg, u8, grams, _ = _train_inputs(str(dev), seed, DP_SIZE, DP_BATCH)
+        state = create_train_state(net)
+        applied, update = [], state.optimizer.update
+        state.optimizer.update = lambda g: applied.extend(cpu(g)) or update(g)
+        step = make_train_step(dropout=False, data=d)
+        local = rank_slice(u8, d)
+        m = step(state, vgg, local, grams)
+        state.optimizer.update = update
+    res["step"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "step": state.step, "grads": applied, "params": cpu(net.parameters())}
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, vgg, local, grams)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    flat = torch.cat([p.detach().reshape(-1).clone() for p in net.parameters()])
+    reduce_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.all_reduce_(flat)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"], res["grad_all_reduce_ms"] = walls[1:], reduce_ms[1:]
+    res["grad_elements"] = int(flat.numel())
+    del net, vgg, u8, state, step, flat
+    with deterministic_algorithms():
+        exact_f32(dev, Precision.f32())
+        torch.manual_seed(seed)
+        dec = make_decoder(None, dev)
+        avgg = make_vgg(random_params(seed), dev)
+        imgs = lambda s0: torch.from_numpy(np.stack(  # noqa: E731
+            [smooth_image(DP_SIZE, DP_SIZE, seed=s0 + i) for i in range(ADAIN_BATCH)])).to(dev)
+        ast_ = create_adain_train_state(dec)
+        reset_in_counts()
+        reset_conv_counts()
+        handed, opt_step = [], ast_.optimizer.step
+        ast_.optimizer.step = lambda: handed.extend(cpu(p.grad for p in dec.parameters())) \
+            or opt_step()
+        am = make_adain_train_step(lr_decay=5e-5, data=d)(
+            ast_, avgg, rank_slice(imgs(30), d), rank_slice(imgs(60), d))
+    res["adain"] = {"loss": float(am["loss"]), "grad_norm": float(am["grad_norm"]),
+                    "step": ast_.step, "grads": handed, "params": cpu(dec.parameters())}
+    res["adain_counts"] = kernel_counts()
+    del dec, avgg, ast_
+    torch.cuda.empty_cache()
+    cfg = TrainConfig(style_image=style, dataset_dir=data_dir, output_dir=out,
+                      total_steps=DP_LOOP_STEPS, batch_size=DP_BATCH,
+                      image_size=(DP_SIZE, DP_SIZE), log_every=1, checkpoint_every=10 ** 6,
+                      num_workers=2, seed=seed, device=str(dev))
+    reset_in_counts()
+    reset_conv_counts()
+    res["final"] = train_style_transfer(cfg, plan)
+    res["counts"] = kernel_counts()
+    return res
+
+
+def _step_parity(name: str, ranks: list, flat: tuple, key: str, **fields) -> dict:
+    """``phase_train_parity``'s bounds for a data-parallel step against the
+    one-process step on the same global batch: loss and grad norm 1e-4
+    relative, every gradient handed to the optimizer within 1e-3 of the
+    largest, gradients and params bit-equal across ranks."""
+    import torch
+
+    got = ranks[0][key]
+    loss_rel = abs(got["loss"] - flat[0]) / abs(flat[0])
+    norm_rel = abs(got["grad_norm"] - flat[2]) / flat[2]
+    gmax = max(g.abs().max().item() for g in flat[1])
+    errs = [(a - b).abs().max().item() for a, b in zip(got["grads"], flat[1])]
+    grad_err = max(errs) / gmax
+    equal = all(torch.equal(a, b) for r in ranks[1:] for k in ("grads", "params")
+                for a, b in zip(r[key][k], got[k]))
+    ok = (loss_rel <= 1e-4 and norm_rel <= 1e-4 and grad_err <= 1e-3
+          and len(errs) == len(flat[1]) and equal and all(r[key]["step"] == 1 for r in ranks))
+    emit(name, ranks=len(ranks), backend=ranks[0]["backend"], precision="f32",
+         card_deterministic_algorithms=True, loss_data_parallel=got["loss"],
+         loss_one_process=flat[0], loss_rel_err=loss_rel,
+         grad_norm_data_parallel=got["grad_norm"], grad_norm_one_process=flat[2],
+         grad_norm_rel_err=norm_rel, grad_max_abs_err_over_max_grad=grad_err, max_grad=gmax,
+         grads_and_params_bit_equal_across_ranks=equal, ok=ok, **fields)
+    if not ok:
+        fail(f"{name}: data-parallel step against the one-process step")
+    return {"loss_rel_err": loss_rel, "grad_norm_rel_err": norm_rel, "grad_err": grad_err}
+
+
+def phase_data_parallel(seed: int) -> dict:
+    """Data parallelism (ROADMAP row 15b): one launch of DP_RANKS ranks (data
+    2 x space 1; on one card they share it over gloo), every check inside
+    those ranks (``dp_rank``): the stylizer step at 256x256, global B=20 (10
+    a rank), and the AdaIN step at B=8 (4 a rank) against the one-process
+    step on the same global batch (``_step_parity``); then the main path,
+    the training loop for DP_LOOP_STEPS steps: each rank's counts, 14 IN
+    forward + 14 IN backward (all one-launch, mode "plain") + 1 conv1_1 dx
+    (tap-packed) a step; rank 0 alone writes metrics and the final params.
+    Also the data-parallel step's host-clock p50 and the flat gradient
+    all_reduce's beside the one-process step's."""
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _write_jpegs(os.path.join(tmp, "data"), 24, DP_SIZE, 8000)
+        style = os.path.join(tmp, "style.jpg")
+        from PIL import Image
+
+        Image.fromarray(smooth_image(DP_SIZE, DP_SIZE, seed=8999)).save(style, quality=95)
+        out = os.path.join(tmp, "out")
+        free_card()
+        t0 = time.perf_counter()
+        ranks = launch(dp_rank, DP_RANKS, (seed, data, style, out), spatial=1, device="cuda")
+        launch_s = time.perf_counter() - t0
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        wrote = os.path.exists(ranks[0]["final"])
+    with deterministic_algorithms():
+        flat = _one_train_step("cuda", seed, size=DP_SIZE, batch=DP_BATCH)
+        aflat = _one_adain_step("cuda", seed, size=DP_SIZE, batch=ADAIN_BATCH)
+    one_ms = unsharded_step_ms(seed, DP_SIZE, DP_BATCH)
+    free_card()
+    _step_parity("data_parallel_step", ranks, flat, "step", size=[DP_SIZE, DP_SIZE],
+                 batch=DP_BATCH)
+    _step_parity("data_parallel_adain_step", ranks, aflat, "adain", size=[DP_SIZE, DP_SIZE],
+                 batch=ADAIN_BATCH)
+    per_step = NUM_IN_SITES * DP_LOOP_STEPS
+    counts = [r["counts"] for r in ranks]
+    fwd, bwd = rank_counts(counts), rank_counts(counts, "instance_norm_bwd")
+    routes = [(c["instance_norm_fwd"]["launches_by_route"],
+               c["instance_norm_bwd"]["launches_by_route"],
+               c["conv2d_same_dx"]["launches_by_route"]) for c in counts]
+    finite = all(np.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0 for r in records)
+    ok = (wrote and finite and [r["step"] for r in records] == list(range(1, DP_LOOP_STEPS + 1))
+          and all(f == {"plain": per_step} for f in fwd)
+          and all(b == {"plain": per_step} for b in bwd)
+          and all(nonzero(rf) == {"one_launch": per_step} == nonzero(rb)
+                  and nonzero(rc) == {"tap_packed": DP_LOOP_STEPS} for rf, rb, rc in routes)
+          and [r["layout"] for r in ranks] == [[0, 0, 0], [1, 1, 0]])
+    p50 = lambda v: float(np.median(v))  # noqa: E731
+    emit("data_parallel_training", ok=ok, ranks=DP_RANKS, backend=ranks[0]["backend"],
+         layout=[r["layout"] for r in ranks], steps=DP_LOOP_STEPS, batch=DP_BATCH,
+         per_rank_batch=DP_BATCH // DP_RANKS, size=[DP_SIZE, DP_SIZE], precision="f32",
+         metrics=records, fwd_launches_by_mode_per_rank=fwd,
+         bwd_launches_by_mode_per_rank=bwd,
+         launches_by_route_per_rank=[{"instance_norm_fwd": nonzero(a),
+                                      "instance_norm_bwd": nonzero(b),
+                                      "conv2d_same_dx": nonzero(c)} for a, b, c in routes],
+         step_ms_p50_per_rank=[p50(r["step_ms"]) for r in ranks],
+         one_process_step_ms_p50=one_ms,
+         grad_all_reduce_ms_p50_per_rank=[p50(r["grad_all_reduce_ms"]) for r in ranks],
+         grad_elements=ranks[0]["grad_elements"],
+         grad_bytes=4 * ranks[0]["grad_elements"], launch_seconds=launch_s)
+    if not ok:
+        fail("data-parallel training (counts, metrics or the final params)")
+    adain_counts = [r["adain_counts"] for r in ranks]
+    a_ok = all(c["instance_norm_fwd"]["launches"] == 1 and nonzero(
+        c["conv2d_same_dx"]["launches_by_route"]) == {"tap_packed": 1} for c in adain_counts)
+    emit("data_parallel_adain_counts", ok=a_ok,
+         in_fwd_per_rank=[c["instance_norm_fwd"]["launches"] for c in adain_counts],
+         conv_dx_by_route_per_rank=[nonzero(c["conv2d_same_dx"]["launches_by_route"])
+                                    for c in adain_counts])
+    if not a_ok:
+        fail("data-parallel AdaIN step: launch counts")
+    return {"counts": counts, "adain_counts": adain_counts}
+
+
+def phase_data_space(seed: int) -> dict:
+    """The 2-D mesh: one launch of 4 ranks, data 2 x space 2 (sharing the
+    card over gloo), the sharded step at 512x512, B=2 (a sample a data
+    shard, its rows over two ranks) against the unsharded card step on the
+    same inputs, with ``phase_spatial_train``'s bounds (loss 1e-4 relative,
+    grad norm 1e-3, every gradient within 1e-3 of the largest, params 2.5e-3,
+    bit-equal across ranks); each rank's counts, set to 0 just before its
+    step and read just after: 14 statistics + 14
+    sharded-apply + 14 backward-sums + 14 backward-apply launches."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+    size, batch = SPATIAL_TRAIN_SIZE, SPATIAL_TRAIN_BATCH
+    free_card()
+    t0 = time.perf_counter()
+    ranks = launch(spatial_step_rank, 4, (seed, size, batch), spatial=2, device="cuda")
+    launch_s = time.perf_counter() - t0
+    counts = [r["counts"] for r in ranks]
+    with deterministic_algorithms():
+        flat = _one_train_step("cuda", seed, size=size, batch=batch)
+    free_card()
+    loss_rel = abs(ranks[0]["loss"] - flat[0]) / abs(flat[0])
+    norm_rel = abs(ranks[0]["grad_norm"] - flat[2]) / flat[2]
+    gmax = max(g.abs().max().item() for g in flat[1])
+    grad_err = max((a - b).abs().max().item() for a, b in zip(ranks[0]["grads"], flat[1])) / gmax
+    dp = max((a - b).abs().max().item() for a, b in zip(ranks[0]["params"], flat[4]))
+    equal = all(torch.equal(a, b) for r in ranks[1:]
+                for key in ("grads", "params") for a, b in zip(r[key], ranks[0][key]))
+    fwd, bwd = rank_counts(counts), rank_counts(counts, "instance_norm_bwd")
+    ok = (loss_rel <= 1e-4 and norm_rel <= 1e-3 and grad_err <= 1e-3 and dp <= 2.5e-3
+          and equal and all(r["step"] == 1 for r in ranks)
+          and [r["layout"] for r in ranks] == [[0, 0, 0], [1, 0, 1], [2, 1, 0], [3, 1, 1]]
+          and all(f == {"stats": NUM_IN_SITES, "sharded_apply": NUM_IN_SITES} for f in fwd)
+          and all(b == {"bwd_sums": NUM_IN_SITES, "bwd_apply": NUM_IN_SITES} for b in bwd))
+    emit("data_space_step", ok=ok, ranks=4, mesh={"data": 2, "space": 2},
+         backend=ranks[0]["backend"], layout=[r["layout"] for r in ranks],
+         size=[size, size], batch=batch, precision="f32", card_deterministic_algorithms=True,
+         loss_sharded=ranks[0]["loss"], loss_unsharded=flat[0], loss_rel_err=loss_rel,
+         grad_norm_rel_err=norm_rel, grad_max_abs_err_over_max_grad=grad_err,
+         param_max_abs_err=dp, grads_and_params_bit_equal_across_ranks=equal,
+         fwd_launches_by_mode_per_rank=fwd, bwd_launches_by_mode_per_rank=bwd,
+         launch_seconds=launch_s)
+    if not ok:
+        fail("data x space training step")
+    return {"counts": counts}
+
+
+@contextlib.contextmanager
+def record_int8_scales(record: list):
+    """Within the block, each conv of every int8 forward appends (its name,
+    the scale its chunks were quantized with, the dynamic scale of the
+    chunks' inputs laid end to end as one tensor, the first chunk's own
+    dynamic scale); a forward visits its convs in ``_CONV_ORDER``."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.infer import quantized as q
+
+    real = q._shared_scales
+
+    def spy(ps, vs):
+        scales = real(ps, vs)
+        whole = q._quantize_act(torch.cat([v.to(vs[0].device) for v in vs]))[1]
+        name = q._CONV_ORDER[len(record) % len(q._CONV_ORDER)]
+        record.append((name, scales[0], whole, q._quantize_act(vs[0])[1]))
+        return scales
+
+    q._shared_scales = spy
+    try:
+        yield
+    finally:
+        q._shared_scales = real
+
+
+def in_plan_follows_n(seed: int, n: int) -> list:
+    """At each 256x256 IN site, f32: the IN forward kernel on n samples and
+    on their first n // 2 alone, whether those samples' outputs are
+    bit-equal and the kernel's chunks a sample (``fwd_plan``) at each N."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import fwd_plan
+    from fast_neural_style_transfer_tpu_torch.ops.norm import instance_norm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for name, h, w, c, relu, _ in SITES:
+        x = torch.randn((n, c, h, w), device="cuda", generator=g).contiguous(
+            memory_format=torch.channels_last)
+        gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+        beta = torch.randn(c, device="cuda", generator=g)
+        whole = instance_norm(x, gamma, beta, relu=relu)[: n // 2]
+        half = instance_norm(x[: n // 2], gamma, beta, relu=relu)
+        rows.append({"site": name, "bit_equal": bool(torch.equal(whole, half)),
+                     "max_abs_diff": float((whole - half).abs().max()),
+                     "chunks_a_sample": {n // 2: fwd_plan(x[: n // 2]).chunks, n: fwd_plan(x).chunks}})
+    return rows
+
+
+def _with_static_scales(qparams: dict, scales: dict) -> dict:
+    from fast_neural_style_transfer_tpu_torch.infer import quantized as q
+
+    out = {n: dict(v) for n, v in qparams.items() if n != "res_blocks"}
+    out["res_blocks"] = [{c: dict(p) for c, p in rb.items()} for rb in qparams["res_blocks"]]
+    for name, s in scales.items():
+        q._get(out, name)["act_scale"] = s
+    return out
+
+
+def _serve_in_process(flags: list, body: bytes, n: int) -> dict:
+    """fnst-serve's ``main`` with ``flags`` in this process, on 127.0.0.1:0:
+    ``n`` concurrent requests, then its shutdown."""
+    from fast_neural_style_transfer_tpu_torch.serve import http as serve_http
+
+    replies, real = [], serve_http.make_server
+
+    def on_port_0(forward, **kw):
+        kw.update(host="127.0.0.1", port=0)
+        srv = real(forward, **kw)
+
+        def post(_):
+            conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=120)
+            try:
+                conn.request("POST", "/stylize?format=png", body=body,
+                             headers={"Content-Type": "image/jpeg"})
+                resp = conn.getresponse()
+                return resp.status, resp.read()
+            finally:
+                conn.close()
+
+        def client():
+            try:
+                with ThreadPoolExecutor(max_workers=n) as pool:
+                    replies.extend(pool.map(post, range(n)))
+            finally:
+                srv.shutdown()
+
+        threading.Thread(target=client, daemon=True).start()
+        return srv
+
+    import signal as signal_mod
+
+    before = signal_mod.getsignal(signal_mod.SIGTERM)
+    serve_http.make_server = on_port_0
+    try:
+        serve_http.main(flags)
+    finally:
+        serve_http.make_server = real
+        signal_mod.signal(signal_mod.SIGTERM, before)
+    return {"replies": replies}
+
+
+def phase_data_parallel_serving(seed: int) -> dict:
+    """Replicas in one process (``Stylizer(sharding=)`` over ["cuda:0",
+    "cuda:0"]) with the trained weights at B=8, 256x256: the main path is
+    the f32 call, its counts set to 0 just before and read just after (14
+    IN launches a chunk, two chunks). Against the unsharded Stylizer's B=8
+    call: f32 max |du8| <= 1, bf16 SSIM >= 0.98; int8: each conv's
+    shared scale bit-equal to the dynamic scale of the whole batch (the
+    chunks' inputs laid end to end), conv1's to the unsharded B=8 call's
+    (the same input bits), while the other convs' scales against that
+    call and its |du8| are reported, beside the same call with the shared
+    scales as static ones and the IN kernel at N=4 against N=8 at each
+    site (int8's requantization amplifies the IN kernel's f32 roundings,
+    which follow the batch the kernel sees). Under deterministic
+    algorithms each B=4 chunk bit-equal to the unsharded Stylizer run on it
+    alone (f32, bf16, f32 with preserve_color="luma", int8 with the shared
+    scales as static ones); B=1 and B=3 run as one chunk. Then the
+    inference CLI with --content_dir --data_parallel against the run
+    without the flag (|du8| <= 1) and fnst-serve --data_parallel
+    answering 16 requests, both over every visible card."""
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.cli import begin_inference
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
+    from fast_neural_style_transfer_tpu_torch.parallel import make_mesh_plan
+
+    params = Stylizer.load_params(str(CHECKPOINT))
+    plan = make_mesh_plan(devices=["cuda:0", "cuda:0"])
+    img = np.stack([smooth_image(DP_SIZE, DP_SIZE, seed=7100 + i)
+                    for i in range(DP_SERVE_BATCH)])
+    half = DP_SERVE_BATCH // 2
+    out, main_launches, int8_scales = {}, None, {}
+    for precision, color in (("f32", "off"), ("bf16", "off"), ("int8", "off"), ("f32", "luma")):
+        one = Stylizer(params, precision=precision, preserve_color=color)
+        rep = Stylizer(params, precision=precision, preserve_color=color,
+                       sharding=plan.batch_sharding)
+        if precision == "f32" and color == "off":
+            reset_in_counts()
+            got = rep.stylize_u8(img)
+            main_launches = instance_norm_fwd.launches
+        else:
+            got = rep.stylize_u8(img)
+        want = one.stylize_u8(img)
+        du8, score = _du8(got, want), float(ssim_card(got, want).min())
+        rec, rec_one = [], []
+        with deterministic_algorithms(), record_int8_scales(rec):
+            rep_det = rep.stylize_u8(img)
+        if precision == "int8":
+            # each conv's shared scale must be the whole batch's max; the
+            # unsharded B=8 call's equals it only where the conv's input is
+            # the same bits (conv1: later inputs went through IN kernels
+            # planned for N=8, not 4); that call with the shared scales as
+            # static ones, against the replicas, leaves the IN plan's share
+            with deterministic_algorithms(), record_int8_scales(rec_one):
+                one.stylize_u8(img)
+            one.qparams = _with_static_scales(one.qparams, {n: s for n, s, _, _ in rec})
+            with deterministic_algorithms():
+                b8_static = one.stylize_u8(img)
+            same = [bool(a[1] == b[1]) for a, b in zip(rec, rec_one)]
+            int8_scales = {
+                "convs": len(rec),
+                "shared_equals_whole_batch": all(bool(s == w) for _, s, w, _ in rec),
+                "convs_where_chunk0_alone_differs": sum(bool(s != c) for _, s, _, c in rec),
+                "equal_to_unsharded_b8": same,
+                "max_rel_diff_to_unsharded_b8": max(
+                    abs(float(a[1]) / float(b[1]) - 1.0) for a, b in zip(rec, rec_one)),
+                "unsharded_b8_with_shared_static_max_abs_du8": _du8(b8_static, rep_det),
+                "in_plan_n4_vs_n8": in_plan_follows_n(seed, DP_SERVE_BATCH)}
+        with deterministic_algorithms():
+            chunks = [one.stylize_u8(img[i * half:(i + 1) * half]) for i in range(2)]
+        bit_equal = np.array_equal(np.concatenate(chunks), rep_det)
+        ones = {}
+        for b in (1, 3):
+            before = instance_norm_fwd.launches
+            rep.stylize_u8(img[:b])
+            ones[b] = instance_norm_fwd.launches - before
+        ok = (got.shape == img.shape and bit_equal
+              and all(v == NUM_IN_SITES for v in ones.values())
+              and (du8 <= 1 if precision == "f32" else
+                   score >= 0.98 if precision == "bf16" else
+                   int8_scales["convs"] == 15 and int8_scales["shared_equals_whole_batch"]
+                   and int8_scales["equal_to_unsharded_b8"][0]))
+        key = precision + ("_luma" if color == "luma" else "")
+        out[key] = {"max_abs_du8": du8, "min_ssim": score}
+        emit("data_parallel_serving", ok=ok, precision=precision, preserve_color=color,
+             replicas=[str(d) for d in plan.devices], batch=DP_SERVE_BATCH,
+             size=[DP_SIZE, DP_SIZE], max_abs_du8_vs_unsharded=du8,
+             min_ssim_vs_unsharded=score,
+             criterion={"f32": "max|du8|<=1", "bf16": "ssim>=0.98",
+                        "int8": "each conv's shared scale the whole batch's, conv1's the "
+                                "unsharded B=8 call's; chunks bit-equal (the other "
+                                "convs' scales and du8 vs B=8 reported)"}[precision],
+             chunks_bit_equal_to_unsharded_alone=bit_equal,
+             int8_scales=int8_scales if precision == "int8" else None,
+             in_launches_b1_b3=ones, card_deterministic_algorithms_for_bit_check=True)
+        if not ok:
+            fail(f"data-parallel serving ({key})")
+    main_ok = main_launches == 2 * NUM_IN_SITES
+    emit("data_parallel_serving_counts", ok=main_ok, in_fwd_launches=main_launches,
+         expected=2 * NUM_IN_SITES)
+    if not main_ok:
+        fail("data-parallel serving: IN launches of the B=8 call")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "c")
+        os.makedirs(src)
+        for i in range(DP_SERVE_BATCH):
+            Image.fromarray(img[i]).save(os.path.join(src, f"{i}.png"))
+        outs = {}
+        for flags in ([], ["--data_parallel"]):
+            d = os.path.join(tmp, "o" + str(len(flags)))
+            begin_inference.main(["--model_path", str(CHECKPOINT), "--content_dir", src,
+                                  "--output_dir", d, "--batch_size", str(DP_SERVE_BATCH),
+                                  *flags])
+            outs[len(flags)] = np.stack([np.asarray(Image.open(
+                os.path.join(d, f"{i}_stylized.jpg"))) for i in range(DP_SERVE_BATCH)])
+        cli_du8 = _du8(outs[0], outs[1])
+    buf = io.BytesIO()
+    Image.fromarray(img[0]).save(buf, format="JPEG", quality=95)
+    served = _serve_in_process(["--model", str(CHECKPOINT), "--data_parallel", "--size",
+                                str(DP_SIZE)], buf.getvalue(), 16)
+    statuses = [s for s, _ in served["replies"]]
+    import torch
+
+    ok = cli_du8 <= 1 and statuses == [200] * 16
+    emit("data_parallel_cli_and_server", ok=ok, cards=torch.cuda.device_count(),
+         cli_max_abs_du8_vs_without_flag=cli_du8, server_statuses=statuses)
+    if not ok:
+        fail("data-parallel inference CLI or fnst-serve --data_parallel")
+    return {"main_launches": main_launches, **out}
+
+def dp_time_rank(plan, seed: int, per_rank: int) -> dict:
+    """Host-clock walls of the data-parallel f32 step at 256x256 with
+    ``per_rank`` images a rank (after two warm-up steps), and of the flat
+    gradient all_reduce."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+    from fast_neural_style_transfer_tpu_torch.train.step import make_train_step
+
+    net, vgg, u8, grams, _ = _train_inputs(str(plan.device), seed, DP_SIZE, per_rank)
+    state, step = create_train_state(net), make_train_step(dropout=False, data=plan.data)
+    walls = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, vgg, u8, grams)
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    flat = torch.cat([p.detach().reshape(-1).clone() for p in net.parameters()])
+    reduce_ms = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan.data.all_reduce_(flat)
+        torch.cuda.synchronize()
+        if i:
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms_p50": float(np.median(walls)), "all_reduce_ms_p50": float(np.median(reduce_ms)),
+            "backend": plan.backend, "device": str(plan.device)}
+
+
+def phase_data_parallel_cards(seed: int) -> None:
+    """On a machine with two cards or more (not in ``all``): the
+    data-parallel step over NCCL, a rank a card, at 256x256 f32, per rank
+    p50 against the one-card step, card by card (global B=20 split, and 20
+    a card); the device guard: ``Stylizer(device="cuda:1")`` against card
+    0 (the same output, 14 IN launches), and a two-card replica plan at B=8
+    against the unsharded Stylizer (f32 max |du8| <= 1)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
+    from fast_neural_style_transfer_tpu_torch.parallel import launch, make_mesh_plan
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("data_parallel_cards", ran=False, cards=cards, reason="needs two cards or more")
+        return
+    params = Stylizer.load_params(str(CHECKPOINT))
+    img = np.stack([smooth_image(DP_SIZE, DP_SIZE, seed=7300 + i) for i in range(DP_SERVE_BATCH)])
+    with deterministic_algorithms():
+        ref = Stylizer(params, precision="f32").stylize_u8(img)
+        before = instance_norm_fwd.launches
+        other = Stylizer(params, precision="f32", device="cuda:1")
+        got1 = other.stylize_u8(img[:1])
+        launches = instance_norm_fwd.launches - before
+        got1_all = other.stylize_u8(img)
+    rep = Stylizer(params, precision="f32",
+                   sharding=make_mesh_plan(devices=["cuda:0", "cuda:1"]).batch_sharding)
+    before = instance_norm_fwd.launches
+    got2 = rep.stylize_u8(img)
+    rep_launches = instance_norm_fwd.launches - before
+    ok = (launches == NUM_IN_SITES and _du8(got1_all, ref) <= 1 and _du8(got2, ref) <= 1
+          and rep_launches == 2 * NUM_IN_SITES and str(other.device) == "cuda:1")
+    emit("device_guard_cards", ok=ok, cards=cards, stylizer_on_cuda1_launches_b1=launches,
+         cuda1_vs_cuda0_max_abs_du8=_du8(got1_all, ref),
+         cuda1_vs_cuda0_bit_equal=bool(np.array_equal(got1_all, ref)),
+         two_card_replicas_max_abs_du8=_du8(got2, ref), two_card_replica_launches=rep_launches)
+    if not ok:
+        fail("the device guard on a second card")
+    del other, rep
+    free_card()
+    one = {b: unsharded_step_ms(seed, DP_SIZE, b, reps=5) for b in (5, 10, DP_BATCH)}
+    free_card()
+    rows = []
+    for n in sorted({2, min(cards, 4)}):
+        for per_rank in (DP_BATCH // n, DP_BATCH):
+            ranks = launch(dp_time_rank, n, (seed, per_rank), spatial=1, device="cuda")
+            rows.append({"ranks": n, "per_rank_batch": per_rank, "global_batch": per_rank * n,
+                         "backend": ranks[0]["backend"],
+                         "step_ms_p50_per_rank": [r["step_ms_p50"] for r in ranks],
+                         "grad_all_reduce_ms_p50_per_rank": [r["all_reduce_ms_p50"]
+                                                            for r in ranks]})
+            free_card()
+    emit("data_parallel_cards", ran=True, cards=cards, size=[DP_SIZE, DP_SIZE],
+         precision="f32", one_card_step_ms_p50_by_batch=one, runs=rows)
+
+
+
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
           "multi_style", "video", "adain", "export", "int8", "spatial", "spatial_train",
-          "spatial_adain", "times", "train_times", "spatial_times", "in_fwd_budgets",
-          "in_bwd_budgets")
+          "spatial_adain", "data_parallel", "data_space", "data_parallel_serving", "times",
+          "train_times", "spatial_times", "in_fwd_budgets", "in_bwd_budgets")
 # recorded findings, run on request only
-EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity", "spatial_profile")
+EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity", "spatial_profile",
+                "data_parallel_cards")
 
 
 def main() -> int:
@@ -3823,6 +4441,13 @@ def main() -> int:
                      if "spatial_train" in phases else None)
     spatial_adain = (run("spatial_adain", phase_spatial_adain, args.seed,
                          adain and adain["decoder"]) if "spatial_adain" in phases else None)
+    dparallel = (run("data_parallel", phase_data_parallel, args.seed)
+                 if "data_parallel" in phases else None)
+    dspace = run("data_space", phase_data_space, args.seed) if "data_space" in phases else None
+    dserve = (run("data_parallel_serving", phase_data_parallel_serving, args.seed)
+              if "data_parallel_serving" in phases else None)
+    if "data_parallel_cards" in phases:
+        run("data_parallel_cards", phase_data_parallel_cards, args.seed)
     if "int8_sensitivity" in phases:
         run("int8_sensitivity", phase_int8_sensitivity, args.seed)
     if "train_parity_sensitivity" in phases:
@@ -3978,6 +4603,31 @@ def main() -> int:
             "sums_ms": st["bwd_sums"]["ms"], "apply_ms": st["bwd_apply"]["ms"],
             "bf16": {"sums": sb["bwd_sums"], "apply": sb["bwd_apply"]},
         })
+        # each rank's launches on the data-parallel paths: the training loop
+        # (data 2 x space 1), the AdaIN step, and the 2-D step (data 2 x space 2)
+        def per_rank(counts, fn, mode=None):
+            return [c.get(fn, {}).get("launches_by_mode", {}).get(mode, 0) if mode
+                    else c.get(fn, {}).get("launches", 0) for c in counts]
+
+        dpc, dac, dsc = dparallel["counts"], dparallel["adain_counts"], dspace["counts"]
+        data_parallel = {
+            "instance_norm_fwd": per_rank(dpc, "instance_norm_fwd", "plain"),
+            "instance_norm_fwd_capture": per_rank(dpc, "instance_norm_fwd", "capture"),
+            "instance_norm_fwd_inject": per_rank(dpc, "instance_norm_fwd", "inject"),
+            "instance_norm_bwd": per_rank(dpc, "instance_norm_bwd", "plain"),
+            "conv2d_same_bwd": per_rank(dpc, "conv2d_same_dx"),
+            "instance_norm_fwd_stats": per_rank(dsc, "instance_norm_fwd", "stats"),
+            "instance_norm_fwd_sharded_apply": per_rank(dsc, "instance_norm_fwd",
+                                                        "sharded_apply"),
+            "instance_norm_bwd_sharded": [
+                a + b for a, b in zip(per_rank(dsc, "instance_norm_bwd", "bwd_sums"),
+                                      per_rank(dsc, "instance_norm_bwd", "bwd_apply"))],
+        }
+        for k in kernels:
+            k["launches_data_parallel"] = data_parallel[k["name"]]
+        kernels[0]["launches_data_parallel_adain"] = per_rank(dac, "instance_norm_fwd")
+        kernels[0]["launches_data_parallel_serving"] = dserve["main_launches"]
+        kernels[4]["launches_data_parallel_adain"] = per_rank(dac, "conv2d_same_dx")
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}), flush=True)

@@ -1,4 +1,9 @@
-"""Command-line front ends (flag-compatible with the JAX package's)."""
+"""Command-line front ends (flag-compatible with the JAX package's).
+
+Every one runs on the card by default. ``--data_parallel`` (inference and
+AdaIN bulk jobs, ``fnst-serve``) splits batches over every visible card;
+the trainers do so by themselves when there are several cards;
+``--spatial N`` splits an image's rows over N ranks."""
 
 
 def resolve_style_flags(style_index, style_blend):

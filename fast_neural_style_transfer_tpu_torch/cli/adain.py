@@ -18,8 +18,10 @@ archive: host work, but for the baked styles' moments, which the VGG
 encodes on the device. ``stylize --spatial N`` splits the content's rows
 over N ranks (``infer/spatial_adain.py``; ``parallel/mesh.py::launch``
 spawns them), single-image mode only, as the JAX package's.
-``--data_parallel`` is not yet ported (ROADMAP row 15b) and exits with a
-message.
+``stylize --content_dir --data_parallel`` splits each batch over every
+visible card (a replica on each, ``infer/adain.py``); ``train`` splits its
+batch over every card by itself when there are several
+(``train/adain.py``).
 """
 
 from __future__ import annotations
@@ -72,8 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "with the given style (pipelined batches)")
     s.add_argument("--batch_size", type=int, default=16, help="Bulk mode device batch size")
     s.add_argument("--data_parallel", action="store_true",
-                   help="Bulk mode: shard batches over several cards (not yet "
-                        "ported: ROADMAP row 15b)")
+                   help="Bulk mode: shard batches over every visible card "
+                        "(--batch_size must divide by their number)")
     s.add_argument("--skip_bad_images", action="store_true",
                    help="Bulk mode: log and skip undecodable files instead "
                         "of failing the whole job")
@@ -318,9 +320,6 @@ def main(argv=None):
         return _export(args, device)
 
     # stylize
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: multi-card stylization is not yet "
-                         "ported (ROADMAP row 15b)")
     if (args.content_image is None) == (args.content_dir is None):
         raise SystemExit("pass exactly one of --content_image (single) or "
                          "--content_dir (bulk)")
@@ -328,7 +327,7 @@ def main(argv=None):
         if args.content_dir is not None:
             raise SystemExit("--content_dir and --spatial cannot be combined yet; "
                              "run spatial jobs per image, or use --data_parallel "
-                             "(ROADMAP row 15b) on directory batches")
+                             "to use every card on directory batches")
         from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
         from fast_neural_style_transfer_tpu_torch.parallel import launch
 
@@ -351,8 +350,8 @@ def main(argv=None):
         args.style_image, style_weights=args.style_blend, alpha=args.alpha,
         vgg_weights=args.vgg_weights, size=tuple(args.size) if args.size else None,
         batch_size=args.batch_size, precision=args.precision,
-        skip_bad_images=args.skip_bad_images, preserve_color=args.preserve_color,
-        device=device)
+        data_parallel=args.data_parallel, skip_bad_images=args.skip_bad_images,
+        preserve_color=args.preserve_color, device=device)
     done = [w for w in written if w]
     print(f"stylized {len(done)} images"
           + (f" ({len(written) - len(done)} skipped)" if len(done) != len(written) else ""))

@@ -10,8 +10,11 @@ multi-style checkpoint. ``--precision int8`` quantizes the convs
 (``infer/quantized.py``). ``--spatial N`` splits one image's rows over N
 ranks (``infer/spatial.py``; ``parallel/mesh.py::launch`` spawns them: NCCL
 with a card each, gloo where they share one or run on the CPU); it refuses
-int8 and ``--content_dir``, as the JAX package's does. ``--data_parallel``
-is not yet ported (ROADMAP row 15b) and exits with a message.
+int8 and ``--content_dir``, as the JAX package's does. ``--content_dir
+--data_parallel`` splits each batch over every visible card (``--device
+cuda``; an explicit ``cuda:N`` or ``cpu`` is that one device), a replica
+of the params on each (``infer/stylize.py``); ``--batch_size`` must divide
+by their number.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=16,
                    help="Device batch size for --content_dir jobs")
     p.add_argument("--data_parallel", action="store_true",
-                   help="Shard --content_dir batches over several cards "
-                        "(not yet ported: ROADMAP row 15b)")
+                   help="Shard --content_dir batches over every visible card "
+                        "(--batch_size must divide by their number)")
     p.add_argument("--skip_bad_images", action="store_true",
                    help="--content_dir jobs: log and skip undecodable files "
                         "instead of failing the whole job")
@@ -72,9 +75,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: multi-card inference is not yet ported "
-                         "(ROADMAP row 15b)")
 
     from fast_neural_style_transfer_tpu_torch.infer import (
         stylize_directory,
@@ -91,7 +91,7 @@ def main(argv=None) -> None:
         if args.content_dir:
             raise SystemExit(
                 "--content_dir and --spatial cannot be combined yet; run spatial "
-                "jobs per image, or use --data_parallel (ROADMAP row 15b) on "
+                "jobs per image, or use --data_parallel to use every card on "
                 "directory batches")
         if args.precision == "int8":
             raise SystemExit("--precision int8 is not supported with --spatial "
@@ -108,7 +108,8 @@ def main(argv=None) -> None:
         written = stylize_directory(
             args.model_path, args.content_dir, args.output_dir,
             size=size, batch_size=args.batch_size, precision=args.precision,
-            style=style, skip_bad_images=args.skip_bad_images,
+            data_parallel=args.data_parallel, style=style,
+            skip_bad_images=args.skip_bad_images,
             preserve_color=args.preserve_color, device=args.device)
         done = [w for w in written if w]
         print(f"saved {len(done)} stylized images to {args.output_dir}"

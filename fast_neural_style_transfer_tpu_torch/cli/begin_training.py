@@ -8,9 +8,12 @@ Runs on the card (``--device cpu`` for the CPU). Several ``--style_image``
 paths train one multi-style net (conditional IN); ``--in_stats onepass``
 trains with one-pass IN statistics; a reference training ``.pth`` as
 ``--checkpoint_path`` resumes fully (Adam state, schedule, iteration).
-``--spatial N`` splits each image's rows over N ranks, spawned by the loop
-(``train/loop.py``, ``train/spatial_step.py``). ``--profile_start`` / ``--profile_stop`` trace with
-``torch.profiler``.
+With several cards (``--device cuda``) the loop spawns a rank a card and
+splits the batch over them (data parallelism, ``train/step.py``; an
+explicit ``--device cuda:N`` is that one card); ``--spatial N`` splits
+each image's rows over N of the ranks (``train/loop.py``,
+``train/spatial_step.py``). ``--profile_start`` / ``--profile_stop`` trace
+with ``torch.profiler``.
 """
 
 from __future__ import annotations

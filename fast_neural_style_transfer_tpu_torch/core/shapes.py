@@ -61,3 +61,11 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def indexed_device(device: torch.device) -> torch.device:
+    """``device`` with its index: "cuda" is the current card, "cuda:N"; the
+    tensors made on it report that, and replicas are keyed by it."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

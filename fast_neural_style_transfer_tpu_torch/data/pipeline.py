@@ -1,6 +1,5 @@
 """Host input pipeline: shuffle, batch, decode on threads, ship uint8 to the
-card with one batch prefetched (the JAX package's ``data/pipeline.py``,
-single process).
+card with one batch prefetched (the JAX package's ``data/pipeline.py``).
 
 Ordering is the JAX pipeline's: epoch e visits ``np.random.default_rng(seed
 + e).permutation(len(dataset))`` in batches, dropping the short tail
@@ -13,9 +12,17 @@ memory with ``non_blocking=True`` on a side stream by the producer thread,
 one batch ahead of the consumer, which waits on the copy's event before
 using the batch.
 
-``pad_to_multiple`` > 0 pads the batch up to that multiple by repeating its
-last image; ``batch_mask`` (1 for real rows, 0 for padding) lets the step
-mask the padding out of every loss exactly (``--pad_batch``).
+Data parallelism: with ``num_data_shards`` > 1 the global batch is split
+into that many contiguous slices and this rank decodes and ships only
+slice ``shard_index`` (JAX's ``_local_slice`` at the rank's data index,
+``local_batch_size`` images); the global batch must divide.
+
+``pad_to_multiple`` > 0 pads each shard's slice up to that multiple by
+repeating its last image (JAX's ``_pad_shards``); ``batch_mask`` (1 for
+real rows, 0 for padding) is this shard's, which lets the step mask the
+padding out of every loss exactly (``--pad_batch``), and
+``batch_mask_global`` the shards' masks end to end, JAX's. The shards'
+batches laid end to end are JAX's padded global batch.
 """
 
 from __future__ import annotations
@@ -43,8 +50,15 @@ class InputPipeline:
         num_workers: int = 8,
         drop_last: bool = True,
         pad_to_multiple: int = 0,
+        num_data_shards: int = 1,
+        shard_index: int = 0,
         device: Union[str, torch.device] = "cuda",
     ):
+        if batch_size % num_data_shards:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{num_data_shards} data shards")
+        if not 0 <= shard_index < num_data_shards:
+            raise ValueError(f"shard_index {shard_index} outside [0, {num_data_shards})")
         if drop_last and len(dataset) < batch_size:
             raise ValueError(
                 f"dataset has {len(dataset)} images but the batch is "
@@ -57,15 +71,22 @@ class InputPipeline:
         self.num_workers = num_workers
         self.drop_last = drop_last
         self.device = torch.device(device)
+        self.num_data_shards = num_data_shards
+        self.shard_index = shard_index
+        self.local_batch_size = batch_size // num_data_shards
         self.pad_to_multiple = int(pad_to_multiple)
-        self.padded_size = batch_size
+        self.padded_size = self.local_batch_size  # this shard's rows, padding included
         self.batch_mask: Optional[np.ndarray] = None
+        self.batch_mask_global: Optional[np.ndarray] = None
         if self.pad_to_multiple > 0:
-            padded = -(-batch_size // self.pad_to_multiple) * self.pad_to_multiple
-            if padded != batch_size:
+            per = self.local_batch_size
+            padded = -(-per // self.pad_to_multiple) * self.pad_to_multiple
+            if padded != per:
                 self.padded_size = padded
-                self.batch_mask = np.zeros(padded, np.float32)
-                self.batch_mask[:batch_size] = 1.0
+                mask = np.zeros((num_data_shards, padded), np.float32)
+                mask[:, :per] = 1.0
+                self.batch_mask_global = mask.reshape(-1)
+                self.batch_mask = mask[shard_index].copy()
 
     # -- host-side batch assembly ------------------------------------------
 
@@ -81,15 +102,19 @@ class InputPipeline:
                 idx = np.resize(idx, len(idx) + pad)
         return idx.reshape(-1, bs)
 
+    def _local_slice(self, batch_idx: np.ndarray) -> np.ndarray:
+        per = self.local_batch_size
+        return batch_idx[self.shard_index * per:(self.shard_index + 1) * per]
+
     def _make_batch(self, pool: ThreadPoolExecutor, batch_idx: np.ndarray) -> np.ndarray:
-        u8 = np.stack(list(pool.map(self.dataset.__getitem__, batch_idx)))
-        if self.padded_size != self.batch_size:
-            extra = np.repeat(u8[-1:], self.padded_size - self.batch_size, axis=0)
+        u8 = np.stack(list(pool.map(self.dataset.__getitem__, self._local_slice(batch_idx))))
+        if self.padded_size != self.local_batch_size:
+            extra = np.repeat(u8[-1:], self.padded_size - self.local_batch_size, axis=0)
             u8 = np.concatenate([u8, extra], axis=0)
         return u8
 
     def host_batches(self, num_epochs: Optional[int] = None) -> Iterator[np.ndarray]:
-        """uint8 (B, H, W, 3) numpy batches, epoch-shuffled."""
+        """This shard's uint8 (B, H, W, 3) numpy batches, epoch-shuffled."""
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             epoch = 0
             while num_epochs is None or epoch < num_epochs:

@@ -7,7 +7,10 @@ and then runs a uint8 round trip per content batch on the device: u8 in,
 normalize, VGG encode to relu4_1, re-normalize to the cached moments (the IN
 forward kernel on the card, with a (C,) affine gamma = sigma, beta = mu),
 blend by ``alpha``, decode, de-normalize, u8 out. Bulk jobs run on
-``infer.stylize.pipeline_directory``.
+``infer.stylize.pipeline_directory``. ``sharding`` (a ``ReplicaPlan``)
+replicates the decoder, VGG and the cached style on its devices and
+splits a batch over them as ``infer.stylize.Stylizer`` does; AdaIN's
+statistics are per sample, so nothing crosses devices.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
 from fast_neural_style_transfer_tpu_torch.core.shapes import (
+    indexed_device,
     pad_to_multiple_reflect,
     resolve_device,
 )
@@ -30,6 +34,7 @@ from fast_neural_style_transfer_tpu_torch.models.adain import (
     make_decoder,
 )
 from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
+from fast_neural_style_transfer_tpu_torch.parallel.mesh import make_mesh_plan, place_on_data_axis
 from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
 from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
 from fast_neural_style_transfer_tpu_torch.utils.image_io import (
@@ -51,7 +56,9 @@ class ArbitraryStylizer:
     content chrominance); "match" re-colors the style per content and
     cannot use a cached style. ``bucket_multiple``: content is reflect-padded
     up to a multiple of it, and the padded rows enter the AdaIN moments.
-    ``sharding`` is not yet ported (ROADMAP row 15b).
+    ``sharding``: a ``ReplicaPlan``, whose first device is ``device``: a
+    replica on each of its devices, and a batch whose leading dim divides
+    its degree split over them.
     """
 
     def __init__(
@@ -70,17 +77,28 @@ class ArbitraryStylizer:
                 f"preserve_color must be 'off' or 'luma' for serving "
                 f"(got {preserve_color!r}); 'match' is per-content and "
                 "defeats the cached style")
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharded AdaIN serving is not yet ported (ROADMAP row 15b)")
-        self.device = resolve_device(device)
+        if sharding is not None and device is not None and (
+                indexed_device(resolve_device(device)) != sharding.device):
+            raise ValueError(f"device {device} is not the plan's first device "
+                             f"{sharding.device}")
+        self.sharding = sharding
+        self.device = indexed_device(
+            resolve_device(device if sharding is None else sharding.device))
         self.precision = canonical_compute_dtype(precision)
         self.preserve_color = preserve_color
         self.bucket_multiple = bucket_multiple
         exact_f32(self.device, self.precision)
         self.decoder = make_decoder(decoder_params, self.device).eval()
         self.vgg = make_vgg(vgg_params, self.device)
+        # (decoder, vgg) on every device of the plan
+        self._replicas = {self.device: (self.decoder, self.vgg)}
+        for d in (sharding.devices if sharding is not None else ()):
+            if d not in self._replicas:
+                exact_f32(d, self.precision)
+                self._replicas[d] = (make_decoder(decoder_params, d).eval(),
+                                     make_vgg(vgg_params, d))
         self._style: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._styles: dict = {}  # the cached style on every device of the plan
 
     @torch.inference_mode()
     def set_style(self, style, style_weights=None) -> "ArbitraryStylizer":
@@ -91,6 +109,7 @@ class ArbitraryStylizer:
                                   device=self.device) for s in styles]
         self._style = blended_style_stats(self.vgg, styles, style_weights,
                                           precision=self.precision)
+        self._styles = {d: tuple(t.to(d) for t in self._style) for d in self._replicas}
         return self
 
     def set_style_u8(self, style_u8, style_weights=None) -> "ArbitraryStylizer":
@@ -108,13 +127,15 @@ class ArbitraryStylizer:
         return self.set_style(net, style_weights)
 
     def _u8_roundtrip(self, x_u8: torch.Tensor, alpha: float) -> torch.Tensor:
+        """One chunk, on its device's replica."""
+        decoder, vgg = self._replicas[x_u8.device]
         x = u8_to_network(x_u8)
-        (c_feat,) = self.vgg(x, (ENCODE_TAP,), precision=self.precision)
-        mu_s, sigma_s = self._style
+        (c_feat,) = vgg(x, (ENCODE_TAP,), precision=self.precision)
+        mu_s, sigma_s = self._styles[x_u8.device]
         t = adain_with_stats(c_feat, mu_s, sigma_s)
         if alpha != 1.0:
             t = (alpha * t.float() + (1.0 - alpha) * c_feat.float()).to(c_feat.dtype)
-        y = self.decoder(t, self.precision)
+        y = decoder(t, self.precision)
         if self.preserve_color == "luma":
             mean = torch.as_tensor(IMAGENET_MEAN, device=y.device)
             std = torch.as_tensor(IMAGENET_STD, device=y.device)
@@ -134,7 +155,9 @@ class ArbitraryStylizer:
         squeeze = image_u8.ndim == 3
         x = torch.from_numpy(np.array(image_u8[None] if squeeze else image_u8))
         padded, (h, w) = pad_to_multiple_reflect(x.to(self.device), self.bucket_multiple)
-        out = self._u8_roundtrip(padded, float(alpha))[:, :h, :w, :].cpu().numpy()
+        outs = [self._u8_roundtrip(c, float(alpha))
+                for c in place_on_data_axis(self.sharding, padded)]
+        out = torch.cat([o[:, :h, :w, :].cpu() for o in outs]).numpy()
         return out[0] if squeeze else out
 
 
@@ -158,19 +181,23 @@ def stylize_directory_arbitrary(
 ) -> list:
     """Stylize every image under ``content_dir`` with one arbitrary style
     (or an interpolated set), encoded once for the job: the AdaIN
-    counterpart of ``infer.stylize.stylize_directory``."""
+    counterpart of ``infer.stylize.stylize_directory`` (``data_parallel``
+    as there)."""
     from fast_neural_style_transfer_tpu_torch.infer.stylize import pipeline_directory
     from fast_neural_style_transfer_tpu_torch.utils.image_io import (
         decode_image,
         scan_image_files,
     )
 
+    sharding = None
     if data_parallel:
-        raise NotImplementedError(
-            "data-parallel AdaIN stylization is not yet ported (ROADMAP row 15b)")
+        plan = make_mesh_plan(device=device)
+        plan.check_batch(batch_size)
+        sharding = plan.batch_sharding
     styler = ArbitraryStylizer(
         load_decoder(decoder_path), resolve_params(vgg_weights),
-        precision=precision, preserve_color=preserve_color, device=device)
+        precision=precision, preserve_color=preserve_color,
+        device=None if sharding else device, sharding=sharding)
     paths = list(style_paths) if isinstance(style_paths, (list, tuple)) else [style_paths]
     styler.set_style_u8([decode_image(p) for p in paths], style_weights)
     return pipeline_directory(

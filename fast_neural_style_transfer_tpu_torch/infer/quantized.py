@@ -33,6 +33,12 @@ JAX package's dilated lowering is. The output (M, C_out) viewed as NHWC
 and permuted to NCHW is the ``channels_last`` tensor the IN kernel takes,
 with no copy.
 
+``apply_int8_replicas`` is the forward of a batch in chunks, each on its
+replica (``Stylizer(sharding=)``); ``apply_int8`` is its one-chunk case.
+The chunks run in lockstep and each conv's dynamic scale is the max over
+every chunk, one scalar exchange a conv, as the JAX package's one max over
+the whole sharded tensor. Static scales need no exchange.
+
 Whether int8 is faster than bf16 on the card is measured in
 ``chip_smoke.py``'s ``int8`` phase, not promised here.
 """
@@ -40,7 +46,7 @@ Whether int8 is faster than bf16 on the card is measured in
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -231,30 +237,36 @@ def _int8_conv(xp: torch.Tensor, qp: Mapping[str, torch.Tensor], sx: torch.Tenso
     return _dequantize(torch._int_mm(a, qp["wmat"].t()), out_shape, qp, sx)
 
 
-def _qreflect_conv(qp, x: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
-    xq, sx = _quantize_act(x, qp.get("act_scale"))
+def _qreflect_conv(qp, x: torch.Tensor, *, stride: int = 1, scale=None) -> torch.Tensor:
+    """Reflect-padded k x k conv of the float ``x``, quantized with
+    ``scale`` (default: the conv's static ``act_scale``, else x's own
+    dynamic one)."""
+    xq, sx = _quantize_act(x, qp.get("act_scale") if scale is None else scale)
     k = qp["wq"].shape[-1]
     return _int8_conv(_reflect_pad(xq, k // 2), qp, sx, k, stride)
 
 
-def _qconv_transpose(qp, x: torch.Tensor) -> torch.Tensor:
-    """ConvTranspose2d k3 s2 p1 op1 as a k3 conv of the zero-inserted codes."""
-    xq, sx = _quantize_act(x, qp.get("act_scale"))
+def _qconv_transpose(qp, x: torch.Tensor, *, scale=None) -> torch.Tensor:
+    """ConvTranspose2d k3 s2 p1 op1 as a k3 conv of the zero-inserted codes;
+    ``scale`` as for ``_qreflect_conv``."""
+    xq, sx = _quantize_act(x, qp.get("act_scale") if scale is None else scale)
     return _int8_conv(_zero_insert(xq), qp, sx, 3, 1)
 
 
 def _walk_forward(tree: Mapping[str, Any], h: torch.Tensor, *, conv: Callable,
-                  up: Callable, inorm: Callable) -> torch.Tensor:
+                  up: Callable, inorm: Callable, add: Callable = torch.add
+                  ) -> torch.Tensor:
     """The stylizer's eval-mode layer topology, once, for the int8 forward
     and the float calibration pass alike, so a static ``act_scale`` cannot
     attach to the wrong conv. ``conv(name, p, v, stride)``, ``up(name, p,
-    v)``, ``inorm(v, p, relu)``; activations NCHW channels_last."""
+    v)``, ``inorm(v, p, relu)``, ``add(a, b)`` (the residual); activations
+    NCHW channels_last."""
     h = inorm(conv("conv1", tree["conv1"], h, 2), tree["norm1"], relu=True)
     h = inorm(conv("conv2", tree["conv2"], h, 2), tree["norm2"], relu=True)
     for i, rb in enumerate(tree["res_blocks"]):
         y = inorm(conv(f"res_blocks.{i}.conv1", rb["conv1"], h, 1), rb["in1"], relu=True)
         y = inorm(conv(f"res_blocks.{i}.conv2", rb["conv2"], y, 1), rb["in2"], relu=False)
-        h = h + y
+        h = add(h, y)
     h = inorm(up("up1", tree["up1"], h), tree["norm3"], relu=True)
     h = inorm(up("up2", tree["up2"], h), tree["norm4"], relu=True)
     return conv("final_conv", tree["final_conv"], h, 1)
@@ -264,21 +276,62 @@ def _nchw(x) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
 
 
-def apply_int8(qparams: Mapping[str, Any], x: torch.Tensor, *,
-               norm_method: str = "auto") -> torch.Tensor:
-    """Eval-mode int8 forward, NHWC network space in and out (x's dtype),
-    on the device of ``qparams`` and x. ``norm_method``: "auto" (stable IN
-    statistics) or "onepass"."""
+def _zip_trees(trees: Sequence[Mapping[str, Any]]) -> Dict[str, Any]:
+    """One tree whose nodes are lists: every replica's node, in order."""
+    out: Dict[str, Any] = {k: [t[k] for t in trees] for k in trees[0] if k != "res_blocks"}
+    out["res_blocks"] = [{c: [t["res_blocks"][i][c] for t in trees] for c in block}
+                         for i, block in enumerate(trees[0]["res_blocks"])]
+    return out
+
+
+def _shared_scales(ps, vs) -> list:
+    """Every chunk's activation scale: the static scale of each replica, or
+    one dynamic scale, max |x| over every chunk (computed on the first
+    chunk's device, copied to the others)."""
+    if ps[0].get("act_scale") is not None:
+        return [p["act_scale"] for p in ps]
+    dev = vs[0].device
+    peaks = []
+    for v in vs:
+        lo, hi = torch.aminmax(v)
+        peaks.append(torch.maximum(-lo, hi).to(dev))
+    peak = peaks[0] if len(peaks) == 1 else torch.stack(peaks).max()
+    s = _div127(torch.clamp(peak, min=_EPS))
+    return [s.to(v.device) for v in vs]
+
+
+def apply_int8_replicas(qtrees: Sequence[Mapping[str, Any]], xs: Sequence[torch.Tensor],
+                        *, norm_method: str = "auto") -> list:
+    """The int8 forward of each chunk ``xs[i]`` (NHWC network space) on its
+    replica ``qtrees[i]`` (the quantized tree on that chunk's device), the
+    chunks in lockstep: each conv's dynamic activation scale is shared, max
+    |x| over every chunk, as the JAX package's is one max over the whole
+    (sharded) batch; static scales pass through. -> the chunks' outputs."""
     if norm_method not in ("auto", "onepass"):
         raise ValueError(f"unknown norm_method {norm_method!r}")
     onepass = norm_method == "onepass"
+
+    def conv(name, ps, vs, stride):
+        return [_qreflect_conv(p, v, stride=stride, scale=s)
+                for p, v, s in zip(ps, vs, _shared_scales(ps, vs))]
+
+    def up(name, ps, vs):
+        return [_qconv_transpose(p, v, scale=s) for p, v, s in zip(ps, vs, _shared_scales(ps, vs))]
+
     out = _walk_forward(
-        qparams, _nchw(x),
-        conv=lambda name, p, v, stride: _qreflect_conv(p, v, stride=stride),
-        up=lambda name, p, v: _qconv_transpose(p, v),
-        inorm=lambda v, p, relu: instance_norm(v, p["gamma"], p["beta"], relu=relu,
-                                               onepass=onepass))
-    return out.permute(0, 2, 3, 1).to(x.dtype)
+        _zip_trees(qtrees), [_nchw(x) for x in xs], conv=conv, up=up,
+        inorm=lambda vs, ps, relu: [instance_norm(v, p["gamma"], p["beta"], relu=relu,
+                                                  onepass=onepass) for v, p in zip(vs, ps)],
+        add=lambda a, b: [x + y for x, y in zip(a, b)])
+    return [o.permute(0, 2, 3, 1).to(x.dtype) for o, x in zip(out, xs)]
+
+
+def apply_int8(qparams: Mapping[str, Any], x: torch.Tensor, *,
+               norm_method: str = "auto") -> torch.Tensor:
+    """Eval-mode int8 forward, NHWC network space in and out (x's dtype),
+    on the device of ``qparams`` and x: ``apply_int8_replicas`` of one
+    chunk. ``norm_method``: "auto" (stable IN statistics) or "onepass"."""
+    return apply_int8_replicas([qparams], [x], norm_method=norm_method)[0]
 
 
 @torch.inference_mode()
@@ -317,3 +370,4 @@ def calibrate(qparams: Mapping[str, Any], state_dict: Mapping[str, torch.Tensor]
         _get(out, name)["act_scale"] = torch.tensor(
             max(maxes[name], _EPS) * margin / 127.0, dtype=torch.float32, device=dev)
     return out
+

@@ -5,10 +5,17 @@ bucket (a multiple of 64 by default) and the output is cropped back, so
 mixed sizes share a bounded set of shapes. The production path is uint8 in
 and uint8 out, with normalization, forward and de-normalization all on the
 device, so host and device exchange uint8 both ways.
+
+Data parallelism (``Stylizer(sharding=plan)``, ``plan`` a
+``parallel.ReplicaPlan``): a replica of the params on each device of the
+plan; a batch whose leading dim divides the plan's degree runs as
+contiguous chunks, each on its device, the outputs gathered in order; any
+other batch runs on the first device (``parallel.place_on_data_axis``).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
@@ -18,11 +25,12 @@ import torch
 
 from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
 from fast_neural_style_transfer_tpu_torch.core.shapes import (
+    indexed_device,
     pad_to_multiple_reflect,
     resolve_device,
 )
 from fast_neural_style_transfer_tpu_torch.infer.quantized import (
-    apply_int8,
+    apply_int8_replicas,
     quantize_params,
     to_device,
 )
@@ -33,6 +41,7 @@ from fast_neural_style_transfer_tpu_torch.models.transformer import (
     require_single_style,
 )
 from fast_neural_style_transfer_tpu_torch.models.weights import load_checkpoint
+from fast_neural_style_transfer_tpu_torch.parallel.mesh import make_mesh_plan, place_on_data_axis
 from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
 from fast_neural_style_transfer_tpu_torch.utils.image_io import (
     IMAGENET_MEAN,
@@ -62,11 +71,23 @@ class Stylizer:
     ``torch.backends.cuda.matmul.allow_tf32``, process-wide settings).
     "int8": the conv weights are quantized once, here (after any
     ``bake_style``), and every forward runs ``infer/quantized.py::
-    apply_int8`` with dynamic activation scales; the rest is float32 as
+    apply_int8_replicas`` (the batch as one chunk, or its chunks on the
+    replicas) with dynamic activation scales; the rest is float32 as
     above. Its output depends on the batch an image shares (one activation
     scale a tensor).
     ``preserve_color="luma"``: keep the stylized luminance and the
     content's chrominance (u8 path only).
+    ``sharding``: a ``ReplicaPlan`` (``make_mesh_plan(devices=...)
+    .batch_sharding``): the params are replicated on its devices (the
+    first one is ``device``) and a batch whose leading dim divides its
+    degree runs split over them. An int8 batch so split shares each
+    conv's dynamic scale over the chunks: the whole batch's max, as an
+    unsplit call takes it. The split still moves outputs in their last
+    bits where the IN kernel's plan follows the batch size (a sample's
+    statistics sum in another order at N=4 than at N=8), which int8's
+    requantization amplifies: on the card two chunks of a B=8 batch moved
+    int8 outputs by up to 18 levels (16 with every scale held equal) and
+    f32 by one (``chip_smoke.py``, phase ``data_parallel_serving``).
     """
 
     def __init__(
@@ -83,11 +104,13 @@ class Stylizer:
             raise ValueError(
                 f"preserve_color must be 'off' or 'luma' (got "
                 f"{preserve_color!r})")
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharded / data-parallel stylization is not yet ported "
-                "(ROADMAP row 15b)")
-        self.device = resolve_device(device)
+        if sharding is not None and device is not None and (
+                indexed_device(resolve_device(device)) != sharding.device):
+            raise ValueError(f"device {device} is not the plan's first device "
+                             f"{sharding.device}")
+        self.sharding = sharding
+        self.device = indexed_device(
+            resolve_device(device if sharding is None else sharding.device))
         self.preserve_color = preserve_color
         self.bucket_multiple = bucket_multiple
         require_single_style(params, "Stylizer")
@@ -105,6 +128,12 @@ class Stylizer:
                 and self.precision.compute_dtype == torch.float32):
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        # the net (or quantized tree) on each other device of the plan
+        own = self.qparams if self.qparams is not None else self.net
+        self._replicas: Dict[torch.device, Any] = {
+            d: to_device(own, d) if self.qparams is not None else copy.deepcopy(own).to(d)
+            for d in (sharding.devices if sharding is not None else ())
+            if d != self.device}
 
     # -- constructors -------------------------------------------------------
 
@@ -122,28 +151,45 @@ class Stylizer:
 
     # -- forward ------------------------------------------------------------
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.qparams is not None:
-            return apply_int8(self.qparams, x)
-        return self.net(x, self.precision)
+    def _model(self, device: torch.device):
+        """The net (or quantized tree) on ``device``: this Stylizer's own on
+        its device, elsewhere the replica made in ``__init__``."""
+        if device == self.device:
+            return self.qparams if self.qparams is not None else self.net
+        return self._replicas[device]
 
-    def _u8_roundtrip(self, x_u8: torch.Tensor) -> torch.Tensor:
-        """uint8 NHWC in -> uint8 out, entirely on the device."""
-        y = self._forward(u8_to_network(x_u8))
-        if self.preserve_color == "luma":
+    def _forward(self, chunks: list) -> list:
+        """Each chunk (network space, on its device) through its replica;
+        every forward is launched before any output is read."""
+        models = [self._model(c.device) for c in chunks]
+        if self.qparams is not None:
+            return apply_int8_replicas(models, chunks)
+        return [m(c, self.precision) for m, c in zip(models, chunks)]
+
+    def _u8_roundtrip(self, chunks: list) -> list:
+        """uint8 NHWC chunks in -> uint8 out, entirely on their devices."""
+        ys = self._forward([u8_to_network(c) for c in chunks])
+        if self.preserve_color != "luma":
+            return [network_to_u8(y) for y in ys]
+        out = []
+        for y, x_u8 in zip(ys, chunks):
             mean = torch.as_tensor(IMAGENET_MEAN, device=y.device)
             std = torch.as_tensor(IMAGENET_STD, device=y.device)
             y01 = luminance_transfer(torch.clamp(y * std + mean, 0.0, 1.0),
                                      u8_to_unit(x_u8))
-            return torch.clamp(torch.round(y01 * 255.0), 0, 255).to(torch.uint8)
-        return network_to_u8(y)
+            out.append(torch.clamp(torch.round(y01 * 255.0), 0, 255).to(torch.uint8))
+        return out
+
+    def _chunks(self, padded: torch.Tensor) -> list:
+        return place_on_data_axis(self.sharding, padded)
 
     @torch.inference_mode()
     def __call__(self, batch: np.ndarray) -> np.ndarray:
         """Network-space NHWC in -> network-space NHWC out (same H, W)."""
         x = torch.as_tensor(np.asarray(batch, np.float32), device=self.device)
         padded, (h, w) = pad_to_multiple_reflect(x, self.bucket_multiple)
-        return self._forward(padded)[:, :h, :w, :].float().cpu().numpy()
+        outs = self._forward(self._chunks(padded))
+        return torch.cat([o[:, :h, :w, :].float().cpu() for o in outs]).numpy()
 
     def stylize(self, image: np.ndarray) -> np.ndarray:
         """Network-space (H,W,3)/(N,H,W,3) float in -> [0,1] stylized out."""
@@ -161,7 +207,8 @@ class Stylizer:
         x = torch.from_numpy(np.array(
             image_u8[None] if squeeze else image_u8)).to(self.device)
         padded, (h, w) = pad_to_multiple_reflect(x, self.bucket_multiple)
-        out = self._u8_roundtrip(padded)[:, :h, :w, :].cpu().numpy()
+        outs = self._u8_roundtrip(self._chunks(padded))
+        out = torch.cat([o[:, :h, :w, :].cpu() for o in outs]).numpy()
         return out[0] if squeeze else out
 
     @torch.inference_mode()
@@ -176,7 +223,8 @@ class Stylizer:
                 f"raw_forward_u8 needs bucket-aligned H/W (multiple of "
                 f"{self.bucket_multiple}); got {h}x{w} — use stylize_u8 for "
                 "arbitrary sizes")
-        return self._u8_roundtrip(x_u8.to(self.device))
+        outs = self._u8_roundtrip(self._chunks(x_u8.to(self.device)))
+        return torch.cat([o.to(self.device) for o in outs]) if len(outs) > 1 else outs[0]
 
 
 def load_style_params(path: str, style=None) -> Dict[str, torch.Tensor]:
@@ -241,13 +289,20 @@ def stylize_directory(
     """Stylize every image under ``content_dir`` into ``output_dir``,
     mirroring relative paths as ``<relpath>_stylized.jpg``; ``style`` as
     for ``stylize_image_file``. Returns the written paths (``None`` where a
-    bad image was skipped)."""
-    if data_parallel:
-        raise NotImplementedError(
-            "data-parallel stylization is not yet ported (ROADMAP row 15b)")
+    bad image was skipped). ``data_parallel``: split each batch over every
+    visible card (``device`` None or "cuda"; else the one device
+    ``device``), a replica on each; ``batch_size`` must divide by their
+    number."""
     files = scan_image_files(content_dir)
+    sharding = None
+    if data_parallel:
+        plan = make_mesh_plan(device=device)
+        plan.check_batch(batch_size)
+        sharding = plan.batch_sharding
     stylizer = Stylizer.from_checkpoint(model_path, precision=precision,
-                                        style=style, device=device,
+                                        style=style,
+                                        device=None if sharding else device,
+                                        sharding=sharding,
                                         preserve_color=preserve_color)
     return pipeline_directory(
         stylizer.stylize_u8, files, content_dir, output_dir,

@@ -12,6 +12,13 @@
 ``batch_mask`` ((B,) 0/1 floats) zeroes padding examples out of every sum,
 and TV's batch count uses the real examples only, so a padded batch gives
 the real batch's loss exactly. Features are NHWC; every sum is float32.
+
+Under data parallelism each rank holds a slice of the batch. Style and
+content are sums over the batch, so each rank's terms are its shares of
+the global ones; TV's mean is not, so a rank passes the global batch
+count (``batch_count``) and its TV is its share of the global TV. The
+ranks' gradients of these shares then sum to the global loss's
+(``train/step.py``).
 """
 
 from __future__ import annotations
@@ -116,10 +123,13 @@ def content_loss(
 
 
 def total_variation_loss(
-    img: torch.Tensor, batch_mask: Optional[torch.Tensor] = None
+    img: torch.Tensor, batch_mask: Optional[torch.Tensor] = None,
+    batch_count=None,
 ) -> torch.Tensor:
     """Anisotropic TV over b*c*h*w (NHWC input); with ``batch_mask`` the
-    count is the real examples'."""
+    count is the real examples'. ``batch_count`` (a number or a 0-dim
+    tensor) replaces that count: the global batch's, for a rank's share
+    of a data-parallel batch's TV."""
     x = img.float()
     b, h, w, c = x.shape
     sq_h = torch.square(x[:, 1:, :, :] - x[:, :-1, :, :])
@@ -128,7 +138,6 @@ def total_variation_loss(
         m = _mask(batch_mask, 4)
         sq_h = sq_h * m
         sq_w = sq_w * m
-        denom = torch.sum(batch_mask.float()) * (c * h * w)
-    else:
-        denom = float(b * c * h * w)
-    return (torch.sum(sq_h) + torch.sum(sq_w)) / denom
+    if batch_count is None:
+        batch_count = torch.sum(batch_mask.float()) if batch_mask is not None else float(b)
+    return (torch.sum(sq_h) + torch.sum(sq_w)) / (batch_count * (c * h * w))

@@ -5,7 +5,8 @@ shared library needs no PyTorch headers and builds in seconds. The library
 goes to ``build/kernels/`` at the repository root, named by a hash of the
 sources and flags, and is built on first use. A failed build raises.
 Different sources build in parallel when loaded from several threads
-(``load_all``); one source is built once per process.
+(``load_all``); one source is built once per process. ``on_card`` calls
+an entry point on the card that holds its tensors.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every source of the package, for building ahead (parallel.mesh.launch)
@@ -87,3 +90,12 @@ def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
     """Load several sources, their nvcc runs started together."""
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         return dict(zip(names, pool.map(load, names)))
+
+
+def on_card(device: torch.device, fn: Callable, *args) -> int:
+    """Call the library's ``fn`` with the CUDA runtime's current device set
+    to ``device``, the card that holds the tensors, and that card's current
+    stream as the last argument: the runtime launches on its current
+    device, whichever card the pointers are on."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -206,7 +206,10 @@ def conv_dx_plan(g: torch.Tensor, w: torch.Tensor, *, tap_packed: bool = True
     bf16 = int(g.dtype == torch.bfloat16)
     key = (g.device.index, k, ci, bf16)
     if key not in _occupancy:
-        per_sm = _kernel().dx_occupancy(k, ci, bf16)
+        # the query sets the kernel's shared-memory attribute on the
+        # runtime's current device: make that g's card
+        with torch.cuda.device(g.device):
+            per_sm = _kernel().dx_occupancy(k, ci, bf16)
         if per_sm < 1:
             raise RuntimeError(f"tap-packed dx kernel: occupancy query failed ({per_sm})")
         sms = torch.cuda.get_device_properties(g.device).multi_processor_count
@@ -271,11 +274,10 @@ def _launch(g, x, w, full):
     else:
         work = dwb = None
     wpk = _pack(w)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = lib.bwd(g.data_ptr(), x.data_ptr() if full else 0, wpk.data_ptr(),
-                  dx.data_ptr(), work.data_ptr() if full else 0,
-                  dwb.data_ptr() if full else 0, n, h, wd, ci, co, k, int(full),
-                  blocks, int(g.dtype == torch.bfloat16), stream)
+    err = _build.on_card(
+        g.device, lib.bwd, g.data_ptr(), x.data_ptr() if full else 0, wpk.data_ptr(),
+        dx.data_ptr(), work.data_ptr() if full else 0, dwb.data_ptr() if full else 0,
+        n, h, wd, ci, co, k, int(full), blocks, int(g.dtype == torch.bfloat16))
     if err != 0:
         raise RuntimeError(f"conv backward kernel launch failed: CUDA error {err}")
     if not full:
@@ -295,9 +297,9 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor, plan: ConvDxPlan) -> torch.Tens
         dx = torch.empty((n, ci, h, wd), dtype=g.dtype, device=g.device,
                          memory_format=torch.channels_last)
         wc = w.detach().contiguous()
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = _kernel().dx(g.data_ptr(), wc.data_ptr(), dx.data_ptr(), n, h, wd, ci,
-                           co, k, plan.blocks, int(g.dtype == torch.bfloat16), stream)
+        err = _build.on_card(
+            g.device, _kernel().dx, g.data_ptr(), wc.data_ptr(), dx.data_ptr(), n, h,
+            wd, ci, co, k, plan.blocks, int(g.dtype == torch.bfloat16))
         if err != 0:
             raise RuntimeError(f"tap-packed dx kernel launch failed: CUDA error "
                                f"{err} ({plan})")

@@ -357,14 +357,14 @@ def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     n, c, h, w = x.shape
     y, mean, inv, var, work, counters = _fwd_buffers(x, plan)
     g, b, gstride = _affine_rows(gamma, beta, c)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels().fwd(
+    err = _build.on_card(
+        x.device, _kernels().fwd,
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
         mean.data_ptr(), inv.data_ptr(), var.data_ptr() if capture else None,
         work.data_ptr(), counters.data_ptr(), n, h * w, h * w, c, gstride,
         plan.chunk, plan.chunks, float(eps),
         int(relu), int(onepass), int(x.dtype == torch.bfloat16), plan.vec,
-        int(plan.route == "one_launch"), stream)
+        int(plan.route == "one_launch"))
     if err != 0:
         raise RuntimeError(f"instance-norm kernel launch failed: CUDA error {err} "
                            f"({plan})")
@@ -468,13 +468,13 @@ def instance_norm_apply_stats(
     route = ("inject", 0) if not own else (plan.route, 1 if plan.route == "one_launch" else 2)
     y, mean, inv, var, work, counters = _fwd_buffers(x, plan)
     g, b, gstride = _affine_rows(gamma, beta, c)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels().fwd_stats(
+    err = _build.on_card(
+        x.device, _kernels().fwd_stats,
         x.data_ptr(), g.data_ptr(), b.data_ptr(), rm.data_ptr(), rv.data_ptr(),
         y.data_ptr(), mean.data_ptr(), inv.data_ptr(), var.data_ptr(),
         work.data_ptr(), counters.data_ptr(), n, h * w, h * w, c, gstride,
         rstride, plan.chunk, plan.chunks, float(eps), float(blend), float(1.0 - blend),
-        int(relu), int(x.dtype == torch.bfloat16), plan.vec, route[1], stream)
+        int(relu), int(x.dtype == torch.bfloat16), plan.vec, route[1])
     if err != 0:
         raise RuntimeError(f"instance-norm inject kernel launch failed: CUDA error "
                            f"{err} ({plan}, blend {blend})")
@@ -682,14 +682,13 @@ def _launch_bwd(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     # c) (the C call zeroes them all)
     counters = torch.empty(1 + n * (1 + 2 * c), dtype=torch.int32, device=x.device)
     gm, bt, gstride = _affine_rows(gamma, beta, c)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels().bwd(
+    err = _build.on_card(
+        x.device, _kernels().bwd,
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(),
         gm.data_ptr(), bt.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
         dbeta.data_ptr(), work.data_ptr(), counters.data_ptr(), n, h * w, c,
         gstride, plan.chunk, plan.chunks, int(relu),
-        int(x.dtype == torch.bfloat16), plan.vec, int(plan.route == "one_launch"),
-        stream)
+        int(x.dtype == torch.bfloat16), plan.vec, int(plan.route == "one_launch"))
     if err != 0:
         raise RuntimeError(f"instance-norm backward kernel launch failed: CUDA "
                            f"error {err} ({plan})")
@@ -793,13 +792,12 @@ def instance_norm_moments(x: torch.Tensor, rows: Optional[int] = None
     work = torch.empty((n * plan.chunks + n) * 2 * c, dtype=torch.float32,
                        device=x.device)
     counters = torch.empty(1 + 2 * n, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels().fwd(
+    err = _build.on_card(
+        x.device, _kernels().fwd,
         x.data_ptr(), ones.data_ptr(), zeros.data_ptr(), None, mean.data_ptr(),
         inv.data_ptr(), var.data_ptr(), work.data_ptr(), counters.data_ptr(), n,
         rows * w, h * w, c, 0, plan.chunk, plan.chunks, 1e-5, 0, 0,
-        int(x.dtype == torch.bfloat16), plan.vec, int(plan.route == "one_launch"),
-        stream)
+        int(x.dtype == torch.bfloat16), plan.vec, int(plan.route == "one_launch"))
     if err != 0:
         raise RuntimeError(f"instance-norm statistics kernel launch failed: CUDA "
                            f"error {err} ({plan}, rows {rows})")
@@ -877,12 +875,12 @@ def instance_norm_apply_global(x, gamma, beta, mean, var, *, rows=None,
     plan = fwd_plan(x, one_launch=False, rows=rows, sharded=True)
     inv = torch.empty((n, c), dtype=torch.float32, device=x.device)
     g, b, gstride = _affine_rows(gamma, beta, c)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels().fwd_stats(
+    err = _build.on_card(
+        x.device, _kernels().fwd_stats,
         x.data_ptr(), g.data_ptr(), b.data_ptr(), rm.data_ptr(), rv.data_ptr(),
         y.data_ptr(), None, inv.data_ptr(), None, None, None, n, rows * w, h * w,
         c, gstride, rstride, plan.chunk, plan.chunks, float(eps), 1.0, 0.0,
-        int(relu), int(x.dtype == torch.bfloat16), plan.vec, 0, stream)
+        int(relu), int(x.dtype == torch.bfloat16), plan.vec, 0)
     if err != 0:
         raise RuntimeError(f"instance-norm sharded apply launch failed: CUDA error "
                            f"{err} ({plan}, rows {rows})")
@@ -928,11 +926,11 @@ def instance_norm_bwd_sums(x, g, mean, inv, gamma, beta, *, relu: bool = False):
     sums = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
     work = torch.empty(2 * n * plan.chunks * c, dtype=torch.float32, device=x.device)
     gm, bt, gstride = _affine_rows(gamma, beta, c)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels().bwd_sums(
+    err = _build.on_card(
+        x.device, _kernels().bwd_sums,
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(), gm.data_ptr(),
         bt.data_ptr(), sums.data_ptr(), work.data_ptr(), n, h * w, c, gstride,
-        plan.chunk, plan.chunks, int(relu), int(x.dtype == torch.bfloat16), stream)
+        plan.chunk, plan.chunks, int(relu), int(x.dtype == torch.bfloat16))
     if err != 0:
         raise RuntimeError(f"instance-norm backward sums launch failed: CUDA error "
                            f"{err} ({plan})")
@@ -967,12 +965,12 @@ def instance_norm_bwd_apply(x, g, mean, inv, gamma, beta, g_sum, gx_sum,
     plan = bwd_plan(x, g, one_launch=False)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     gm, bt, gstride = _affine_rows(gamma, beta, c)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels().bwd_apply(
+    err = _build.on_card(
+        x.device, _kernels().bwd_apply,
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(), gm.data_ptr(),
         bt.data_ptr(), sums.data_ptr(), dx.data_ptr(), n, h * w, c, gstride,
         plan.chunk, plan.chunks, float(count), int(relu),
-        int(x.dtype == torch.bfloat16), stream)
+        int(x.dtype == torch.bfloat16))
     if err != 0:
         raise RuntimeError(f"instance-norm backward apply launch failed: CUDA error "
                            f"{err} ({plan})")

@@ -11,7 +11,9 @@ need when an image's rows are split over ranks (``parallel/mesh.py``):
 - instance norm with global statistics: both IN kernels split around a
   cross-rank exchange (``ops/cuda_norm.py::ShardedInstanceNormFn``);
 - Gram matrix, content and TV losses with their cross-rank sums (TV adds
-  the seam between adjacent ranks).
+  the seam between adjacent ranks); with ``batch_axes`` (the 2-D data x
+  space mesh) the loss sums span the data ranks too, and TV divides by
+  the global batch.
 
 Tensors are (N, C, H, W), H this rank's slab, in ``torch.channels_last``
 memory format as everywhere in the port; ``axis`` is the ``SpaceAxis``.
@@ -224,18 +226,29 @@ def gram_matrix_sharded(feat: torch.Tensor, axis) -> torch.Tensor:
     return axis.psum(torch.bmm(f.transpose(1, 2), f))
 
 
-def content_loss_sharded(input_feat, target_feat, axis) -> torch.Tensor:
+def psum_over(t: torch.Tensor, axes) -> torch.Tensor:
+    """``t`` summed over each axis of ``axes`` in turn (``psum``: identity
+    backward)."""
+    for a in axes:
+        t = a.psum(t)
+    return t
+
+
+def content_loss_sharded(input_feat, target_feat, axis, batch_axes=()) -> torch.Tensor:
     """The content loss, sum-MSE / (c * h_global * w), over sharded NHWC
-    maps."""
+    maps. ``batch_axes``: the axes the batch is split over too (the 2-D
+    data x space step): the sum spans them as well, as the loss sums over
+    the batch."""
     diff = input_feat.float() - target_feat.float()
     b, h, w, c = input_feat.shape
-    return axis.psum(torch.sum(diff.square())) / (c * h * axis.size * w)
+    total = psum_over(torch.sum(diff.square()), (axis, *batch_axes))
+    return total / (c * h * axis.size * w)
 
 
-def total_variation_loss_sharded(img: torch.Tensor, axis) -> torch.Tensor:
+def total_variation_loss_sharded(img: torch.Tensor, axis, batch_axes=()) -> torch.Tensor:
     """Anisotropic TV over a sharded NHWC image, with the seam between the
-    last row of rank i and the first of rank i + 1; over b * c * h_global *
-    w."""
+    last row of rank i and the first of rank i + 1; over b_global * c *
+    h_global * w, b_global the batch over ``batch_axes`` too."""
     x = img.float()
     b, h, w, c = x.shape
     tv_h = torch.sum((x[:, 1:] - x[:, :-1]).square())
@@ -243,4 +256,8 @@ def total_variation_loss_sharded(img: torch.Tensor, axis) -> torch.Tensor:
     prev_last = axis.from_prev(x[:, -1:].contiguous())
     seam = torch.sum((x[:, :1] - prev_last).square())
     seam = torch.where(_is(axis.index == 0, x.device), torch.zeros_like(seam), seam)
-    return axis.psum(tv_h + tv_w + seam) / (b * c * h * axis.size * w)
+    b_global = b
+    for a in batch_axes:
+        b_global *= a.size
+    total = psum_over(tv_h + tv_w + seam, (axis, *batch_axes))
+    return total / (b_global * c * h * axis.size * w)

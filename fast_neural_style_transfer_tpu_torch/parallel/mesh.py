@@ -1,17 +1,25 @@
-"""Ranks, the 'space' axis and the launcher (the JAX package's
+"""Ranks, the (data, space) mesh and the launcher (the JAX package's
 ``parallel/mesh.py``) on ``torch.distributed``.
 
 JAX runs one program over a mesh of devices, and ``shard_map`` hands each
 shard its axis: its index, the axis size, ``ppermute`` and ``psum``. Here
-the shards are processes (ranks), one image's rows split over them
-(``ops/sharded.py``), and ``SpaceAxis`` carries what the axis gave JAX:
-``index``, ``size``, ``from_prev`` / ``from_next`` (the halo exchange),
-``psum`` and ``gather``.
+the shards are processes (ranks), and an axis is a process group:
+``SpaceAxis`` (one image's rows split over its ranks, ``ops/sharded.py``)
+carries ``index``, ``size``, ``from_prev`` / ``from_next`` (the halo
+exchange), ``psum`` and ``gather``; ``DataAxis`` (the batch split over its
+ranks) carries ``index``, ``size``, ``all_reduce_``, ``psum`` and ``any``.
 
-``make_mesh_plan(spatial=N)`` follows the JAX package's: the ranks form a
-(data, space) mesh. The data degree is 1 here, so the 'space' group holds
-every rank; data parallelism (the batch split over cards) is ROADMAP row
-15b.
+``make_mesh_plan(spatial=N)`` lays the ranks out as the JAX package's
+``jax.make_mesh((world // N, N), ("data", "space"))`` lays out devices:
+rank r has data index r // N and space index r % N, so a space group is N
+contiguous ranks and a data group the ranks r % N == s. Every rank creates
+every group, in the same order (``torch.distributed.new_group`` is
+collective). Outside a process group, ``make_mesh_plan(devices=...)`` is a
+``ReplicaPlan``: one process, a replica of the model on each device of a
+list, a batch split over them in contiguous chunks (JAX's
+``make_mesh_plan().batch_sharding`` for serving);
+``place_on_data_axis`` keeps a batch whose leading dim does not divide
+the data degree on one device.
 
 The backend rule (``choose_backend``), stated and printed by ``launch``:
 NCCL where every rank has a card of its own, gloo otherwise (the CPU; or
@@ -45,7 +53,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
+from fast_neural_style_transfer_tpu_torch.core.shapes import indexed_device, resolve_device
 
 TRANSPORTS = ("auto", "p2p", "mailbox")
 
@@ -62,19 +70,75 @@ def _wire_dtype(backend: str, dtype: torch.dtype) -> torch.dtype:
     return dtype
 
 
-class SpaceAxis:
+class MeshAxis:
     """One process group seen as a mesh axis: this rank's ``index`` on it,
-    its ``size``, and its collectives. ``transport``: "auto", "p2p" or
-    "mailbox" (module docstring)."""
+    its ``size``, and its collectives. ``group`` None is every rank;
+    ``solo`` an axis of this rank alone (size 1, no collective).
+    ``transport``: "auto", "p2p" or "mailbox" (module docstring)."""
 
-    def __init__(self, group=None, transport: str = "auto"):
+    def __init__(self, group=None, transport: str = "auto", *, solo: bool = False):
         if transport not in TRANSPORTS:
             raise ValueError(f"transport {transport!r} is not one of {TRANSPORTS}")
-        self.group = group
-        self.size = dist.get_world_size(group)
-        self.index = dist.get_rank(group)
-        self.backend = str(dist.get_backend(group))
+        self.group = None if solo else group
+        self.size = 1 if solo else dist.get_world_size(group)
+        self.index = 0 if solo else dist.get_rank(group)
+        self.backend = str(dist.get_backend(self.group))
         self.transport = transport
+
+    def _mailbox(self, t: torch.Tensor, wire: torch.dtype) -> torch.Tensor:
+        """(size, *t.shape): every rank's t, through one all_reduce of a
+        zero-filled buffer in which each rank fills its own slot."""
+        box = torch.zeros((self.size,) + tuple(t.shape), dtype=wire, device=t.device)
+        box[self.index] = t.to(wire)
+        dist.all_reduce(box, group=self.group)
+        return box
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t``, exactly, on every rank, in
+        rank order (no autograd), through the mailbox on every backend."""
+        if self.size == 1:
+            return t[None].clone()
+        return self._mailbox(t, _wire_dtype(self.backend, t.dtype)).to(t.dtype)
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks in place (no autograd); every rank gets
+        the same result."""
+        if self.size > 1:
+            wire = _wire_dtype(self.backend, t.dtype)
+            if wire == t.dtype:
+                dist.all_reduce(t, group=self.group)
+            else:
+                w = t.to(wire)
+                dist.all_reduce(w, group=self.group)
+                t.copy_(w)
+        return t
+
+    def any(self, flag: bool, device) -> bool:
+        """True on every rank if ``flag`` is true on any."""
+        t = torch.tensor([1.0 if flag else 0.0], device=device)
+        return bool(self.all_reduce_(t).item() > 0)
+
+    # autograd forms (ops/sharded.py's psum)
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks for a value every rank then uses alike (a
+        loss, a Gram matrix): its backward is the identity. Every rank
+        backpropagates the same replicated loss, so each rank's share of
+        the gradient is its own; the parameter gradients are summed once,
+        at the end (``train/spatial_step.py``). An all_reduce backward
+        (``torch.distributed.nn.functional.all_reduce``) would make every
+        gradient size times too large."""
+        return _PSum.apply(t, self)
+
+    def psum_varying(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks for a value each rank then uses in its own way
+        (a row written into one rank's slab): its backward sums the ranks'
+        gradients."""
+        return _PSumVarying.apply(t, self)
+
+
+class SpaceAxis(MeshAxis):
+    """The 'space' axis: ranks that split one image's rows, with the halo
+    exchange."""
 
     def transport_for(self, t: torch.Tensor) -> str:
         """The transport the exchange of ``t`` takes."""
@@ -111,40 +175,7 @@ class SpaceAxis:
         out = out.to(rows.dtype)
         return out.contiguous(memory_format=torch.channels_last) if out.dim() == 4 else out
 
-    def _mailbox(self, t: torch.Tensor, wire: torch.dtype) -> torch.Tensor:
-        """(size, *t.shape): every rank's t, through one all_reduce of a
-        zero-filled buffer in which each rank fills its own slot."""
-        box = torch.zeros((self.size,) + tuple(t.shape), dtype=wire, device=t.device)
-        box[self.index] = t.to(wire)
-        dist.all_reduce(box, group=self.group)
-        return box
-
-    def gather(self, t: torch.Tensor) -> torch.Tensor:
-        """(size, *t.shape): every rank's ``t``, exactly, on every rank, in
-        rank order (no autograd), through the mailbox on every backend."""
-        if self.size == 1:
-            return t[None].clone()
-        return self._mailbox(t, _wire_dtype(self.backend, t.dtype)).to(t.dtype)
-
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks in place (no autograd); every rank gets
-        the same result."""
-        if self.size > 1:
-            wire = _wire_dtype(self.backend, t.dtype)
-            if wire == t.dtype:
-                dist.all_reduce(t, group=self.group)
-            else:
-                w = t.to(wire)
-                dist.all_reduce(w, group=self.group)
-                t.copy_(w)
-        return t
-
-    def any(self, flag: bool, device) -> bool:
-        """True on every rank if ``flag`` is true on any."""
-        t = torch.tensor([1.0 if flag else 0.0], device=device)
-        return bool(self.all_reduce_(t).item() > 0)
-
-    # autograd forms (ops/sharded.py's from_prev, from_next and psum)
+    # autograd forms (ops/sharded.py's from_prev and from_next)
     def from_prev(self, rows: torch.Tensor) -> torch.Tensor:
         """Each rank receives ``rows`` from its previous (upper) neighbour,
         rank 0 from the last; the gradient goes back to the sender."""
@@ -155,21 +186,12 @@ class SpaceAxis:
         last rank from rank 0; the gradient goes back to the sender."""
         return _Shift.apply(rows, self, -1)
 
-    def psum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over the ranks for a value every rank then uses alike (a
-        loss, a Gram matrix): its backward is the identity. Every rank
-        backpropagates the same replicated loss, so each rank's share of
-        the gradient is its own; the parameter gradients are summed once,
-        at the end (``train/spatial_step.py``). An all_reduce backward
-        (``torch.distributed.nn.functional.all_reduce``) would make every
-        gradient size times too large."""
-        return _PSum.apply(t, self)
 
-    def psum_varying(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over the ranks for a value each rank then uses in its own way
-        (a row written into one rank's slab): its backward sums the ranks'
-        gradients."""
-        return _PSumVarying.apply(t, self)
+class DataAxis(MeshAxis):
+    """The 'data' axis: ranks that each hold their own samples of the
+    batch. Its collectives are ``MeshAxis``'s: ``all_reduce_`` (the
+    gradients' sum), ``psum`` (a loss term's sum over the batch) and
+    ``any`` (a flag every rank must agree on)."""
 
 
 class _Shift(torch.autograd.Function):
@@ -206,10 +228,12 @@ class _PSumVarying(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
-    """The ranks as a (data, space) mesh of data degree 1, and this rank's
-    device."""
+    """The ranks as a (data, space) mesh: this rank's axes, the group of
+    every rank, and this rank's device."""
 
     space: SpaceAxis
+    data: DataAxis
+    world: MeshAxis
     device: torch.device
 
     @property
@@ -218,29 +242,136 @@ class MeshPlan:
 
     @property
     def backend(self) -> str:
-        return self.space.backend
+        return self.world.backend
+
+    @property
+    def num_data_shards(self) -> int:
+        return self.data.size
+
+    @property
+    def lead(self) -> bool:
+        """Whether this is rank 0, the one that writes files and prints."""
+        return self.world.index == 0
+
+    def check_batch(self, global_batch_size: int) -> None:
+        _check_batch(global_batch_size, self.num_data_shards)
+
+    def describe(self, batch_size: int) -> str:
+        """The JAX package's mesh line."""
+        shape = {"data": self.data.size, "space": self.space.size}
+        return (f"mesh: {shape} over {self.world.size} {self.device.type} device(s); "
+                f"global batch {batch_size}")
 
 
-def make_mesh_plan(spatial: int = 1, *, device=None, transport: str = "auto") -> MeshPlan:
-    """The mesh over the initialized process group's ranks: ``spatial``
-    ranks split an image's rows (a 'space' group of every rank; the data
-    degree, world // spatial, must be 1 here). ``device``: this rank's
-    device (None: its card, the current CUDA device; no card raises, as
-    ``core/shapes.py::resolve_device`` does)."""
-    if not dist.is_initialized():
-        raise RuntimeError("make_mesh_plan needs an initialized process group "
-                           "(parallel.launch, or torchrun)")
+@dataclasses.dataclass(frozen=True)
+class ReplicaPlan:
+    """One process, a replica of the model on each of ``devices`` (a device
+    may repeat): the data axis of the serving paths. ``batch_sharding`` is
+    the plan itself, what ``Stylizer(sharding=)`` and
+    ``ArbitraryStylizer(sharding=)`` take, as they take JAX's
+    ``make_mesh_plan().batch_sharding``."""
+
+    devices: tuple
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def num_data_shards(self) -> int:
+        return len(self.devices)
+
+    @property
+    def batch_sharding(self) -> "ReplicaPlan":
+        return self
+
+    def check_batch(self, global_batch_size: int) -> None:
+        _check_batch(global_batch_size, self.num_data_shards)
+
+    def describe(self, batch_size: int) -> str:
+        """The JAX package's mesh line."""
+        return (f"mesh: {{'data': {self.num_data_shards}}} over {self.num_data_shards} "
+                f"{self.device.type} device(s); global batch {batch_size}")
+
+
+def _check_batch(global_batch_size: int, shards: int) -> None:
+    if global_batch_size % shards:
+        raise ValueError(f"global batch {global_batch_size} not divisible by "
+                         f"data-parallel degree {shards}")
+
+
+def place_on_data_axis(sharding: Optional[ReplicaPlan], batch: torch.Tensor) -> list:
+    """``batch`` as the chunks its replicas run: contiguous equal chunks,
+    the i-th on ``sharding.devices[i]``, when its leading dim divides the
+    data degree; otherwise the whole batch on the first device (single
+    images and ragged tails must not fail a data-parallel server). None:
+    [batch]. Every serving path places batches through this, so the rule
+    cannot diverge."""
+    if sharding is None:
+        return [batch]
+    n = sharding.num_data_shards
+    if batch.shape[0] % n:
+        return [batch.to(sharding.device)]
+    return [c.to(d) for c, d in zip(batch.chunk(n), sharding.devices)]
+
+
+def _replica_devices(device) -> tuple:
+    """The devices of a ``ReplicaPlan`` for ``device``: every visible card
+    for None or "cuda" (no card raises), else that one device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    return (indexed_device(dev),)
+
+
+def _axis(groups: List[List[int]], cls, transport: str):
+    """This rank's axis among ``groups`` (a partition of the ranks): the
+    default group when one group holds every rank, a solo axis when each
+    holds one, else its own new group (every rank creates every group, in
+    the same order)."""
+    if len(groups) == 1:
+        return cls(None, transport)
+    if len(groups[0]) == 1:
+        return cls(None, transport, solo=True)
+    rank, mine = dist.get_rank(), None
+    for ranks in groups:
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return cls(mine, transport)
+
+
+def make_mesh_plan(spatial: int = 1, *, device=None, transport: str = "auto",
+                   devices: Optional[Sequence] = None):
+    """The mesh over the initialized process group's ranks -> ``MeshPlan``:
+    ``spatial`` ranks split an image's rows, the world // spatial space
+    groups split the batch (the data axis). ``device``: this rank's device
+    (None: its card, the current CUDA device; no card raises, as
+    ``core/shapes.py::resolve_device`` does).
+
+    ``devices`` (a list), or no process group: a one-process
+    ``ReplicaPlan`` over ``devices``, by default over every visible card
+    (``device`` None or "cuda"; no card raises) or over ``device``."""
+    if devices is not None or not dist.is_initialized():
+        if spatial != 1:
+            raise RuntimeError("a 'space' axis needs an initialized process group "
+                               "(parallel.launch, or torchrun)")
+        devs = (tuple(indexed_device(resolve_device(d)) for d in devices)
+                if devices is not None else _replica_devices(device))
+        if not devs:
+            raise ValueError("a replica plan needs at least one device")
+        return ReplicaPlan(devs)
     world = dist.get_world_size()
     if spatial < 1 or world % spatial:
         raise ValueError(f"{world} ranks not divisible by spatial={spatial}")
-    if world // spatial != 1:
-        raise NotImplementedError(
-            f"a data axis of {world // spatial} (the batch split over ranks beside "
-            "the image's rows) is not yet ported (ROADMAP row 15b)")
-    device = resolve_device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return MeshPlan(space=SpaceAxis(None, transport), device=device)
+    device = indexed_device(resolve_device(device))
+    data = world // spatial
+    space = _axis([list(range(d * spatial, (d + 1) * spatial)) for d in range(data)],
+                  SpaceAxis, transport)
+    data_axis = _axis([list(range(s, world, spatial)) for s in range(spatial)],
+                      DataAxis, transport)
+    return MeshPlan(space=space, data=data_axis, world=MeshAxis(None, transport),
+                    device=device)
 
 
 def choose_backend(device: str, nprocs: int) -> tuple:
@@ -287,8 +418,8 @@ def kernel_counts() -> dict:
     return out
 
 
-def _rank_main(rank: int, nprocs: int, fn, args, backend: str, device: str,
-               transport: str, tmp: str) -> None:
+def _rank_main(rank: int, nprocs: int, spatial: int, fn, args, backend: str,
+               device: str, transport: str, tmp: str) -> None:
     """One spawned rank: join the group, call fn(plan, *args), save its
     result and its kernel launch counts (or its traceback) for the
     parent."""
@@ -302,7 +433,7 @@ def _rank_main(rank: int, nprocs: int, fn, args, backend: str, device: str,
             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S),
             **({"device_id": dev} if backend == "nccl" else {}))
         try:
-            plan = make_mesh_plan(nprocs, device=dev, transport=transport)
+            plan = make_mesh_plan(spatial, device=dev, transport=transport)
             out = fn(plan, *args)
             torch.save({"result": out, "kernel_counts": kernel_counts()},
                        os.path.join(tmp, f"result_{rank}.pt"))
@@ -324,12 +455,14 @@ def prebuild_kernels() -> None:
 
 
 def launch(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
-           device=None, backend: Optional[str] = None,
+           spatial: Optional[int] = None, device=None, backend: Optional[str] = None,
            transport: str = "auto", deadline_s: float = 600.0,
            quiet: bool = False) -> List[Any]:
     """Run ``fn(plan, *args)`` on ``nprocs`` ranks over ``device`` (None or
     "cuda": the cards, and no card raises; "cpu" only when asked) -> each
-    rank's return value (loaded onto the CPU), in rank order.
+    rank's return value (loaded onto the CPU), in rank order. ``plan`` is
+    ``make_mesh_plan(spatial)``; ``spatial`` None puts every rank on the
+    'space' axis (a data degree of 1).
 
     ``backend``: None picks by ``choose_backend`` (printed). The ranks are
     spawned processes (``fn`` and its arguments must pickle; the kernels
@@ -340,6 +473,7 @@ def launch(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
     environment and ``fn`` runs here, on this rank only: -> [its return
     value]."""
     device = resolve_device(device).type
+    spatial = nprocs if spatial is None else spatial
     if _under_torchrun():
         if not dist.is_initialized():
             local = int(os.environ.get("LOCAL_RANK", 0))
@@ -349,7 +483,7 @@ def launch(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
                 be, timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
         else:
             dev = _rank_device(device, dist.get_backend(), int(os.environ.get("LOCAL_RANK", 0)))
-        out = fn(make_mesh_plan(nprocs, device=dev, transport=transport), *args)
+        out = fn(make_mesh_plan(spatial, device=dev, transport=transport), *args)
         launch.kernel_counts = [kernel_counts()]
         return [out]
     reason = "given"
@@ -365,7 +499,7 @@ def launch(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
     procs = []
     try:
         for rank in range(nprocs):
-            p = ctx.Process(target=_rank_main, args=(rank, nprocs, fn, tuple(args),
+            p = ctx.Process(target=_rank_main, args=(rank, nprocs, spatial, fn, tuple(args),
                                                      backend, device, transport, tmp),
                             daemon=True)
             p.start()

@@ -185,7 +185,18 @@ def make_server(
 
 
 def _build_forward(args, device: str) -> tuple:
-    """Resolve the flags to (stylize_u8 callable, family label, device)."""
+    """Resolve the flags to (stylize_u8 callable, family label, device).
+    ``--data_parallel``: a replica on every visible card (``device`` "cuda";
+    an explicit card or the CPU is that one device), a batch split over
+    them when it divides (the JAX package's ``make_mesh_plan()
+    .batch_sharding``)."""
+    sharding = None
+    if args.data_parallel:
+        from fast_neural_style_transfer_tpu_torch.parallel import make_mesh_plan
+
+        sharding = make_mesh_plan(device=device).batch_sharding
+        print(sharding.describe(args.max_batch), flush=True)
+        device = None
     if args.adain_decoder:
         if not args.style:
             raise SystemExit("--adain-decoder needs --style <image>")
@@ -199,7 +210,7 @@ def _build_forward(args, device: str) -> tuple:
         sty = ArbitraryStylizer(
             load_decoder(args.adain_decoder), resolve_params(args.vgg_weights),
             precision=args.precision, preserve_color=args.preserve_color,
-            device=device)
+            device=device, sharding=sharding)
         sty.set_style_u8(decode_image(args.style))
         alpha = args.alpha
         return (lambda b: sty.stylize_u8(b, alpha=alpha)), "adain", sty.device
@@ -209,7 +220,7 @@ def _build_forward(args, device: str) -> tuple:
 
     sty = Stylizer.from_checkpoint(
         args.model, style=args.style_index, precision=args.precision,
-        preserve_color=args.preserve_color, device=device)
+        preserve_color=args.preserve_color, device=device, sharding=sharding)
     return sty.stylize_u8, "flagship", sty.device
 
 
@@ -236,7 +247,8 @@ def main(argv: Optional[list] = None) -> None:
                    help=">0: resize every request to SIZE x SIZE; 0: native "
                         "sizes, bucketed")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard batches over several cards (not yet ported: ROADMAP row 15b)")
+                   help="a replica on every visible card; a batch whose size "
+                        "divides their number is split over them")
     p.add_argument("--max_batch", type=int, default=8)
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--max_pending", type=int, default=256)
@@ -246,9 +258,6 @@ def main(argv: Optional[list] = None) -> None:
                    help="serve on the CPU (same as --device cpu)")
     args = p.parse_args(argv)
 
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: multi-card serving is not yet ported "
-                         "(ROADMAP row 15b)")
     forward, family, device = _build_forward(args, "cpu" if args.cpu else args.device)
     # warm the canonical bucket at every batch size the batcher can form
     # (kernel build, cuDNN handles and plans) before traffic

@@ -15,6 +15,15 @@ updates applied (Adam's step is proportional to its lr, so this equals the
 JAX package's scaling of the updates). A non-finite loss applies no update
 and does not advance the count.
 
+Data parallelism: as the JAX trainer builds its mesh over every device
+(``make_mesh_plan()``, ``check_batch``) and shards both streams, the port
+spawns a rank a card when there are several (``train_adain``), each rank
+decoding its slice of both global batches. Every loss term here is a mean
+over the batch, so the ranks' gradients are AVERAGED (summed in one
+all_reduce, then divided by the data degree), and so are the metrics:
+the opposite of the stylizer's rule (``train/step.py``), whose terms are
+sums.
+
 On the card ``adain`` runs the IN forward kernel (t needs no gradient: it
 is the decoder's input), and the encode of the decoder's output takes its
 input gradient through VGG conv1_1's hand-written kernel
@@ -42,7 +51,12 @@ from fast_neural_style_transfer_tpu_torch.models.adain import (
     channel_stats,
 )
 from fast_neural_style_transfer_tpu_torch.train.state import global_norm
-from fast_neural_style_transfer_tpu_torch.train.step import exact_f32, normalize_u8_batch
+from fast_neural_style_transfer_tpu_torch.train.step import (
+    all_reduce_grads,
+    all_reduce_metrics,
+    exact_f32,
+    normalize_u8_batch,
+)
 
 
 def adain_loss_fn(
@@ -130,12 +144,17 @@ def make_adain_train_step(
     precision: Precision = Precision.f32(),
     lr_decay: float = 0.0,
     remat: bool = False,
+    data=None,
 ) -> Callable:
     """``step(state, vgg, content, style) -> metrics``, which updates
     ``state`` in place: gradients, then (if the loss is finite) one Adam
     update at lr * ``lr_decay_factor(lr_decay, state.step)`` and step + 1;
     a non-finite loss leaves params, moments and step as they were.
-    ``lr`` must be the optimizer's base lr."""
+    ``lr`` must be the optimizer's base lr. ``data``: the plan's
+    ``DataAxis``; ``content`` and ``style`` are then this rank's slices,
+    and the gradients and metrics are averaged over the ranks (every term
+    is a mean; module docstring)."""
+    dp = data is not None and data.size > 1
 
     def step_fn(state: AdaINTrainState, vgg, content: torch.Tensor,
                 style: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -144,7 +163,10 @@ def make_adain_train_step(
         total, metrics = adain_loss_fn(state.decoder, vgg, content, style,
                                        style_weight, precision=precision, remat=remat)
         grads = torch.autograd.grad(total, params)
-        finite = bool(torch.isfinite(total))
+        if dp:
+            grads = [g / data.size for g in all_reduce_grads(grads, data)]
+            metrics = all_reduce_metrics(metrics, data, mean=True)
+        finite = bool(torch.isfinite(metrics["loss"]))  # global: alike on every rank
         if finite:
             for group in state.optimizer.param_groups:
                 group["lr"] = lr * lr_decay_factor(lr_decay, state.step)
@@ -191,30 +213,55 @@ class AdaINTrainConfig:
     device: Optional[str] = None
 
 
-def train_adain(cfg: AdaINTrainConfig) -> str:
+def _adain_rank(plan, cfg: AdaINTrainConfig) -> str:
+    return train_adain(cfg, plan)
+
+
+def train_adain(cfg: AdaINTrainConfig, plan=None) -> str:
     """Train the arbitrary-style decoder; returns the final ``.npz`` path
     (``adain_decoder_final.npz``, the JAX package's layout). Checkpoints
     (decoder, Adam, step) go to ``<output_dir>/checkpoints`` and a rerun
     resumes from the latest; SIGTERM finishes the step in flight and
-    checkpoints."""
+    checkpoints. ``plan``: this rank's ``MeshPlan`` (a data axis only);
+    None spawns a rank a card when ``cfg.device`` is None or "cuda" and
+    there are several cards (``train/loop.py::num_ranks``), else trains in
+    this process. Rank 0 alone prints, logs and writes files."""
     from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
     from fast_neural_style_transfer_tpu_torch.data import ImageFolderDataset, InputPipeline
     from fast_neural_style_transfer_tpu_torch.models.adain import make_decoder, save_decoder_npz
     from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
     from fast_neural_style_transfer_tpu_torch.train.checkpoint import CheckpointManager
+    from fast_neural_style_transfer_tpu_torch.train.loop import num_ranks
     from fast_neural_style_transfer_tpu_torch.utils.logging import MetricLogger
 
     if cfg.image_size[0] % 8 or cfg.image_size[1] % 8:
         raise ValueError(
             f"image_size {cfg.image_size} must be a multiple of 8 (three VGG "
             "pools down, three x2 decoder ups back)")
-    device = resolve_device(cfg.device)
+    ranks = num_ranks(cfg.device) if plan is None else 1
+    if ranks > 1:
+        from fast_neural_style_transfer_tpu_torch.parallel import launch
+
+        return launch(_adain_rank, ranks, (cfg,), spatial=1,
+                      device=resolve_device(cfg.device).type,
+                      deadline_s=float("inf"))[0]
+    if plan is not None and plan.spatial != 1:
+        raise ValueError("the AdaIN trainer splits the batch only (a plan with spatial 1)")
+    data = plan.data if plan is not None else None
+    shards = plan.num_data_shards if plan is not None else 1
+    device = plan.device if plan is not None else resolve_device(cfg.device)
+    lead = plan is None or plan.lead
+    say = print if lead else (lambda *a, **k: None)
+    if plan is not None:
+        plan.check_batch(cfg.batch_size)
     os.makedirs(cfg.output_dir, exist_ok=True)
     prec = canonical_compute_dtype(cfg.precision)
     exact_f32(device, prec)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-          + f"; batch {cfg.batch_size}; precision {cfg.precision}", flush=True)
+    say(f"device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+        + f"; batch {cfg.batch_size}; precision {cfg.precision}"
+        + (f"; batch split over {shards} ranks ({plan.backend})" if shards > 1 else ""),
+        flush=True)
 
     vgg = make_vgg(resolve_params(cfg.vgg_weights, seed=cfg.seed), device)
     torch.manual_seed(cfg.seed)  # PyTorch-default init of the decoder
@@ -228,21 +275,24 @@ def train_adain(cfg: AdaINTrainConfig) -> str:
     if cfg.resume and ckpt.latest_step() is not None:
         resume_label = ckpt.latest_step()
         state.load_state_dict(ckpt.restore(resume_label))
-        print(f"resumed AdaIN decoder from checkpoint {resume_label} "
-              f"(optimizer step {state.step})", flush=True)
+        say(f"resumed AdaIN decoder from checkpoint {resume_label} "
+            f"(optimizer step {state.step})", flush=True)
 
     step_fn = make_adain_train_step(lr=cfg.lr, lr_decay=cfg.lr_decay,
                                     style_weight=cfg.style_weight,
-                                    precision=prec, remat=cfg.remat)
+                                    precision=prec, remat=cfg.remat, data=data)
     # two independent streams; different seeds decorrelate the pairing
+    shard = {"num_data_shards": shards, "shard_index": data.index if data is not None else 0}
     content_pipe = InputPipeline(
         ImageFolderDataset(cfg.content_dir, cfg.image_size, seed=cfg.seed),
-        cfg.batch_size, seed=cfg.seed, num_workers=cfg.num_workers, device=device)
+        cfg.batch_size, seed=cfg.seed, num_workers=cfg.num_workers, device=device,
+        **shard)
     style_pipe = InputPipeline(
         ImageFolderDataset(cfg.style_dir, cfg.image_size, seed=cfg.seed + 7),
-        cfg.batch_size, seed=cfg.seed + 7, num_workers=cfg.num_workers, device=device)
+        cfg.batch_size, seed=cfg.seed + 7, num_workers=cfg.num_workers, device=device,
+        **shard)
 
-    logger = MetricLogger(os.path.join(cfg.output_dir, "metrics.jsonl"),
+    logger = MetricLogger(os.path.join(cfg.output_dir, "metrics.jsonl") if lead else None,
                           print_every=cfg.log_every)
     start = state.step if resume_label is None else resume_label
     n = start
@@ -253,7 +303,7 @@ def train_adain(cfg: AdaINTrainConfig) -> str:
     prev_handler = None
     if threading.current_thread() is threading.main_thread():
         def _on_sigterm(signum, frame):
-            print("SIGTERM received: checkpointing and stopping", flush=True)
+            say("SIGTERM received: checkpointing and stopping", flush=True)
             stop_requested.set()
 
         prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
@@ -262,14 +312,18 @@ def train_adain(cfg: AdaINTrainConfig) -> str:
     try:
         for content, style in zip(content_pipe.device_batches(),
                                   style_pipe.device_batches()):
-            if n >= cfg.total_steps or stop_requested.is_set():
+            stop = stop_requested.is_set()
+            if plan is not None:  # every rank stops at the same step
+                stop = plan.world.any(stop, device)
+            if n >= cfg.total_steps or stop:
                 break
             metrics = step_fn(state, vgg, content, style)
             n += 1
-            logger.update(metrics)
+            if lead:
+                logger.update(metrics)
             if logger.should_log(n):
                 logger.flush(n)
-            if n % cfg.checkpoint_every == 0:
+            if n % cfg.checkpoint_every == 0 and lead:
                 ckpt.save(n, state.state_dict())
                 print(f"AdaIN checkpoint saved at step {n}", flush=True)
     finally:
@@ -282,7 +336,7 @@ def train_adain(cfg: AdaINTrainConfig) -> str:
 
         if logger.pending:
             _cleanup("metrics flush", lambda: logger.flush(n))
-        if n > start and ckpt.latest_step() != n:
+        if n > start and ckpt.latest_step() != n and lead:
             _cleanup("final checkpoint", lambda: ckpt.save(n, state.state_dict()))
         _cleanup("logger close", logger.close)
         if handler_installed:
@@ -291,9 +345,10 @@ def train_adain(cfg: AdaINTrainConfig) -> str:
     wall = time.perf_counter() - t0
     done = n - start
     if done:
-        print(f"AdaIN: trained {done} steps to step {n} in {wall:.1f}s "
-              f"({done / wall:.2f} steps/s)", flush=True)
+        say(f"AdaIN: trained {done} steps to step {n} in {wall:.1f}s "
+            f"({done / wall:.2f} steps/s)", flush=True)
     final = os.path.join(cfg.output_dir, "adain_decoder_final.npz")
-    save_decoder_npz(state.decoder.state_dict(), final)
-    print(f"AdaIN decoder saved to {final}", flush=True)
+    if lead:
+        save_decoder_npz(state.decoder.state_dict(), final)
+        print(f"AdaIN decoder saved to {final}", flush=True)
     return final

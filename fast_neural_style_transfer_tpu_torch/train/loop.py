@@ -14,15 +14,24 @@ example each step, one monitor sample per style. ``init_checkpoint`` warm
 starts the params (the style counts must match), or, for a reference
 training ``.pth``, resumes fully (params, Adam state, schedule, step;
 single-style only). ``in_stats="onepass"`` trains with one-pass IN
-statistics. ``spatial = N > 1`` splits each image's rows over N ranks
-(``train/spatial_step.py``): called outside a process group, the loop
-spawns the ranks itself (``parallel/mesh.py::launch``), and each runs this
-loop on the same seeded data; rank 0 alone prints, logs, samples and
-writes checkpoints. It keeps the JAX package's refusals: a height that is
-not a multiple of 8 * spatial, one-pass statistics, several styles and
-``pad_batch``. Loss-curve PNGs wait for row 16. ``profile_start`` /
-``profile_stop`` trace those steps with ``torch.profiler`` into
-``<output_dir>/profile``.
+statistics.
+
+Ranks, as the JAX package builds its mesh over every device with no flag:
+with ``device`` None or "cuda" and more than one card, the loop spawns a
+rank a card (``parallel/mesh.py::launch``) and the ranks form a (data,
+space) mesh; ``spatial = N > 1`` splits each image's rows over N of them
+(``train/spatial_step.py``), and the other factor, ranks // N, splits the
+batch (data parallelism, ``train/step.py``: each rank decodes its slice
+of the global batch, ``data/pipeline.py``). On one card, or with an
+explicit ``cuda:N``, the loop runs in this process, as before, unless
+``spatial`` > 1 asks for N ranks (sharing the card). Every rank runs this
+loop; the batch must divide the data degree; rank 0 alone prints, logs,
+samples and writes checkpoints and the final params, and every rank stops
+at the same step. It keeps the JAX package's refusals with ``spatial``: a
+height that is not a multiple of 8 * spatial, one-pass statistics,
+several styles and ``pad_batch``. Loss-curve PNGs wait for row 16.
+``profile_start`` / ``profile_stop`` trace those steps with
+``torch.profiler`` into ``<output_dir>/profile``.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from fast_neural_style_transfer_tpu_torch.models.transformer import (
 )
 from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
 from fast_neural_style_transfer_tpu_torch.models.weights import load_checkpoint, save_params_npz
+from fast_neural_style_transfer_tpu_torch.parallel.mesh import ReplicaPlan
 from fast_neural_style_transfer_tpu_torch.train.checkpoint import CheckpointManager
 from fast_neural_style_transfer_tpu_torch.train.schedule import LossWeightSchedule
 from fast_neural_style_transfer_tpu_torch.train.state import (
@@ -142,26 +152,42 @@ def _train_rank(plan, cfg: TrainConfig) -> str:
     return train_style_transfer(cfg, plan)
 
 
+def num_ranks(device, spatial: int = 1) -> int:
+    """The ranks a run on ``device`` spawns: a rank a card when ``device``
+    is None or "cuda" and the cards (more than one) divide by ``spatial``,
+    else ``spatial`` (1: this process alone)."""
+    device = resolve_device(device)
+    cards = (torch.cuda.device_count() if device.type == "cuda" and device.index is None
+             else 1)
+    return cards if cards > 1 and cards % spatial == 0 else spatial
+
+
 def train_style_transfer(cfg: TrainConfig, plan=None) -> str:
-    """Run training; returns the path of the final params artifact. With
-    ``spatial > 1``, ``plan`` is this rank's ``MeshPlan``; None spawns the
-    ranks (on ``cfg.device``) and returns rank 0's path."""
+    """Run training; returns the path of the final params artifact.
+    ``plan``: this rank's ``MeshPlan``; None spawns the ranks (on
+    ``cfg.device``, ``num_ranks``) and returns rank 0's path, or trains in
+    this process when that is one rank."""
     _check_config(cfg)
     style_paths = ([cfg.style_image] if isinstance(cfg.style_image, str)
                    else list(cfg.style_image))
     styles = len(style_paths)
-    if cfg.spatial > 1 and plan is None:
+    ranks = num_ranks(cfg.device, cfg.spatial) if plan is None else 1
+    if ranks > 1:
         from fast_neural_style_transfer_tpu_torch.parallel import launch
 
-        device = resolve_device(cfg.device)
-        return launch(_train_rank, cfg.spatial, (cfg,), device=device.type,
+        return launch(_train_rank, ranks, (cfg,), spatial=cfg.spatial,
+                      device=resolve_device(cfg.device).type,
                       deadline_s=float("inf"))[0]
-    spatial = plan is not None and cfg.spatial > 1
-    if spatial and plan.spatial != cfg.spatial:
+    if plan is not None and plan.spatial != cfg.spatial:
         raise ValueError(f"spatial={cfg.spatial} but the plan has {plan.spatial} ranks")
-    device = plan.device if spatial else resolve_device(cfg.device)
-    lead = not spatial or plan.space.index == 0
+    spatial = plan is not None and cfg.spatial > 1
+    data = plan.data if plan is not None else None
+    shards = plan.num_data_shards if plan is not None else 1
+    device = plan.device if plan is not None else resolve_device(cfg.device)
+    lead = plan is None or plan.lead
     say = print if lead else (lambda *a, **k: None)
+    if plan is not None:
+        plan.check_batch(cfg.batch_size)
     os.makedirs(cfg.output_dir, exist_ok=True)
     prec = canonical_compute_dtype(cfg.precision)
     exact_f32(device, prec)
@@ -171,8 +197,10 @@ def train_style_transfer(cfg: TrainConfig, plan=None) -> str:
     say(f"device: {device}"
         + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
         + f"; batch {cfg.batch_size}; precision {cfg.precision}"
-        + (f"; rows split over {cfg.spatial} ranks ({plan.backend})" if spatial else ""),
+        + (f"; rows split over {cfg.spatial} ranks ({plan.backend})" if spatial else "")
+        + (f"; batch split over {shards} ranks ({plan.backend})" if shards > 1 else ""),
         flush=True)
+    say((plan or ReplicaPlan((device,))).describe(cfg.batch_size), flush=True)
 
     # frozen VGG19 and the style targets, once
     vgg = make_vgg(resolve_params(cfg.vgg_weights, seed=cfg.seed), device)
@@ -238,18 +266,23 @@ def train_style_transfer(cfg: TrainConfig, plan=None) -> str:
             taps=taps, weight_schedule=schedule,
             precision=prec, lr=cfg.lr, total_steps=cfg.total_steps,
             grad_accum=cfg.grad_accum, remat=cfg.remat, num_styles=styles,
-            norm_method="onepass" if cfg.in_stats == "onepass" else "auto")
+            norm_method="onepass" if cfg.in_stats == "onepass" else "auto",
+            data=data)
     eval_forward = make_eval_forward(precision=prec)
 
     dataset = ImageFolderDataset(cfg.dataset_dir, cfg.image_size, seed=cfg.seed)
     pipeline = InputPipeline(dataset, cfg.batch_size, seed=cfg.seed,
                              num_workers=cfg.num_workers,
-                             pad_to_multiple=8 if cfg.pad_batch else 0, device=device)
+                             pad_to_multiple=8 if cfg.pad_batch else 0,
+                             num_data_shards=shards,
+                             shard_index=data.index if data is not None else 0,
+                             device=device)
     batch_mask = None
     if pipeline.batch_mask is not None:
         batch_mask = torch.from_numpy(pipeline.batch_mask).to(device)
-        say(f"pad_batch: batch {cfg.batch_size} -> {pipeline.padded_size} "
-            "(loss-masked padding; gradients are the real batch's)", flush=True)
+        say(f"pad_batch: per-rank batch {pipeline.local_batch_size} -> "
+            f"{pipeline.padded_size} (loss-masked padding; gradients are the real "
+            "batch's)", flush=True)
 
     monitor_img = None
     if cfg.monitor_image and lead:
@@ -261,7 +294,10 @@ def train_style_transfer(cfg: TrainConfig, plan=None) -> str:
 
     logger = MetricLogger(os.path.join(cfg.output_dir, "metrics.jsonl") if lead else None,
                           print_every=cfg.log_every)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    # dropout masks: a generator per data index (the space ranks of one
+    # sample share its masks)
+    generator = torch.Generator(device=device).manual_seed(
+        cfg.seed + 1 + 7919 * (data.index if data is not None else 0))
     start_step = state.step if resume_label is None else resume_label
     t_start = time.perf_counter()
 
@@ -281,8 +317,8 @@ def train_style_transfer(cfg: TrainConfig, plan=None) -> str:
     try:
         for batch in pipeline.device_batches(cfg.num_epochs):
             stop = stop_requested.is_set()
-            if spatial:  # every rank stops at the same step, or the others hang
-                stop = plan.space.any(stop, device)
+            if plan is not None:  # every rank stops at the same step, or the others hang
+                stop = plan.world.any(stop, device)
             if step >= cfg.total_steps or stop:
                 break
             if cfg.profile_stop > cfg.profile_start:

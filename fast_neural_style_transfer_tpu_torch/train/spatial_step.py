@@ -20,6 +20,13 @@ same on every rank; then the optimizer steps alike everywhere. (The JAX
 package's shard_map transposes psums into psums; its own note on that trap
 is at its ``train/spatial_step.py:168-174``.)
 
+On a 2-D (data x space) mesh each space group holds its own samples: the
+content and TV sums span both axes, each style layer's over-batch sum the
+data axis, TV divides by the global batch (``batch_axes``, as the JAX
+package's), and the gradient shares are summed over every rank at once.
+Dropout masks come from a generator seeded per data index: the space
+ranks of one sample share its mask.
+
 Local H per rank: divisible by 8 (the stylizer needs 4, VGG's three pools
 before relu4_3 need 8).
 """
@@ -45,6 +52,7 @@ from fast_neural_style_transfer_tpu_torch.train.schedule import (
 from fast_neural_style_transfer_tpu_torch.train.state import TrainState, global_norm
 from fast_neural_style_transfer_tpu_torch.train.step import (
     ACTIVATION_CLAMP,
+    all_reduce_grads,
     exact_f32,
     normalize_u8_batch,
 )
@@ -63,10 +71,12 @@ def spatial_loss_fn(
     generator: Optional[torch.Generator] = None,
     dropout: bool = True,
     remat: bool = False,
+    batch_axes: Tuple = (),
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """This rank's slab ``batch`` (NHWC) -> the weighted perceptual loss of
     the whole batch, the same on every rank, and its metrics. Every sum runs
-    over the ranks. Dropout masks come from ``generator``, seeded alike on
+    over the ranks (over ``batch_axes`` too: the axes the batch is split
+    over). Dropout masks come from ``generator``, seeded alike on
     every rank: the ranks of one sample share its mask. ``remat``:
     recompute the stylizer and the stylized-branch VGG in the backward
     (their exchanges run again there, on every rank alike); the generator is
@@ -96,30 +106,20 @@ def spatial_loss_fn(
     s_feats, c_stylized = taps.split(stylized_feats)
     _, c_target = taps.split(content_feats)
 
-    c_loss = cw * sh.content_loss_sharded(c_stylized, c_target, axis)
+    c_loss = cw * sh.content_loss_sharded(c_stylized, c_target, axis, batch_axes)
     s_total = None
     for feat, tgt, w in zip(s_feats, style_grams, taps.style_weights):
         c = tgt.shape[-1]
         g = sh.gram_matrix_sharded(feat, axis)
-        term = (w * torch.sum(torch.square(g - tgt.float()[None]))) / (c * c)
+        layer = sh.psum_over(torch.sum(torch.square(g - tgt.float()[None])), batch_axes)
+        term = (w * layer) / (c * c)
         s_total = term if s_total is None else s_total + term
     s_loss = sw * s_total
-    t_loss = tw * sh.total_variation_loss_sharded(stylized, axis)
+    t_loss = tw * sh.total_variation_loss_sharded(stylized, axis, batch_axes)
     total = c_loss + s_loss + t_loss
     metrics = {"loss": total.detach(), "content_loss": c_loss.detach(),
                "style_loss": s_loss.detach(), "tv_loss": t_loss.detach()}
     return total, metrics
-
-
-def all_reduce_grads(grads: Sequence[torch.Tensor], axis) -> list:
-    """Sum the ranks' gradient shares: one all_reduce of one flat buffer."""
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    axis.all_reduce_(flat)
-    out, at = [], 0
-    for g in grads:
-        out.append(flat[at:at + g.numel()].view_as(g))
-        at += g.numel()
-    return out
 
 
 def shard_rows(batch: torch.Tensor, axis) -> torch.Tensor:
@@ -146,11 +146,13 @@ def make_spatial_train_step(
 ) -> Callable:
     """Build ``step(state, vgg, batch, style_grams, generator=None) ->
     metrics``, which updates ``state`` in place on every rank of ``plan``.
-    ``batch`` is the whole NHWC batch (the same on every rank; each rank
-    takes its rows). The step unit is ``make_train_step``'s: schedules are
-    functions of applied updates (``state.step // grad_accum``). A
-    non-finite global loss skips the update on every rank alike."""
+    ``batch`` is this data shard's NHWC batch (the same on every rank of a
+    space group; each rank takes its rows). The step unit is
+    ``make_train_step``'s: schedules are functions of applied updates
+    (``state.step // grad_accum``). A non-finite global loss skips the
+    update on every rank alike."""
     axis = plan.space
+    batch_axes = (plan.data,) if plan.data.size > 1 else ()
     lr_schedule = cosine_lr_schedule(lr, max(total_steps // grad_accum, 1))
 
     def step_fn(state: TrainState, vgg, batch: torch.Tensor, style_grams,
@@ -163,8 +165,8 @@ def make_spatial_train_step(
         total, metrics = spatial_loss_fn(
             state.net, vgg, local, style_grams, weight_schedule(applied_step),
             axis=axis, taps=taps, precision=precision, generator=generator,
-            dropout=dropout, remat=remat)
-        grads = all_reduce_grads(torch.autograd.grad(total, params), axis)
+            dropout=dropout, remat=remat, batch_axes=batch_axes)
+        grads = all_reduce_grads(torch.autograd.grad(total, params), plan.world)
         finite = bool(torch.isfinite(total))  # the global loss: alike on every rank
         if finite:
             state.optimizer.update(grads)

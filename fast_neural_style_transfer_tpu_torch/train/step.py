@@ -20,6 +20,20 @@ Semantics kept from the JAX step:
 - ``norm_method="onepass"``: one-pass IN statistics in the stylizer (JAX
   ``norm_method="onepass"``).
 
+Data parallelism (``data``, the plan's ``DataAxis``): each rank runs the
+step on its slice of the global batch (its rows of ``style_select`` and
+``batch_mask`` too). The JAX loss is not one mean: style and content are
+sums over the batch and only TV divides by the batch count, so each rank
+computes its style and content terms as they are and its TV over the
+global count, and the ranks' gradients are SUMMED, in one all_reduce of
+one flat buffer: averaging them, or summing the gradients of each rank's
+own TV mean, would both be wrong. The metrics are the global ones (the
+loss terms summed over the ranks, ``grad_norm`` of the summed
+gradients), so the non-finite guard reads the same global loss on every
+rank and every rank skips alike. Dropout masks come from each rank's own
+generator (the loop seeds it by data index): they cannot match JAX's one
+key over the global batch.
+
 On the card the stylizer's 14 instance norms run the IN forward and
 backward kernels and VGG conv1_1's input gradient the conv backward kernel.
 In float32, TF32 is turned off for convolutions and matmuls
@@ -81,8 +95,13 @@ def loss_fn(
     batch_mask: Optional[torch.Tensor] = None,
     style_select: Optional[torch.Tensor] = None,
     norm_method: str = "auto",
+    data=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted perceptual loss of one batch -> (total, metrics).
+
+    ``data`` (a ``DataAxis``): ``batch`` is this rank's slice, and the
+    result is its share of the global batch's loss (TV over the global
+    count; module docstring).
 
     ``style_select`` (multi-style only): (B, S) rows pairing each example
     with a style, for the stylizer's IN affines and the Gram banks alike.
@@ -126,11 +145,44 @@ def loss_fn(
     c_loss = cw * content_loss(c_feat_stylized, c_feat_target, batch_mask=batch_mask)
     s_loss = sw * style_loss(s_feats, style_grams, taps.style_weights,
                              style_select=style_select, batch_mask=batch_mask)
-    t_loss = tw * total_variation_loss(stylized, batch_mask=batch_mask)
+    t_loss = tw * total_variation_loss(stylized, batch_mask=batch_mask,
+                                       batch_count=global_batch_count(batch, batch_mask, data))
     total = c_loss + s_loss + t_loss
     metrics = {"loss": total.detach(), "content_loss": c_loss.detach(),
                "style_loss": s_loss.detach(), "tv_loss": t_loss.detach()}
     return total, metrics
+
+
+def global_batch_count(batch: torch.Tensor, batch_mask: Optional[torch.Tensor], data):
+    """The examples of the global batch that TV's mean counts (the real
+    ones under ``batch_mask``), or None without a data axis (the local
+    batch's)."""
+    if data is None or data.size == 1:
+        return None
+    if batch_mask is None:
+        return float(batch.shape[0] * data.size)
+    return data.all_reduce_(torch.sum(batch_mask.detach().float()))
+
+
+def all_reduce_grads(grads: Sequence[torch.Tensor], axis) -> list:
+    """Sum the ranks' gradient shares: one all_reduce of one flat buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    axis.all_reduce_(flat)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return out
+
+
+def all_reduce_metrics(metrics: Dict[str, torch.Tensor], axis, *,
+                       mean: bool = False) -> Dict[str, torch.Tensor]:
+    """The metrics summed (or averaged) over the ranks, in one all_reduce."""
+    keys = list(metrics)
+    v = axis.all_reduce_(torch.stack([metrics[k].float() for k in keys]))
+    if mean:
+        v = v / axis.size
+    return dict(zip(keys, v.unbind()))
 
 
 def make_train_step(
@@ -145,13 +197,18 @@ def make_train_step(
     dropout: bool = True,
     num_styles: int = 1,
     norm_method: str = "auto",
+    data=None,
 ) -> Callable:
     """Build ``step(state, vgg, batch, style_grams, generator=None,
     batch_mask=None, style_select=None) -> metrics``, which updates
     ``state`` in place. ``lr``, ``total_steps`` and ``grad_accum`` give the
     logged LR; they must be the optimizer's. With ``num_styles`` > 1 the
     step draws ``style_select`` from ``generator`` (one uniform index per
-    example, one-hot) unless the caller passes one."""
+    example, one-hot) unless the caller passes one. ``data``: the plan's
+    ``DataAxis``; ``batch`` (and ``batch_mask``, ``style_select``) are then
+    this rank's slice, and the gradients are summed over the ranks before
+    the update (module docstring)."""
+    dp = data is not None and data.size > 1
     lr_schedule = cosine_lr_schedule(lr, max(total_steps // grad_accum, 1))
 
     def step_fn(state: TrainState, vgg, batch: torch.Tensor, style_grams,
@@ -170,9 +227,12 @@ def make_train_step(
             state.net, vgg, batch, style_grams, weight_schedule(applied_step),
             taps=taps, precision=precision, generator=generator,
             dropout=dropout, remat=remat, batch_mask=batch_mask,
-            style_select=style_select, norm_method=norm_method)
+            style_select=style_select, norm_method=norm_method, data=data)
         grads = torch.autograd.grad(total, params)
-        finite = bool(torch.isfinite(total))
+        if dp:
+            grads = all_reduce_grads(grads, data)
+            metrics = all_reduce_metrics(metrics, data)
+        finite = bool(torch.isfinite(metrics["loss"]))  # global: alike on every rank
         if finite:
             state.optimizer.update(grads)
             state.step += 1

@@ -41,6 +41,7 @@ from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
 from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
 from fast_neural_style_transfer_tpu_torch.models import adain as tadain
 from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, vgg_params_from_jax
+from fast_neural_style_transfer_tpu_torch.parallel import make_mesh_plan
 from fast_neural_style_transfer_tpu_torch.serve import http as serve_http
 from fast_neural_style_transfer_tpu_torch.train import adain as ttrain
 from fast_neural_style_transfer_tpu_torch.utils.color import match_color
@@ -223,8 +224,12 @@ def test_arbitrary_stylizer_refusals(s):
             np.zeros((8, 8, 3), np.uint8))
     with pytest.raises(ValueError, match="match"):
         ArbitraryStylizer(sd, vsd, device="cpu", preserve_color="match")
-    with pytest.raises(NotImplementedError, match="row 15"):
-        ArbitraryStylizer(sd, vsd, device="cpu", sharding=object())
+    # a replica plan is taken (tests/test_torch_data_parallel.py runs it);
+    # a device other than the plan's first is refused
+    plan = make_mesh_plan(devices=["cpu", "cpu"])
+    assert ArbitraryStylizer(sd, vsd, sharding=plan.batch_sharding).device == torch.device("cpu")
+    with pytest.raises(ValueError, match="first device"):
+        ArbitraryStylizer(sd, vsd, device="meta", sharding=plan.batch_sharding)
     with pytest.raises(TypeError, match="uint8"):
         ArbitraryStylizer(sd, vsd, device="cpu").set_style_u8(np.zeros((8, 8, 3)))
 
@@ -393,9 +398,9 @@ def test_cli_flags_match_jax(cmd):
 @pytest.mark.parametrize("argv,match", [
     (["export", "--decoder", "d.npz"], "pass --onnx and/or --torchscript"),
     (["stylize", "--decoder", "d.npz", "--content_dir", "c", "--style_image", "s",
-      "--data_parallel"], "row 15"),
+      "--data_parallel", "--preserve_color", "match"], "per-content"),
     (["stylize", "--decoder", "d.npz", "--content_dir", "c", "--style_image", "s",
-      "--spatial", "2"], "row 15"),
+      "--spatial", "2"], "cannot be combined"),
     (["stylize", "--decoder", "d.npz", "--style_image", "s"], "exactly one"),
     (["stylize", "--decoder", "d.npz", "--content_dir", "c", "--style_image", "s",
       "--preserve_color", "match"], "per-content"),
@@ -466,7 +471,7 @@ def test_serve_adain_flags(s, tmp_path):
     Image.fromarray(s["style_u8"][0][0]).save(style)
     args = argparse.Namespace(adain_decoder=dec, style=style, alpha=0.8,
                               vgg_weights=vgg, precision="f32", preserve_color="off",
-                              model=None, style_index=None)
+                              model=None, style_index=None, data_parallel=False)
     fwd, family, device = serve_http._build_forward(args, "cpu")
     assert family == "adain" and str(device) == "cpu"
     img = np.random.default_rng(9).integers(0, 256, (1, 32, 32, 3), dtype=np.uint8)

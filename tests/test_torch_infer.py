@@ -239,9 +239,16 @@ def test_begin_inference_cli(ckpt_pth, tmp_path, capsys):
                           "--output_dir", str(tmp_path / "o"), "--device", "cpu",
                           "--output_name", "q.png", "--precision", "int8"])
     assert Image.open(tmp_path / "o" / "q.png").size == (28, 24)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        begin_inference.main(["--model_path", ckpt_pth, "--device", "cpu",
-                              "--data_parallel"])
+    # --data_parallel splits --content_dir batches over the replicas (one on
+    # the CPU here; two in tests/test_torch_data_parallel.py): the same files
+    (tmp_path / "c").mkdir()
+    Image.fromarray(_img(24, 28, seed=3)).save(tmp_path / "c" / "in.png")
+    for flags in ([], ["--data_parallel"]):
+        begin_inference.main(["--model_path", ckpt_pth, "--content_dir", str(tmp_path / "c"),
+                              "--output_dir", str(tmp_path / "d" / str(len(flags))),
+                              "--device", "cpu", "--batch_size", "2", *flags])
+    assert np.array_equal(np.asarray(Image.open(tmp_path / "d" / "1" / "in_stylized.jpg")),
+                          np.asarray(Image.open(tmp_path / "d" / "0" / "in_stylized.jpg")))
     # --spatial runs (tests/test_torch_spatial.py) but keeps the JAX CLI's
     # two refusals
     for flags, match in ((["--content_dir", str(tmp_path)], "cannot be combined"),

@@ -11,6 +11,7 @@
 
 import ast
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -618,3 +619,149 @@ def test_sharded_plans_fill_the_card():
     assert cuda_norm.plan_fwd(1, hw, 256, 4, 4, **kw).chunks == 32
     assert cuda_norm.plan_fwd(1, hw, 256, 4, 4, sharded=True, **kw).chunks == 528
     assert cuda_norm.plan_fwd(2, hw, 256, 4, 4, sharded=True, **kw).chunks == 264
+
+
+class _Guard:
+    """``torch.cuda.device`` stand-in: records the device each block enters
+    and which one is current."""
+
+    def __init__(self):
+        self.entered, self.current = [], None
+
+    def __call__(self, device):
+        guard = self
+
+        class _Block:
+            def __enter__(self):
+                guard.entered.append(device)
+                guard.current = device
+
+            def __exit__(self, *exc):
+                guard.current = None
+
+        return _Block()
+
+
+def _fake_lib(guard, calls, names):
+    """A C library whose entry points record the guarded device they run
+    under (None: no guard) and succeed."""
+
+    def entry(name):
+        def fn(*args):
+            calls.append((name, guard.current))
+            return 0
+        return fn
+
+    return types.SimpleNamespace(**{n: entry(n) for n in names})
+
+
+def test_wrappers_launch_under_a_guard_for_the_tensors_device(monkeypatch):
+    """Every launch and the conv occupancy query run with the runtime's
+    current device set to the tensor's (``ops/_build.py::on_card``), on that
+    device's stream: here CPU tensors reach the launch code with the C
+    library, ``torch.cuda.device`` and the stream faked."""
+    guard, calls = _Guard(), []
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=7, device=d))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(cuda_norm, "_kernels", lambda: _fake_lib(
+        guard, calls, ["fwd", "fwd_stats", "bwd", "bwd_sums", "bwd_apply"]))
+    lib = _fake_lib(guard, calls, ["bwd", "dx"])
+    lib.dx_occupancy = lambda *a: calls.append(("dx_occupancy", guard.current)) or 2
+    lib.bwd_smem = lambda *a: 0
+    monkeypatch.setattr(cuda_conv, "_kernel", lambda: lib)
+    monkeypatch.setattr(cuda_conv, "_occupancy", {})
+    x = torch.randn(2, 64, 8, 8).contiguous(memory_format=torch.channels_last)
+    g, b = torch.ones(64), torch.zeros(64)
+    m = torch.zeros(2, 64)
+    fplan = cuda_norm.plan_fwd(2, 64, 64, 4, 4, sms=132, blocks_per_sm=2)
+    cuda_norm._launch_fwd(x, g, b, fplan, eps=1e-5, relu=True, onepass=False)
+    bplan = cuda_norm.plan_bwd(2, 64, 64, 4, 4, sms=132, blocks_per_sm=2)
+    cuda_norm._launch_bwd(x, x, m, m, g, b, bplan, relu=True)
+    gy = torch.randn(2, 64, 8, 8).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(64, 3, 3, 3)
+    cuda_conv._launch_dx(gy, w, cuda_conv.conv_dx_plan(gy, w))
+    cuda_conv._launch_dx(gy, w, cuda_conv.conv_dx_plan(gy, w, tap_packed=False))
+    assert [c[0] for c in calls] == ["fwd", "bwd", "dx_occupancy", "dx", "bwd"]
+    assert all(c[1] == x.device for c in calls), calls
+    assert all(d == x.device for d in guard.entered) and len(guard.entered) == len(calls)
+
+
+def test_every_c_call_of_the_wrappers_is_guarded():
+    """In ``ops/cuda_norm.py`` and ``ops/cuda_conv.py`` every entry point of
+    the C library is either handed to ``_build.on_card`` or called inside a
+    ``with torch.cuda.device(...)`` block, bar the pure shared-memory size
+    queries and the binding of the library; no stream is fetched outside
+    ``on_card``."""
+    handles = {"_kernels", "_kernel"}
+    for path in ("ops/cuda_norm.py", "ops/cuda_conv.py"):
+        src = (PORT_DIR / path).read_text()
+        assert "current_stream" not in src, path
+        tree = ast.parse(src)
+        guarded = set()
+        for node in ast.walk(tree):  # the binding functions call nothing
+            if isinstance(node, ast.FunctionDef) and node.name in handles:
+                guarded |= {id(n) for n in ast.walk(node)}
+            if isinstance(node, ast.With) and any(
+                    ast.unparse(item.context_expr).startswith("torch.cuda.device(")
+                    for item in node.items):
+                guarded |= {id(n) for n in ast.walk(node)}
+            if isinstance(node, ast.Call) and ast.unparse(node.func) == "_build.on_card":
+                guarded |= {id(a) for a in node.args[1:2]}
+        entries = 0
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Attribute) or (
+                    isinstance(node.value, ast.Name) and node.value.id == "lib"
+                    and node.attr.startswith("fnst_")):
+                continue
+            base = node.value
+            is_lib = (isinstance(base, ast.Call) and ast.unparse(base.func) in handles) or (
+                isinstance(base, ast.Name) and base.id == "lib")
+            if not is_lib or node.attr.endswith("smem"):
+                continue
+            entries += 1
+            assert id(node) in guarded, f"{path}: {ast.unparse(node)} runs unguarded"
+        assert entries == (7 if path.endswith("norm.py") else 3), (path, entries)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrappers_launch_on_the_tensors_card(dtype):
+    """Each wrapper on cuda:1 while cuda:0 is current: the kernels run on
+    card 1 and match their plain versions there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 1)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 32, 32)).astype(np.float32))
+    x = x.to(dev, dt).contiguous(memory_format=torch.channels_last)
+    g = torch.from_numpy(rng.standard_normal(64).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(64).astype(np.float32)).to(dev)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=1 / 64, atol=2e-2)
+    with torch.inference_mode():
+        y, mean, inv = cuda_norm.instance_norm_fwd(x, g, b, relu=True)
+        y_r, _, _ = cuda_norm.instance_norm_fwd_reference(x.float(), g, b, relu=True)
+        torch.testing.assert_close(y.float(), y_r, **tol)
+        gy = torch.from_numpy(rng.standard_normal((2, 64, 32, 32)).astype(np.float32))
+        gy = gy.to(dev, dt).contiguous(memory_format=torch.channels_last)
+        dx, dg, db = cuda_norm.instance_norm_bwd(x, gy, mean, inv, g, b, relu=True)
+        dx_r, _, _ = cuda_norm.instance_norm_bwd_reference(x.float(), gy.float(), mean,
+                                                           inv, g, b, relu=True)
+        top = dx_r.abs().max().item()
+        torch.testing.assert_close(dx.float(), dx_r, rtol=tol["rtol"], atol=1e-3 * top)
+        rows = cuda_norm.instance_norm_moments(x, 16)[0]
+        torch.testing.assert_close(rows, x[:, :, :16].float().mean(dim=(2, 3)),
+                                   rtol=1e-4, atol=1e-4)
+        gc = torch.from_numpy(rng.standard_normal((2, 64, 32, 32)).astype(np.float32))
+        gc = gc.to(dev, dt).contiguous(memory_format=torch.channels_last)
+        w = torch.from_numpy(rng.standard_normal((64, 3, 3, 3)).astype(np.float32)).to(dev, dt)
+        dxc = cuda_conv.conv2d_same_dx(gc, w)
+        dxc_r = cuda_conv.conv2d_same_dx_reference(gc.float(), w.float())
+        torch.testing.assert_close(dxc.float(), dxc_r, rtol=tol["rtol"],
+                                   atol=1e-3 * dxc_r.abs().max().item())
+    assert torch.cuda.current_device() == 0
+    assert y.device == dx.device == dxc.device == dev

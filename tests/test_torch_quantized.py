@@ -230,7 +230,8 @@ def test_begin_inference_int8_cli(net, tmp_path, capsys):
 def serve_http_args(**kw):
     """The flags ``serve/http.py::_build_forward`` reads."""
     base = dict(adain_decoder=None, style=None, model=None, style_index=None,
-                precision="bf16", preserve_color="off", alpha=1.0, vgg_weights=None)
+                precision="bf16", preserve_color="off", alpha=1.0, vgg_weights=None,
+                data_parallel=False)
     base.update(kw)
     return argparse.Namespace(**base)
 

@@ -161,14 +161,49 @@ def test_http_round_trip_on_cpu():
 
 @pytest.mark.parametrize("flags", [["--adain-decoder", "d.npz", "--style", "s.jpg",
                                     "--precision", "int8"], ["--data_parallel"]])
-def test_serve_cli_unported_flags_raise(flags, tmp_path):
-    """--data_parallel is not ported; int8 serves the flagship family only,
-    as in the JAX package (flagship int8: tests/test_torch_quantized.py)."""
+def test_serve_cli_unported_flags_raise(flags, tmp_path, monkeypatch):
+    """int8 serves the flagship family only, as in the JAX package (flagship
+    int8: tests/test_torch_quantized.py). --data_parallel serves: on the
+    CPU its plan is one replica, and a request gets the Stylizer's output
+    (two replicas: tests/test_torch_data_parallel.py)."""
+    import signal
+
+    from PIL import Image
+
     ckpt = str(tmp_path / "m.pth")
     torch.save(TransformerNet().state_dict(), ckpt)
-    match = "flagship family only" if "--adain-decoder" in flags else "not yet ported"
-    with pytest.raises((SystemExit, NotImplementedError), match=match):
-        serve_http.main(["--model", ckpt, "--cpu", *flags])
+    if "--adain-decoder" in flags:
+        with pytest.raises((SystemExit, NotImplementedError), match="flagship family only"):
+            serve_http.main(["--model", ckpt, "--cpu", *flags])
+        return
+    img = np.random.default_rng(3).integers(0, 255, (24, 32, 3), dtype=np.uint8)
+    want = Stylizer.from_checkpoint(ckpt, device="cpu", precision="f32").stylize_u8(img)
+    got, real = {}, serve_http.make_server
+
+    def make_server_on_port_0(forward, **kw):
+        kw.update(host="127.0.0.1", port=0, warm_size=0)
+        srv = real(forward, **kw)
+
+        def client():
+            try:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{srv.server_address[1]}/stylize?format=png",
+                    data=_png_bytes(img), method="POST")
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    got["out"] = np.asarray(Image.open(io.BytesIO(r.read())))
+            finally:
+                srv.shutdown()
+
+        threading.Thread(target=client, daemon=True).start()
+        return srv
+
+    monkeypatch.setattr(serve_http, "make_server", make_server_on_port_0)
+    before = signal.getsignal(signal.SIGTERM)
+    try:
+        serve_http.main(["--model", ckpt, "--cpu", "--precision", "f32", *flags])
+    finally:
+        signal.signal(signal.SIGTERM, before)
+    np.testing.assert_array_equal(got["out"], want)
 
 
 def test_serve_cli_style_index_serves_the_baked_style(tmp_path, monkeypatch):

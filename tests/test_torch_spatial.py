@@ -277,19 +277,23 @@ def _default_plan_device(plan):
 
 
 def test_make_mesh_plan_refuses_a_data_axis():
-    """Two ranks as a 2 x 1 (data, space) mesh: data parallelism is row 15b."""
+    """Two ranks as a 2 x 1 (data, space) mesh: a data axis of two, the
+    rank's data index its rank; a spatial degree that does not divide the
+    ranks is refused."""
     out = launch(_data_axis, 2, deadline_s=DEADLINE, quiet=True, device="cpu")
-    assert all("row 15b" in o for o in out), out
+    assert [o[0] for o in out] == [(2, 0, 1), (2, 1, 1)], out
+    assert all("not divisible by spatial=3" in o[1] for o in out), out
 
 
 def _data_axis(plan):
     from fast_neural_style_transfer_tpu_torch.parallel import make_mesh_plan
 
+    dp = make_mesh_plan(1, device="cpu")
     try:
-        make_mesh_plan(1)
-    except NotImplementedError as e:
-        return str(e)
-    return "no error"
+        make_mesh_plan(3, device="cpu")
+    except ValueError as e:
+        return (dp.data.size, dp.data.index, dp.space.size), str(e)
+    return (dp.data.size, dp.data.index, dp.space.size), "no error"
 
 
 def test_begin_inference_cli_spatial(tmp_path):

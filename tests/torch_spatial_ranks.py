@@ -1,7 +1,8 @@
-"""The port's side of the height-sharded tests: functions that each rank of
-``parallel.launch`` runs (``tests/test_torch_spatial*.py`` compare what
-they return with the JAX package). This module imports torch and the port
-only, never JAX, so the spawned ranks do not load it."""
+"""The port's side of the height-sharded and data-parallel tests:
+functions that each rank of ``parallel.launch`` runs
+(``tests/test_torch_spatial*.py`` and ``tests/test_torch_data_parallel.py``
+compare what they return with the JAX package). This module imports torch
+and the port only, never JAX, so the spawned ranks do not load it."""
 
 import numpy as np
 import torch
@@ -141,10 +142,10 @@ def state_dict(d: dict) -> dict:
     return {k: torch.as_tensor(v) for k, v in d.items()}
 
 
-def load_net(params: dict, device):
+def load_net(params: dict, device, num_styles: int = 1):
     from fast_neural_style_transfer_tpu_torch.models import TransformerNet
 
-    net = TransformerNet()
+    net = TransformerNet(num_styles=num_styles)
     net.load_state_dict(state_dict(params), strict=True)
     return net.to(device, memory_format=torch.channels_last)
 
@@ -219,3 +220,104 @@ def train(plan, params: dict, vgg: dict, batches, grams, lr: float, total: int,
                               for k, p in state.net.state_dict().items()}))
     return out
 
+
+def _numpy(metrics: dict) -> dict:
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _run_steps(plan, make_step, state, batches, vgg, grams, **per_step) -> dict:
+    """``make_step()``'s step on this rank's slice of each global batch ->
+    its metrics, the step count, the gradients the first update applied
+    (summed over the ranks) and the params after."""
+    d = plan.data
+    applied = []
+    update = state.optimizer.update
+
+    def spy(grads):
+        applied.append([g.detach().clone().numpy() for g in grads])
+        return update(grads)
+
+    state.optimizer.update = spy
+    step = make_step()
+    names = [n for n, _ in state.net.named_parameters()]
+    metrics = []
+    for i, b in enumerate(batches):
+        kw = {k: torch.from_numpy(part(v[i], d)) for k, v in per_step.items()}
+        metrics.append(_numpy(step(state, vgg, torch.from_numpy(part(b, d)), grams, **kw)))
+    return {"metrics": metrics, "step": state.step,
+            "grads": dict(zip(names, applied[0])) if applied else None,
+            "params": {k: v.detach().clone().numpy()
+                       for k, v in state.net.state_dict().items()}}
+
+
+def part(x: np.ndarray, data) -> np.ndarray:
+    """This rank's contiguous slice of a global batch on the data axis."""
+    k = x.shape[0] // data.size
+    return np.ascontiguousarray(x[data.index * k:(data.index + 1) * k])
+
+
+def data_parallel(plan, a: dict) -> dict:
+    """Everything ``tests/test_torch_data_parallel.py`` holds against the
+    JAX package from one launch of (data 2 x space 1) ranks: this rank's
+    mesh indices; the stylizer step plain, with ``grad_accum=2``, on a
+    padded batch, with two styles, and with a non-finite input on rank 1
+    alone; the AdaIN step; the training loop (``a["loop"]``). Every step
+    takes this rank's slice of the global batches."""
+    from fast_neural_style_transfer_tpu_torch.models.adain import make_decoder
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg
+    from fast_neural_style_transfer_tpu_torch.train import adain as tadain
+    from fast_neural_style_transfer_tpu_torch.train.loop import train_style_transfer
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+    from fast_neural_style_transfer_tpu_torch.train.step import make_train_step
+
+    lr, total, d = a["lr"], a["total"], plan.data
+    vgg = make_vgg(state_dict(a["vgg"]), plan.device)
+    grams = [torch.from_numpy(g) for g in a["grams"]]
+    out = {"layout": (plan.world.index, d.index, plan.space.index, d.size, plan.spatial)}
+
+    def stylizer(params, batches, *, grad_accum=1, num_styles=1, grams=grams, **per_step):
+        state = create_train_state(load_net(params, plan.device, num_styles), lr, total,
+                                   grad_accum=grad_accum)
+        return _run_steps(
+            plan, lambda: make_train_step(lr=lr, total_steps=total, grad_accum=grad_accum,
+                                          dropout=False, num_styles=num_styles, data=d),
+            state, batches, vgg, grams, **per_step)
+
+    out["plain"] = stylizer(a["params"], a["batches"][:1])
+    out["accum"] = stylizer(a["params"], a["batches"][:2], grad_accum=2)
+    out["pad"] = stylizer(a["params"], [a["padded"]], batch_mask=[a["mask"]])
+    out["styles"] = stylizer(a["params_multi"], a["batches"][:1], num_styles=2,
+                             grams=[torch.from_numpy(g) for g in a["grams_multi"]],
+                             style_select=[a["select"]])
+    bad = a["batches"][0].astype(np.float32)
+    bad[-1, 0, 0, 0] = np.nan  # in rank 1's slice only
+    out["nonfinite"] = stylizer(a["params"], [bad])
+    state = tadain.create_adain_train_state(
+        make_decoder(state_dict(a["decoder"]), plan.device), lr)
+    m = tadain.make_adain_train_step(lr=lr, data=d)(
+        state, vgg, torch.from_numpy(part(a["content"], d)),
+        torch.from_numpy(part(a["style"], d)))
+    out["adain"] = {"metrics": _numpy(m), "step": state.step, "params": {
+        k: v.detach().numpy() for k, v in state.decoder.state_dict().items()}}
+    out["loop"] = train_style_transfer(a["loop"], plan)
+    out["adain_loop"] = tadain.train_adain(a["adain_loop"], plan)
+    return out
+
+
+def data_space_step(plan, params: dict, vgg: dict, batch, grams, lr: float,
+                    total: int) -> dict:
+    """One 2-D (data x space) step: this rank's samples (its data index's
+    slice) and rows -> this rank's mesh indices, the metrics, the step
+    count and the params after."""
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg
+    from fast_neural_style_transfer_tpu_torch.train.spatial_step import (
+        make_spatial_train_step,
+    )
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(load_net(params, plan.device), lr, total)
+    out = _run_steps(plan, lambda: make_spatial_train_step(
+        plan, lr=lr, total_steps=total, dropout=False), state, [batch],
+        make_vgg(state_dict(vgg), plan.device), [torch.from_numpy(g) for g in grams])
+    out["layout"] = (plan.world.index, plan.data.index, plan.space.index)
+    return out
