@@ -50,7 +50,15 @@ before and read just after:
   (data 2 x space 2) holding the 2-D step against the unsharded one; and
   the Stylizer's replicas in one process (two on the card) against the
   unsharded Stylizer (f32, bf16, int8 with shared scales, luma), the
-  inference CLI with --data_parallel and fnst-serve --data_parallel.
+  inference CLI with --data_parallel and fnst-serve --data_parallel;
+- tooling (slice 12): the input pipeline's f32 transport two batches ahead
+  feeding a training step (against the u8 transport's), fnst-parity on
+  the trained checkpoint against a reference StyleTransferNet on the CPU
+  (``--reference_repo``, else a stand-in written from
+  tests/torch_reference_stand_in.py), the preemption drill (SIGTERM at
+  half way, resumed) and the quickstart example, each child's launches
+  counted; the loss curves the drill plotted, or the skip line; the bf16
+  training step's wall fed by each transport.
 Last it times the kernels, their plain versions and the library ops, the
 training step (single-style, 4-style and one-pass), and the IN forward and
 backward at three chunk budgets each. Every phase
@@ -74,6 +82,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4164,8 +4173,12 @@ def phase_data_parallel_serving(seed: int) -> dict:
     alone (f32, bf16, f32 with preserve_color="luma", int8 with the shared
     scales as static ones); B=1 and B=3 run as one chunk. Then the
     inference CLI with --content_dir --data_parallel against the run
-    without the flag (|du8| <= 1) and fnst-serve --data_parallel
-    answering 16 requests, both over every visible card."""
+    without the flag (|du8| <= 1; both runs under deterministic
+    algorithms: cuDNN's default convolutions differ in the last bits from
+    run to run, which flips a u8 that the CLI's JPEG encoding can widen
+    past 1, even between two runs without the flag) and
+    fnst-serve --data_parallel answering 16 requests, both over every
+    visible card."""
     from PIL import Image
 
     from fast_neural_style_transfer_tpu_torch.cli import begin_inference
@@ -4258,9 +4271,10 @@ def phase_data_parallel_serving(seed: int) -> dict:
         outs = {}
         for flags in ([], ["--data_parallel"]):
             d = os.path.join(tmp, "o" + str(len(flags)))
-            begin_inference.main(["--model_path", str(CHECKPOINT), "--content_dir", src,
-                                  "--output_dir", d, "--batch_size", str(DP_SERVE_BATCH),
-                                  *flags])
+            with deterministic_algorithms():
+                begin_inference.main(["--model_path", str(CHECKPOINT), "--content_dir", src,
+                                      "--output_dir", d, "--batch_size",
+                                      str(DP_SERVE_BATCH), *flags])
             outs[len(flags)] = np.stack([np.asarray(Image.open(
                 os.path.join(d, f"{i}_stylized.jpg"))) for i in range(DP_SERVE_BATCH)])
         cli_du8 = _du8(outs[0], outs[1])
@@ -4273,7 +4287,8 @@ def phase_data_parallel_serving(seed: int) -> dict:
 
     ok = cli_du8 <= 1 and statuses == [200] * 16
     emit("data_parallel_cli_and_server", ok=ok, cards=torch.cuda.device_count(),
-         cli_max_abs_du8_vs_without_flag=cli_du8, server_statuses=statuses)
+         cli_max_abs_du8_vs_without_flag=cli_du8, cli_deterministic_algorithms=True,
+         server_statuses=statuses)
     if not ok:
         fail("data-parallel inference CLI or fnst-serve --data_parallel")
     return {"main_launches": main_launches, **out}
@@ -4369,10 +4384,336 @@ def phase_data_parallel_cards(seed: int) -> None:
 
 
 
+TOOLING_DRILL = {"total_steps": 24, "batch": 4, "ckpt_every": 8, "image_size": 256,
+                 "log_every": 1}  # SIGTERM at total_steps // 2; bf16 (the drill's)
+PARITY_SSIM = 0.98  # evidence/ssim_r5/final_40k.json's threshold
+
+
+def counted_child(body: str, counts_file: str) -> list:
+    """argv of a child that runs ``body`` (Python source) with the repo on
+    its path and appends its kernel launch counts
+    (``parallel.mesh.kernel_counts``) to ``counts_file`` as it exits."""
+    prelude = (
+        f"import atexit, json, sys; sys.path.insert(0, {str(REPO)!r})\n"
+        "from fast_neural_style_transfer_tpu_torch.parallel.mesh import kernel_counts\n"
+        f"atexit.register(lambda: open({counts_file!r}, 'a').write("
+        "json.dumps(kernel_counts()) + '\\n'))\n")
+    return [sys.executable, "-c", prelude + body]
+
+
+def run_module_body(module: str, argv: list) -> str:
+    """Source that runs ``module`` as ``python -m module *argv`` does
+    (``runpy.run_module`` with ``alter_sys``)."""
+    return (f"import runpy; sys.argv = {[module] + list(argv)!r}\n"
+            f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n")
+
+
+def child_launches(counts_file: str) -> dict:
+    """The launches of every child that appended to ``counts_file``, summed
+    by kernel."""
+    total: dict = {}
+    with open(counts_file) as f:
+        for line in f:
+            for name, c in json.loads(line).items():
+                total[name] = total.get(name, 0) + c["launches"]
+    return total
+
+
+def tooling_pipeline(seed: int, data: str) -> dict:
+    """``InputPipeline(transport="f32", prefetch=2)`` on the card: two
+    epochs held at once equal their host batches (u8 and f32: no buffer
+    reused while in flight); one f32 step on its first batch under
+    deterministic algorithms against the same step on the u8 transport's
+    first batch (loss 1e-5 relative), with the f32 step's launches."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+    from fast_neural_style_transfer_tpu_torch.data import ImageFolderDataset, InputPipeline
+    from fast_neural_style_transfer_tpu_torch.losses import (
+        LossTaps,
+        style_targets_from_features,
+    )
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES, TransformerNet
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import conv2d_same_dx
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
+        instance_norm_bwd,
+        instance_norm_fwd,
+    )
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32, make_train_step
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+
+    prec = Precision.f32()
+    exact_f32(torch.device("cuda"), prec)
+    ds = ImageFolderDataset(data, (256, 256), seed=seed)
+    pipes = {t: InputPipeline(ds, TRAIN_BATCH, seed=seed, prefetch=2, transport=t,
+                              device="cuda") for t in ("u8", "f32")}
+    held_equal = {}
+    for t, pipe in pipes.items():
+        want = list(pipe.host_batches(num_epochs=2))
+        held = list(pipe.device_batches(num_epochs=2))
+        held_equal[t] = len(held) == len(want) == 2 * len(ds) // TRAIN_BATCH and all(
+            np.array_equal(h.cpu().numpy(), w) for h, w in zip(held, want))
+    vgg = make_vgg(random_params(seed), "cuda")
+    style = u8_to_network(torch.from_numpy(smooth_image(256, 256, seed=5))[None].cuda())
+    with torch.no_grad():
+        grams = [g.detach() for g in style_targets_from_features(
+            vgg(style, LossTaps().style_taps, precision=prec))]
+
+    def fresh_state():
+        torch.manual_seed(seed)
+        return create_train_state(
+            TransformerNet().to("cuda", memory_format=torch.channels_last))
+
+    parity_step = make_train_step(dropout=False)
+    metrics, dtypes, launches = {}, {}, None
+    with deterministic_algorithms():
+        for t in ("u8", "f32"):
+            state = fresh_state()
+            batches = pipes[t].device_batches()
+            batch = next(batches)
+            if t == "f32":
+                reset_in_counts()
+                reset_conv_counts()
+            m = parity_step(state, vgg, batch, grams)
+            metrics[t] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+            if t == "f32":
+                torch.cuda.synchronize()
+                launches = {"instance_norm_fwd": instance_norm_fwd.launches,
+                            "instance_norm_bwd": instance_norm_bwd.launches,
+                            "conv2d_same_dx": conv2d_same_dx.launches}
+            batches.close()
+            dtypes[t] = str(batch.dtype)
+    rel = abs(metrics["f32"]["loss"] - metrics["u8"]["loss"]) / abs(metrics["u8"]["loss"])
+
+    expected = {"instance_norm_fwd": NUM_IN_SITES, "instance_norm_bwd": NUM_IN_SITES,
+                "conv2d_same_dx": 1}
+    ok = (all(held_equal.values()) and rel <= 1e-5 and launches == expected
+          and dtypes == {"u8": "torch.uint8", "f32": "torch.float32"})
+    out = {"ok": ok, "batch": TRAIN_BATCH, "size": [256, 256], "precision": "f32",
+           "prefetch": 2, "held_batches_equal_host": held_equal, "batch_dtypes": dtypes,
+           "step": metrics, "loss_rel_f32_vs_u8": rel, "launches": launches,
+           "expected_launches": expected}
+    emit("tooling_pipeline", **out)
+    return out
+
+
+def transport_step_times(seed: int, data: str) -> dict:
+    """Each transport of the input pipeline (two batches ahead) feeding the
+    bf16 training step (the trainers' and the drill's precision) at B=20,
+    256x256 on ``data``, alone on the card: the step's wall on the host
+    clock (next batch, step, synchronize), p50 of 8 steps after 2, once
+    each in turns (u8, f32, f32, u8)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+    from fast_neural_style_transfer_tpu_torch.data import ImageFolderDataset, InputPipeline
+    from fast_neural_style_transfer_tpu_torch.losses import (
+        LossTaps,
+        style_targets_from_features,
+    )
+    from fast_neural_style_transfer_tpu_torch.models import TransformerNet
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+    from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+    from fast_neural_style_transfer_tpu_torch.train.step import make_train_step
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
+
+    prec = canonical_compute_dtype("bf16")
+    ds = ImageFolderDataset(data, (256, 256), seed=seed)
+    vgg = make_vgg(random_params(seed), "cuda")
+    style = u8_to_network(torch.from_numpy(smooth_image(256, 256, seed=5))[None].cuda())
+    with torch.no_grad():
+        grams = [g.detach() for g in style_targets_from_features(
+            vgg(style, LossTaps().style_taps, precision=prec))]
+    p50 = {"u8": [], "f32": []}
+    for t in ("u8", "f32", "f32", "u8"):
+        torch.manual_seed(seed)
+        state = create_train_state(
+            TransformerNet().to("cuda", memory_format=torch.channels_last))
+        step = make_train_step(precision=prec)
+        batches = InputPipeline(ds, TRAIN_BATCH, seed=seed, prefetch=2, transport=t,
+                                device="cuda").device_batches()
+        walls = []
+        try:
+            for _ in range(10):
+                t0 = time.perf_counter()
+                step(state, vgg, next(batches), grams)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            batches.close()
+        p50[t].append(float(np.median(walls[2:])))
+    emit("tooling_transport_times", batch=TRAIN_BATCH, size=[256, 256], precision="bf16",
+         prefetch=2, step_p50_ms_host_clock=p50)
+    return p50
+
+
+def tooling_drill(out: str, counts: str) -> dict:
+    """The preemption drill as its users run it: ``soak.run_phase`` for
+    phase_a (SIGTERM once at half way), then for phase_b (resume to the
+    end), each child counting its launches into ``counts``."""
+    from fast_neural_style_transfer_tpu_torch.tools import soak
+    from fast_neural_style_transfer_tpu_torch.train.checkpoint import CheckpointManager
+
+    def argv(o):
+        return counted_child(soak._trainer_argv(o)[-1], counts)
+
+    kw = {"trainer_argv": argv, "poll_s": 0.02, "stall_s": 120.0, "backoff_s": 0.0,
+          "deadline_s": 300.0}
+    t = time.perf_counter()
+    rc_a = soak.run_phase(out, kill_at_step=soak.run_config(out)["total_steps"] // 2, **kw)
+    sigterm_ckpt = CheckpointManager(os.path.join(out, "checkpoints")).latest_step()
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows_a = len(f.readlines())
+    rc_b = soak.run_phase(out, **kw)
+    return {"rc_a": rc_a, "rc_b": rc_b, "sigterm_ckpt": sigterm_ckpt, "rows_a": rows_a,
+            "seconds": time.perf_counter() - t}
+
+
+def phase_tooling(seed: int, reference_repo=None) -> dict:
+    """Row 16's paths on the card. Two children start together, each
+    counting its kernel launches (``counted_child``): ``cli.parity`` run as
+    ``python -m`` on the trained checkpoint against the reference
+    repository's ``StyleTransferNet`` on the CPU (a given checkout, else
+    the stand-in ``tests/torch_reference_stand_in.py`` written to a temp
+    dir), and the quickstart example as ``python -m``. Beside them the
+    preemption drill runs from a thread (``tooling_drill``: 256x256, B=4,
+    bf16, 24 steps, a checkpoint every 8, SIGTERM at 12, then resumed to
+    24) while this thread checks the pipeline's f32 transport
+    (``tooling_pipeline``). Then the loss curves the drill's trainer
+    plotted (or the skip line where matplotlib is absent), and last the
+    transports' step times, alone on the card (``transport_step_times``)."""
+    import importlib.util
+
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.tools import soak
+    from fast_neural_style_transfer_tpu_torch.utils.visualization import plot_after_training
+
+    given_reference = reference_repo is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _write_jpegs(os.path.join(tmp, "data"), 40, 240, seed=2000 + seed)
+        if not given_reference:
+            sys.path.insert(0, str(REPO / "tests"))
+            from torch_reference_stand_in import write_reference_repo
+
+            reference_repo = write_reference_repo(os.path.join(tmp, "reference"))
+        content = os.path.join(tmp, "content.jpg")
+        Image.fromarray(smooth_image(256, 256, seed=11)).save(content, quality=95)
+
+        out = os.path.join(tmp, "drill")
+        drill_counts = os.path.join(tmp, "drill.counts")
+        rc = soak.run_config(out, create=True, dataset_dir=data, device=None,
+                             **TOOLING_DRILL)
+        children = {}
+        for name, module, argv in (
+                ("parity", "fast_neural_style_transfer_tpu_torch.cli.parity",
+                 ["--reference_pth", str(CHECKPOINT), "--content", content,
+                  "--reference_repo", reference_repo, "--output_dir",
+                  os.path.join(tmp, "parity")]),
+                ("quickstart", "fast_neural_style_transfer_tpu_torch.examples.quickstart",
+                 [os.path.join(tmp, "quickstart")])):
+            counts = os.path.join(tmp, f"{name}.counts")
+            children[name] = (subprocess.Popen(
+                counted_child(run_module_body(module, argv), counts), cwd=str(REPO),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), counts)
+        try:
+            with ThreadPoolExecutor(1) as pool:
+                drilled = pool.submit(tooling_drill, out, drill_counts)
+                pipeline = tooling_pipeline(seed, data)
+                results = {}
+                for name, (proc, counts) in children.items():
+                    stdout, stderr = proc.communicate(timeout=300)
+                    results[name] = (proc.returncode, stdout, stderr, child_launches(counts))
+                drill = drilled.result()
+        finally:
+            for proc, _ in children.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+        rep = soak.evidence(out)
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        rows_a, sigterm_ckpt = drill["rows_a"], drill["sigterm_ckpt"]
+        resumed_first = rows[rows_a]["step"] if len(rows) > rows_a else None
+        finite = all(np.isfinite(r[k]) for r in rows
+                     for k in ("loss", "content_loss", "style_loss", "tv_loss"))
+        steps = rc["total_steps"]
+        drill_launches = child_launches(drill_counts)
+        drill_expected = {"instance_norm_fwd": NUM_IN_SITES * steps,
+                          "instance_norm_bwd": NUM_IN_SITES * steps,
+                          "conv2d_same_dx": steps}
+        drill_ok = bool(
+            drill["rc_a"] == 0 and drill["rc_b"] == 0
+            and sigterm_ckpt is not None and steps // 2 <= sigterm_ckpt < steps
+            and rep["max_step"] == steps and rep["duplicate_steps_after_resume"] == 0
+            and resumed_first == sigterm_ckpt + 1 and finite
+            and rep["nonfinite_skips"] == 0 and drill_launches == drill_expected)
+        emit("tooling_drill", ok=drill_ok, config=rc, precision="bf16",
+             sigterm_checkpoint=sigterm_ckpt, resumed_first_step=resumed_first,
+             report=rep, all_losses_finite=finite, seconds=drill["seconds"],
+             launches=drill_launches, expected_launches=drill_expected)
+
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        skip_line = None
+        if not pngs:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                plot_after_training(out)
+            skip_line = buf.getvalue().strip()
+        curves_ok = (pngs == ["content_loss.png", "loss.png", "style_loss.png", "tv_loss.png"]
+                     if has_mpl else
+                     not pngs and skip_line.startswith("loss-curve plotting skipped:"))
+        emit("tooling_loss_curves", ok=curves_ok, matplotlib=has_mpl, pngs=pngs,
+             skip_line=skip_line)
+
+        rc_p, stdout, stderr, parity_launches = results["parity"]
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+        record = json.loads(lines[-1]) if lines else {}
+        parity_ok = bool(rc_p == 0 and record.get("value", 0.0) >= PARITY_SSIM
+                         and record.get("pass") is True
+                         and parity_launches.get("instance_norm_fwd") == NUM_IN_SITES
+                         and os.path.exists(os.path.join(tmp, "parity", "parity_ours.jpg")))
+        saved = [os.path.join(tmp, "parity", f"parity_{side}.jpg")
+                 for side in ("ours", "reference")]
+        du8 = (int(np.abs(np.asarray(Image.open(saved[0]), np.int16)
+                          - np.asarray(Image.open(saved[1]), np.int16)).max())
+               if all(map(os.path.exists, saved)) else None)
+        emit("tooling_parity", ok=parity_ok, exit_code=rc_p, record=record,
+             reference=reference_repo if given_reference else "stand-in",
+             saved_images_max_du8=du8, launches=parity_launches,
+             expected_instance_norm_fwd=NUM_IN_SITES,
+             stderr_tail=stderr[-2000:] if not parity_ok else "")
+
+        rc_q, stdout, stderr, qs_launches = results["quickstart"]
+        qs_dir = os.path.join(tmp, "quickstart")
+        qs_files = sorted(os.listdir(qs_dir)) if os.path.isdir(qs_dir) else []
+        # 3 train steps at 64x64, one stylize at 100x156 (bucket 128x192)
+        qs_expected = {"instance_norm_fwd": 4 * NUM_IN_SITES,
+                       "instance_norm_bwd": 3 * NUM_IN_SITES, "conv2d_same_dx": 3}
+        qs_ok = (rc_q == 0 and qs_files == ["model.onnx", "model.pth", "stylized.jpg"]
+                 and qs_launches == qs_expected)
+        emit("tooling_quickstart", ok=qs_ok, exit_code=rc_q, files=qs_files,
+             launches=qs_launches, expected_launches=qs_expected,
+             stdout_tail=stdout[-1000:], stderr_tail=stderr[-2000:] if not qs_ok else "")
+        transport_step_times(seed, data)
+    failed = [name for name, ok in (("pipeline", pipeline["ok"]), ("drill", drill_ok),
+                                    ("loss_curves", curves_ok), ("parity", parity_ok),
+                                    ("quickstart", qs_ok)) if not ok]
+    if failed:
+        fail(f"tooling phase: {failed}")
+    return {"pipeline": pipeline["launches"], "parity": parity_launches,
+            "drill": drill_launches, "quickstart": qs_launches}
+
+
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
           "multi_style", "video", "adain", "export", "int8", "spatial", "spatial_train",
-          "spatial_adain", "data_parallel", "data_space", "data_parallel_serving", "times",
-          "train_times", "spatial_times", "in_fwd_budgets", "in_bwd_budgets")
+          "spatial_adain", "data_parallel", "data_space", "data_parallel_serving", "tooling",
+          "times", "train_times", "spatial_times", "in_fwd_budgets", "in_bwd_budgets")
 # recorded findings, run on request only
 EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity", "spatial_profile",
                 "data_parallel_cards")
@@ -4381,6 +4722,9 @@ EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity", "spatial_profile
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reference_repo", default=None,
+                    help="a reference checkout for the tooling phase's fnst-parity "
+                         "(default: the stand-in tests/torch_reference_stand_in.py)")
     ap.add_argument("--phases", default="all",
                     help=f"comma-separated subset of {','.join(PHASES + EXTRA_PHASES)} "
                          f"(the build always runs; {','.join(EXTRA_PHASES)} only on request); "
@@ -4446,6 +4790,8 @@ def main() -> int:
     dspace = run("data_space", phase_data_space, args.seed) if "data_space" in phases else None
     dserve = (run("data_parallel_serving", phase_data_parallel_serving, args.seed)
               if "data_parallel_serving" in phases else None)
+    tooling = (run("tooling", phase_tooling, args.seed, args.reference_repo)
+               if "tooling" in phases else None)
     if "data_parallel_cards" in phases:
         run("data_parallel_cards", phase_data_parallel_cards, args.seed)
     if "int8_sensitivity" in phases:
@@ -4628,6 +4974,13 @@ def main() -> int:
         kernels[0]["launches_data_parallel_adain"] = per_rank(dac, "instance_norm_fwd")
         kernels[0]["launches_data_parallel_serving"] = dserve["main_launches"]
         kernels[4]["launches_data_parallel_adain"] = per_rank(dac, "conv2d_same_dx")
+        # row 16's paths: the f32-transport step, fnst-parity (a child), the
+        # preemption drill's two children, the quickstart example (a child)
+        for k, fn in ((0, "instance_norm_fwd"), (3, "instance_norm_bwd"),
+                      (4, "conv2d_same_dx")):
+            kernels[k]["launches_tooling"] = {
+                path: tooling[path].get(fn, 0)
+                for path in ("pipeline", "parity", "drill", "quickstart")}
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}), flush=True)

@@ -1,16 +1,27 @@
-"""Host input pipeline: shuffle, batch, decode on threads, ship uint8 to the
-card with one batch prefetched (the JAX package's ``data/pipeline.py``).
+"""Host input pipeline: shuffle, batch, decode on threads, ship to the
+card ``prefetch`` batches ahead (the JAX package's ``data/pipeline.py``).
 
 Ordering is the JAX pipeline's: epoch e visits ``np.random.default_rng(seed
 + e).permutation(len(dataset))`` in batches, dropping the short tail
 (``drop_last``) or filling it by wrapping around the permutation. The same
-directory and seed give the same uint8 batches as there.
+directory and seed give the same batches as there.
 
-Batches travel as raw uint8 (4x fewer bytes than float32); the train step
-normalizes on the device. On the card each batch is copied from pinned host
-memory with ``non_blocking=True`` on a side stream by the producer thread,
-one batch ahead of the consumer, which waits on the copy's event before
-using the batch.
+Transport: ``"u8"`` (the default) ships raw uint8, 4x fewer bytes than
+float32, and the train step normalizes on the device; ``"f32"`` normalizes
+on the host with the native kernel (``native.normalize_batch``, on
+``min(num_workers, 8)`` threads) and ships network-space float32, bit for
+bit the JAX pipeline's ``transport="f32"`` batches. The step takes either
+(``train/step.py::normalize_u8_batch`` passes float batches through).
+
+On the card a producer thread copies each batch from its own pinned host
+buffer with ``non_blocking=True`` on a side stream and records an event
+after the copy; up to ``prefetch`` batches wait in the queue (two by
+default, as JAX's), and the consumer's stream waits on a batch's event
+before using it. Each batch in flight has its own pinned buffer (PyTorch's
+host allocator does not hand a pinned block out again until the copies
+recorded on it have finished), its own device tensor and its own event,
+and ``record_stream`` on the consumer's stream keeps the device tensor's
+memory from being reused while work queued on it is pending.
 
 Data parallelism: with ``num_data_shards`` > 1 the global batch is split
 into that many contiguous slices and this rank decodes and ships only
@@ -35,6 +46,7 @@ from typing import Iterator, Optional, Union
 import numpy as np
 import torch
 
+from fast_neural_style_transfer_tpu_torch import native
 from fast_neural_style_transfer_tpu_torch.data.dataset import ImageFolderDataset
 
 _SENTINEL = object()
@@ -48,12 +60,20 @@ class InputPipeline:
         *,
         seed: int = 0,
         num_workers: int = 8,
+        prefetch: int = 2,
         drop_last: bool = True,
+        transport: str = "u8",
         pad_to_multiple: int = 0,
         num_data_shards: int = 1,
         shard_index: int = 0,
         device: Union[str, torch.device] = "cuda",
     ):
+        if transport not in ("u8", "f32"):
+            raise ValueError(f"transport must be 'u8' or 'f32': {transport!r}")
+        if prefetch < 1:
+            # queue.Queue(maxsize=0) means UNBOUNDED: the producer would
+            # ship the whole epoch ahead of the consumer
+            raise ValueError(f"prefetch must be >= 1, got {prefetch}")
         if batch_size % num_data_shards:
             raise ValueError(f"global batch {batch_size} not divisible by "
                              f"{num_data_shards} data shards")
@@ -69,7 +89,9 @@ class InputPipeline:
         self.batch_size = batch_size
         self.seed = seed
         self.num_workers = num_workers
+        self.prefetch = prefetch
         self.drop_last = drop_last
+        self.transport = transport
         self.device = torch.device(device)
         self.num_data_shards = num_data_shards
         self.shard_index = shard_index
@@ -111,11 +133,15 @@ class InputPipeline:
         if self.padded_size != self.local_batch_size:
             extra = np.repeat(u8[-1:], self.padded_size - self.local_batch_size, axis=0)
             u8 = np.concatenate([u8, extra], axis=0)
-        return u8
+        if self.transport == "u8":
+            return u8
+        return native.normalize_batch(u8, n_threads=min(self.num_workers, 8))
 
     def host_batches(self, num_epochs: Optional[int] = None) -> Iterator[np.ndarray]:
-        """This shard's uint8 (B, H, W, 3) numpy batches, epoch-shuffled."""
-        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+        """This shard's (B, H, W, 3) numpy batches, epoch-shuffled: uint8,
+        or network-space float32 with ``transport="f32"``."""
+        with ThreadPoolExecutor(max_workers=self.num_workers,
+                                thread_name_prefix="fnst-pipeline") as pool:
             epoch = 0
             while num_epochs is None or epoch < num_epochs:
                 for batch_idx in self._epoch_indices(epoch):
@@ -125,10 +151,10 @@ class InputPipeline:
     # -- device prefetch ----------------------------------------------------
 
     def device_batches(self, num_epochs: Optional[int] = None) -> Iterator[torch.Tensor]:
-        """uint8 batches on ``device``, one batch ahead."""
+        """``host_batches`` on ``device``, ``prefetch`` batches ahead."""
         cuda = self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.device) if cuda else None
-        q: "queue.Queue" = queue.Queue(maxsize=1)
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def put(item) -> bool:
@@ -159,7 +185,7 @@ class InputPipeline:
             except BaseException as e:  # surface worker failures to the consumer
                 put(e)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name="fnst-pipeline-producer", daemon=True)
         t.start()
         try:
             while True:

@@ -8,6 +8,9 @@ No ImageNet weights can be downloaded here, so they come from a file:
   ``vgg19().features.state_dict()`` (keys ``features.<i>.weight`` or
   ``<i>.weight``, OIHW), through ``TORCHVISION_CONV_INDEX``.
 
+``save_npz`` and ``to_torch_state_dict`` write those two layouts back, so a
+VGG converted once reads in both packages.
+
 ``resolve_params(None, seed)`` (and no ``FNST_VGG19_WEIGHTS``) warns and
 falls back to a deterministic random VGG drawn from an explicit
 ``torch.Generator``: N(0, 0.05^2) weights and zero biases, as the JAX
@@ -55,6 +58,31 @@ def load_npz(path: str) -> StateDict:
     with np.load(path) as z:
         for name in CONV_NAMES:
             sd.update(_from_hwio(name, z[f"{name}.w"], z[f"{name}.b"]))
+    return sd
+
+
+def save_npz(state_dict: Mapping[str, Any], path: str) -> None:
+    """This module's state_dict -> the JAX package's ``.npz`` (``<conv>.w``
+    HWIO, ``<conv>.b``)."""
+    flat = {}
+    for name in CONV_NAMES:
+        w = torch.as_tensor(state_dict[f"{name}.weight"]).detach().float().cpu().numpy()
+        flat[f"{name}.w"] = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+        flat[f"{name}.b"] = (torch.as_tensor(state_dict[f"{name}.bias"])
+                             .detach().float().cpu().numpy())
+    np.savez(path, **flat)
+
+
+def to_torch_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """This module's state_dict -> torchvision's ``features`` layout
+    (``features.<i>.weight`` OIHW, ``features.<i>.bias``) as numpy arrays,
+    the inverse of ``from_torchvision_state_dict``."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in CONV_NAMES:
+        idx = TORCHVISION_CONV_INDEX[name]
+        for kind in ("weight", "bias"):
+            sd[f"features.{idx}.{kind}"] = (torch.as_tensor(state_dict[f"{name}.{kind}"])
+                                            .detach().float().cpu().numpy().copy())
     return sd
 
 

@@ -45,7 +45,9 @@ import dataclasses
 import datetime
 import os
 import shutil
+import signal
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence
@@ -469,9 +471,12 @@ def launch(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
     are built here first); a rank that raises, or the deadline passing,
     terminates every rank and raises here. ``launch.kernel_counts`` then
     holds each rank's ``kernel_counts()`` as ``fn`` left them (each rank
-    starts at 0). Under ``torchrun`` the process group comes from its
-    environment and ``fn`` runs here, on this rank only: -> [its return
-    value]."""
+    starts at 0). A SIGTERM to this process while its ranks run (a
+    preemption; the handler is installed from the main thread only) is
+    passed on to every live rank, and the ranks are waited for: a trainer's
+    ranks checkpoint and return. Under ``torchrun`` the process group comes
+    from its environment and ``fn`` runs here, on this rank only: -> [its
+    return value]."""
     device = resolve_device(device).type
     spatial = nprocs if spatial is None else spatial
     if _under_torchrun():
@@ -497,6 +502,20 @@ def launch(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="fnst_ranks_")
     procs = []
+    terminated = threading.Event()
+
+    def _pass_on(signum, frame):
+        if not quiet:
+            print(f"launch: SIGTERM passed on to {nprocs} ranks", flush=True)
+        terminated.set()
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+
+    prev_handler = None
+    on_main = threading.current_thread() is threading.main_thread()
+    if on_main:
+        prev_handler = signal.signal(signal.SIGTERM, _pass_on)
     try:
         for rank in range(nprocs):
             p = ctx.Process(target=_rank_main, args=(rank, nprocs, spatial, fn, tuple(args),
@@ -504,6 +523,8 @@ def launch(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
                             daemon=True)
             p.start()
             procs.append(p)
+            if terminated.is_set():  # the signal came while the ranks started
+                p.terminate()
         end = time.monotonic() + deadline_s
         while any(p.is_alive() for p in procs):
             failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
@@ -538,6 +559,8 @@ def launch(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
         launch.kernel_counts = [s["kernel_counts"] for s in saved]
         return [s["result"] for s in saved]
     finally:
+        if on_main:
+            signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
         for p in procs:
             if p.is_alive():
                 p.kill()

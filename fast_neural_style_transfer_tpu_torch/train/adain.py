@@ -225,7 +225,8 @@ def train_adain(cfg: AdaINTrainConfig, plan=None) -> str:
     checkpoints. ``plan``: this rank's ``MeshPlan`` (a data axis only);
     None spawns a rank a card when ``cfg.device`` is None or "cuda" and
     there are several cards (``train/loop.py::num_ranks``), else trains in
-    this process. Rank 0 alone prints, logs and writes files."""
+    this process. Rank 0 alone prints, logs and writes files, the
+loss-curve PNGs last (``utils/visualization.py``)."""
     from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
     from fast_neural_style_transfer_tpu_torch.data import ImageFolderDataset, InputPipeline
     from fast_neural_style_transfer_tpu_torch.models.adain import make_decoder, save_decoder_npz
@@ -233,6 +234,7 @@ def train_adain(cfg: AdaINTrainConfig, plan=None) -> str:
     from fast_neural_style_transfer_tpu_torch.train.checkpoint import CheckpointManager
     from fast_neural_style_transfer_tpu_torch.train.loop import num_ranks
     from fast_neural_style_transfer_tpu_torch.utils.logging import MetricLogger
+    from fast_neural_style_transfer_tpu_torch.utils.visualization import plot_after_training
 
     if cfg.image_size[0] % 8 or cfg.image_size[1] % 8:
         raise ValueError(
@@ -351,4 +353,5 @@ def train_adain(cfg: AdaINTrainConfig, plan=None) -> str:
     if lead:
         save_decoder_npz(state.decoder.state_dict(), final)
         print(f"AdaIN decoder saved to {final}", flush=True)
+        plot_after_training(cfg.output_dir, ("loss", "content_loss", "style_loss"))
     return final

@@ -29,8 +29,9 @@ loop; the batch must divide the data degree; rank 0 alone prints, logs,
 samples and writes checkpoints and the final params, and every rank stops
 at the same step. It keeps the JAX package's refusals with ``spatial``: a
 height that is not a multiple of 8 * spatial, one-pass statistics,
-several styles and ``pad_batch``. Loss-curve PNGs wait for row 16.
-``profile_start`` / ``profile_stop`` trace those steps with
+several styles and ``pad_batch``. At the end rank 0 plots the loss
+curves (``utils/visualization.py``; a plotting failure never fails the
+run). ``profile_start`` / ``profile_stop`` trace those steps with
 ``torch.profiler`` into ``<output_dir>/profile``.
 """
 
@@ -72,6 +73,7 @@ from fast_neural_style_transfer_tpu_torch.train.step import (
 )
 from fast_neural_style_transfer_tpu_torch.utils.image_io import load_image, save_image
 from fast_neural_style_transfer_tpu_torch.utils.logging import MetricLogger
+from fast_neural_style_transfer_tpu_torch.utils.visualization import plot_after_training
 
 
 @dataclasses.dataclass
@@ -373,6 +375,7 @@ def train_style_transfer(cfg: TrainConfig, plan=None) -> str:
     if lead:
         save_params_npz(state.net.state_dict(), final_path)
         print(f"final params saved to {final_path}", flush=True)
+        plot_after_training(cfg.output_dir)
     return final_path
 
 

@@ -11,7 +11,7 @@ from fast_neural_style_transfer_tpu_torch.utils.image_io import (
     save_image,
     u8_to_network,
 )
-from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
+from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim, ssim_files
 
 __all__ = [
     "IMAGENET_MEAN",
@@ -26,5 +26,6 @@ __all__ = [
     "resize_image",
     "save_image",
     "ssim",
+    "ssim_files",
     "u8_to_network",
 ]

@@ -51,3 +51,15 @@ def ssim(a: np.ndarray, b: np.ndarray, *, data_range: float = 1.0) -> float:
     num = (2 * mu_ab + c1) * (2 * sigma_ab + c2)
     den = (mu_aa + mu_bb + c1) * (sigma_aa + sigma_bb + c2)
     return float(np.mean(num / den))
+
+
+def ssim_files(path_a: str, path_b: str) -> float:
+    """SSIM between two image files, the second resized (PIL bilinear) to
+    the first's size if they differ."""
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import decode_image, resize_image
+
+    a = decode_image(path_a)
+    b = decode_image(path_b)
+    if a.shape != b.shape:
+        b = resize_image(b, a.shape[:2])
+    return ssim(a / 255.0, b / 255.0)

@@ -1,10 +1,15 @@
 """The port's data pipeline, checkpoints and metric logger on the CPU, with
 the pipeline held against the JAX package's: the same directory and seed
-give the same uint8 batches, bit for bit.
+give the same uint8 batches, bit for bit, and with ``transport="f32"`` the
+same float32 batches, bit for bit (both normalize through the same host
+library). One f32 step on the f32-transport batch matches the step on the
+uint8 batch within 1e-6 relative loss (the two normalize by ``* (1/255)``
+and ``/ 255``, one ulp apart for some values).
 """
 
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -16,6 +21,11 @@ from fast_neural_style_transfer_tpu.data import (
     InputPipeline as JaxPipeline,
 )
 from fast_neural_style_transfer_tpu_torch.data import ImageFolderDataset, InputPipeline
+from fast_neural_style_transfer_tpu_torch.losses import LossTaps, style_targets_from_features
+from fast_neural_style_transfer_tpu_torch.models import TransformerNet
+from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
+from fast_neural_style_transfer_tpu_torch.train.step import make_train_step
 from fast_neural_style_transfer_tpu_torch.train.checkpoint import CheckpointManager
 from fast_neural_style_transfer_tpu_torch.utils.logging import MetricLogger
 
@@ -68,6 +78,75 @@ def test_device_batches_and_padding(image_dir):
     it.close()
     with pytest.raises(ValueError, match="every epoch would be empty"):
         InputPipeline(tds, 50, device="cpu")
+
+
+def test_f32_transport_matches_jax(image_dir):
+    jds = JaxDataset(image_dir, (24, 32), seed=3)
+    tds = ImageFolderDataset(image_dir, (24, 32), seed=3)
+    want = list(JaxPipeline(jds, 4, seed=3, num_workers=2,
+                            transport="f32").host_batches(num_epochs=2))
+    pipe = InputPipeline(tds, 4, seed=3, num_workers=2, transport="f32", device="cpu")
+    got = list(pipe.host_batches(num_epochs=2))
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32 and g.shape == (4, 24, 32, 3)
+        np.testing.assert_array_equal(g, np.asarray(w))
+    for d, g in zip(pipe.device_batches(num_epochs=2), got):
+        assert d.dtype == torch.float32
+        np.testing.assert_array_equal(d.numpy(), g)
+
+
+def test_f32_transport_step_matches_u8_step(image_dir):
+    tds = ImageFolderDataset(image_dir, (32, 32), seed=0)
+    u8 = next(InputPipeline(tds, 2, num_workers=2, device="cpu").device_batches(1))
+    f32 = next(InputPipeline(tds, 2, num_workers=2, transport="f32",
+                             device="cpu").device_batches(1))
+    vgg = make_vgg(random_params(0), "cpu")
+    style = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 32, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        grams = style_targets_from_features(vgg(style, LossTaps().style_taps))
+    losses = []
+    for batch in (u8, f32):
+        torch.manual_seed(0)
+        state = create_train_state(TransformerNet().to(memory_format=torch.channels_last))
+        metrics = make_train_step(dropout=False)(state, vgg, batch, grams)
+        losses.append(float(metrics["loss"]))
+        assert state.step == 1
+    assert abs(losses[1] - losses[0]) <= 1e-6 * abs(losses[0])
+
+
+def test_pipeline_options_refused(image_dir):
+    tds = ImageFolderDataset(image_dir, (16, 16), seed=1)
+    with pytest.raises(ValueError, match="prefetch must be >= 1"):
+        InputPipeline(tds, 2, prefetch=0, device="cpu")
+    with pytest.raises(ValueError, match="transport must be"):
+        InputPipeline(tds, 2, transport="f16", device="cpu")
+    assert InputPipeline(tds, 2, device="cpu").prefetch == 2  # JAX's default
+
+
+def _pipeline_threads():
+    return [t for t in threading.enumerate() if t.name.startswith("fnst-pipeline")]
+
+
+@pytest.mark.parametrize("prefetch", [1, 2, 3])
+def test_prefetch_keeps_every_batch_in_order(image_dir, prefetch):
+    """Two finite epochs come through whole and in order, however deep the
+    queue; stopping early leaves no producer or decode thread behind."""
+    tds = ImageFolderDataset(image_dir, (16, 16), seed=2)
+    pipe = InputPipeline(tds, 3, seed=2, num_workers=2, prefetch=prefetch, device="cpu")
+    want = list(pipe.host_batches(num_epochs=2))
+    got = list(pipe.device_batches(num_epochs=2))
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    it = pipe.device_batches()  # unbounded
+    next(it)
+    assert _pipeline_threads()
+    it.close()
+    for t in _pipeline_threads():
+        t.join(timeout=30)
+    assert not _pipeline_threads()
 
 
 def test_checkpoint_manager(tmp_path):

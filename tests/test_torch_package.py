@@ -86,9 +86,30 @@ def test_wrapper_refuses_other_devices():
 def test_package_data_ships_kernel_sources():
     text = (ROOT / "pyproject.toml").read_text()
     assert "fast_neural_style_transfer_tpu_torch*" in text
-    assert "csrc/*.cu" in text
-    for src in ("instance_norm.cu", "conv_same_bwd.cu"):
-        assert (PORT_DIR / "csrc" / src).is_file()
+    assert 'fast_neural_style_transfer_tpu_torch = ["csrc/*.cu", "native/*.cpp"]' in text
+    for src in ("csrc/instance_norm.cu", "csrc/conv_same_bwd.cu", "native/fnst_host.cpp"):
+        assert (PORT_DIR / src).is_file()
+
+
+# the port's counterparts of the JAX package's last modules and of the
+# repo's tools and examples that run it
+_TOOLING = ["utils/visualization.py", "native/__init__.py", "cli/parity.py",
+            "tools/soak.py", "tools/adain_soak.py", "examples/quickstart.py",
+            "examples/multistyle.py", "examples/serving.py", "examples/adain.py"]
+
+
+@pytest.mark.parametrize("rel", _TOOLING)
+def test_tooling_modules_are_scanned(rel):
+    path = PORT_DIR / rel
+    assert path in _port_files()
+    assert not set(_imported_top_names(path)) & FORBIDDEN
+    tree = ast.parse(path.read_text())
+    # nothing reaches outside its checkout through a fixed absolute path
+    # (the kernel's /proc interface aside)
+    consts = [n.value for n in ast.walk(tree)
+              if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    assert not [c for c in consts if c.startswith("/") and "/" in c[1:]
+                and not c.startswith("/proc/")], rel
 
 
 # (N, H, W, C, relu): the IN sites of a 256^2 forward at B=1, two of them
@@ -765,3 +786,32 @@ def test_wrappers_launch_on_the_tensors_card(dtype):
                                    atol=1e-3 * dxc_r.abs().max().item())
     assert torch.cuda.current_device() == 0
     assert y.device == dx.device == dxc.device == dev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transport", ["u8", "f32"])
+def test_prefetched_batches_keep_their_buffers_on_card(tmp_path, transport):
+    """Two batches in flight each keep their pinned buffer, device tensor
+    and event: every batch of two epochs, all held at once and read after
+    work queued on the consumer's stream, equals its host batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from PIL import Image
+
+    from fast_neural_style_transfer_tpu_torch.data import ImageFolderDataset, InputPipeline
+
+    rng = np.random.default_rng(0)
+    for i in range(10):
+        Image.fromarray(rng.integers(0, 256, (70, 90, 3), dtype=np.uint8)).save(
+            tmp_path / f"{i}.jpg")
+    ds = ImageFolderDataset(str(tmp_path), (64, 64), seed=0)
+    pipe = InputPipeline(ds, 4, num_workers=2, prefetch=2, transport=transport,
+                         device="cuda")
+    want = list(pipe.host_batches(num_epochs=2))
+    held = []
+    for b in pipe.device_batches(num_epochs=2):
+        held.append(b)
+        torch.cuda._sleep(1_000_000)  # the consumer's stream lags the copies
+    assert len(held) == len(want) == 4
+    for b, w in zip(held, want):
+        np.testing.assert_array_equal(b.cpu().numpy(), w)
