@@ -94,7 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Use the reference's actual content tap relu4_3")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile_start", type=int, default=0,
-                   help="Start a torch.profiler trace at this step")
+                   help="Start a torch.profiler trace at this step; besides the "
+                        "operators and kernels it carries the step's spans "
+                        "train.loss, train.grad, train.sync, train.update and "
+                        "the input wait pipeline.wait")
     p.add_argument("--profile_stop", type=int, default=0,
                    help="Stop the trace at this step (writes <output_dir>/profile)")
     p.add_argument("--device", type=str, default="cuda",

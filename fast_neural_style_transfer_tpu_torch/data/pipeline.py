@@ -48,6 +48,7 @@ import torch
 
 from fast_neural_style_transfer_tpu_torch import native
 from fast_neural_style_transfer_tpu_torch.data.dataset import ImageFolderDataset
+from fast_neural_style_transfer_tpu_torch.utils import tracing
 
 _SENTINEL = object()
 
@@ -151,7 +152,9 @@ class InputPipeline:
     # -- device prefetch ----------------------------------------------------
 
     def device_batches(self, num_epochs: Optional[int] = None) -> Iterator[torch.Tensor]:
-        """``host_batches`` on ``device``, ``prefetch`` batches ahead."""
+        """``host_batches`` on ``device``, ``prefetch`` batches ahead. The
+        consumer's wait for the next batch is the ``pipeline.wait`` span
+        (``utils.tracing``)."""
         cuda = self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.device) if cuda else None
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -189,7 +192,8 @@ class InputPipeline:
         t.start()
         try:
             while True:
-                item = q.get()
+                with tracing.span("pipeline.wait"):
+                    item = q.get()
                 if item is _SENTINEL:
                     return
                 if isinstance(item, BaseException):

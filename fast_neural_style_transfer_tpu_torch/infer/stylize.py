@@ -42,6 +42,7 @@ from fast_neural_style_transfer_tpu_torch.models.transformer import (
 )
 from fast_neural_style_transfer_tpu_torch.models.weights import load_checkpoint
 from fast_neural_style_transfer_tpu_torch.parallel.mesh import make_mesh_plan, place_on_data_axis
+from fast_neural_style_transfer_tpu_torch.utils import tracing
 from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
 from fast_neural_style_transfer_tpu_torch.utils.image_io import (
     IMAGENET_MEAN,
@@ -199,16 +200,23 @@ class Stylizer:
 
     @torch.inference_mode()
     def stylize_u8(self, image_u8: np.ndarray) -> np.ndarray:
-        """Raw uint8 (H,W,3)/(N,H,W,3) in -> stylized uint8 out."""
+        """Raw uint8 (H,W,3)/(N,H,W,3) in -> stylized uint8 out. Spans
+        (``utils.tracing``): ``stylize.copy_in``, ``stylize.launch`` (pad,
+        network, u8 out enqueued) and ``stylize.copy_out`` (waits for the
+        device)."""
         image_u8 = np.asarray(image_u8)
         if image_u8.dtype != np.uint8:
             raise TypeError(f"stylize_u8 wants uint8, got {image_u8.dtype}")
         squeeze = image_u8.ndim == 3
-        x = torch.from_numpy(np.array(
-            image_u8[None] if squeeze else image_u8)).to(self.device)
-        padded, (h, w) = pad_to_multiple_reflect(x, self.bucket_multiple)
-        outs = self._u8_roundtrip(self._chunks(padded))
-        out = torch.cat([o[:, :h, :w, :].cpu() for o in outs]).numpy()
+        batch = image_u8[None] if squeeze else image_u8
+        n, hh, ww = batch.shape[:3]
+        with tracing.span("stylize.copy_in", n=n, h=hh, w=ww):
+            x = torch.from_numpy(np.array(batch)).to(self.device)
+        with tracing.span("stylize.launch", n=n, h=hh, w=ww):
+            padded, (h, w) = pad_to_multiple_reflect(x, self.bucket_multiple)
+            outs = self._u8_roundtrip(self._chunks(padded))
+        with tracing.span("stylize.copy_out", n=n, h=hh, w=ww):
+            out = torch.cat([o[:, :h, :w, :].cpu() for o in outs]).numpy()
         return out[0] if squeeze else out
 
     @torch.inference_mode()

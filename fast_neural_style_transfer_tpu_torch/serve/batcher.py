@@ -12,6 +12,7 @@ gracefully to smaller batches.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
@@ -21,6 +22,7 @@ from typing import Callable, Deque, List, Optional, Tuple
 import numpy as np
 
 from fast_neural_style_transfer_tpu_torch.core.shapes import bucket_hw
+from fast_neural_style_transfer_tpu_torch.utils import tracing
 
 __all__ = ["MicroBatcher", "QueueFull", "ServingStats"]
 
@@ -44,8 +46,11 @@ class ServingStats:
     """Lock-protected serving counters + a latency reservoir.
 
     ``snapshot()`` is what ``GET /stats`` returns: request/batch counts,
-    mean batch occupancy (the batching win), and e2e latency quantiles over
-    the last ``window`` requests.
+    mean batch occupancy (the batching win), e2e latency quantiles over
+    the last ``window`` requests, and where the dispatcher's time went:
+    the mean linger, pad/stack, forward and deliver per batch, and the mean
+    wait of a request from submit to being taken into a batch. A batch's
+    deliver time is added once its answers are out, after its count.
     """
 
     def __init__(self, window: int = 1024):
@@ -56,11 +61,26 @@ class ServingStats:
         self.batched_images = 0
         self.errors = 0
         self.rejected = 0
+        # summed seconds
+        self.linger_s = 0.0
+        self.pad_stack_s = 0.0
+        self.forward_s = 0.0
+        self.deliver_s = 0.0
+        self.queue_wait_s = 0.0  # over requests, submit to take
 
-    def record_batch(self, n: int) -> None:
+    def record_batch(self, n: int, *, linger_s: float = 0.0, pad_stack_s: float = 0.0,
+                     forward_s: float = 0.0, queue_wait_s: float = 0.0) -> None:
         with self._lock:
             self.batches += 1
             self.batched_images += n
+            self.linger_s += linger_s
+            self.pad_stack_s += pad_stack_s
+            self.forward_s += forward_s
+            self.queue_wait_s += queue_wait_s
+
+    def record_deliver(self, seconds: float) -> None:
+        with self._lock:
+            self.deliver_s += seconds
 
     def record_request(self, latency_s: float, ok: bool) -> None:
         with self._lock:
@@ -79,6 +99,7 @@ class ServingStats:
             lat = sorted(self._lat)
             q = (lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
                  if lat else None)
+            per_batch = (lambda s: s * 1e3 / self.batches if self.batches else None)
             return {
                 "requests": self.requests,
                 "errors": self.errors,
@@ -89,6 +110,12 @@ class ServingStats:
                     self.batched_images / self.batches if self.batches else None),
                 "latency_p50_ms": None if q(0.5) is None else q(0.5) * 1e3,
                 "latency_p95_ms": None if q(0.95) is None else q(0.95) * 1e3,
+                "mean_linger_ms": per_batch(self.linger_s),
+                "mean_pad_stack_ms": per_batch(self.pad_stack_s),
+                "mean_forward_ms": per_batch(self.forward_s),
+                "mean_deliver_ms": per_batch(self.deliver_s),
+                "mean_queue_wait_ms": (self.queue_wait_s * 1e3 / self.batched_images
+                                       if self.batched_images else None),
             }
 
 
@@ -102,6 +129,13 @@ class MicroBatcher:
     ``max_wait_ms`` for more requests of the same shape bucket (returning
     early the moment ``max_batch`` are on hand). FIFO on the head request,
     so mixed-size traffic cannot starve a bucket.
+
+    Under a ``torch.profiler`` session (``utils.tracing``) each request
+    leaves a ``batcher.queued`` span (submit to take), and each batch a
+    ``batcher.linger`` (head picked to group taken), ``batcher.pad_stack``,
+    ``batcher.forward`` and ``batcher.deliver`` span, with the batch's id;
+    all but ``batcher.forward`` (the stylizer's spans' parent) are recorded
+    from the stamps ``ServingStats``' timing counters read.
     """
 
     def __init__(
@@ -129,8 +163,10 @@ class MicroBatcher:
         self.stats = ServingStats()
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
-        # entries: (bucket_key, img_u8, future)
-        self._queue: Deque[Tuple[Tuple[int, int], np.ndarray, Future]] = deque()
+        # entries: (bucket_key, img_u8, future, submit perf_counter_ns, request id)
+        self._queue: Deque[Tuple[Tuple[int, int], np.ndarray, Future, int, int]] = deque()
+        self._requests = itertools.count()
+        self._batches = itertools.count()
         self._closed = False
         self._warm_size = warm_size
         self.warm_error: Optional[BaseException] = None
@@ -157,7 +193,7 @@ class MicroBatcher:
                 raise QueueFull(
                     f"{len(self._queue)} requests pending (max_pending="
                     f"{self.max_pending})")
-            self._queue.append((key, img_u8, fut))
+            self._queue.append((key, img_u8, fut, time.perf_counter_ns(), next(self._requests)))
             self._cond.notify()
         return fut
 
@@ -170,7 +206,7 @@ class MicroBatcher:
         with self._cond:
             leftovers = list(self._queue)
             self._queue.clear()
-        for _, _, fut in leftovers:
+        for _, _, fut, _, _ in leftovers:
             fut.set_exception(RuntimeError("batcher closed"))
 
     # -- dispatcher side ----------------------------------------------------
@@ -210,6 +246,7 @@ class MicroBatcher:
                     self._cond.wait()
                 if self._closed:
                     return
+                head_ns = time.perf_counter_ns()
                 key = self._queue[0][0]
                 # Linger for co-batchable requests only when under-full and
                 # the window is positive; the head request's clock started
@@ -226,18 +263,38 @@ class MicroBatcher:
                 if self._closed:
                     return
                 group = self._take_matching(key, self.max_batch)
-            self._run_batch(key, group)
+                taken_ns = time.perf_counter_ns()
+            self._run_batch(key, group, head_ns, taken_ns)
 
-    def _run_batch(self, key: Tuple[int, int], group: List) -> None:
+    def _run_batch(self, key: Tuple[int, int], group: List, head_ns: int,
+                   taken_ns: int) -> None:
         ph, pw = key
+        b, n = next(self._batches), len(group)
         try:
-            batch = np.stack([_pad_to(img, ph, pw) for _, img, _ in group])
-            out = np.asarray(self._forward(batch))
-            self.stats.record_batch(len(group))
-            for i, (_, img, fut) in enumerate(group):
+            batch = np.stack([_pad_to(img, ph, pw) for _, img, _, _, _ in group])
+            stacked_ns = time.perf_counter_ns()
+            with tracing.span("batcher.forward", batch=b, n=n):  # the stylizer's spans' parent
+                out = np.asarray(self._forward(batch))
+            done_ns = time.perf_counter_ns()
+            # counted before the answers go out, so a caller that reads the
+            # stats after its answer finds its batch there
+            self.stats.record_batch(
+                n, linger_s=(taken_ns - head_ns) / 1e9, pad_stack_s=(stacked_ns - taken_ns) / 1e9,
+                forward_s=(done_ns - stacked_ns) / 1e9,
+                queue_wait_s=sum(taken_ns - e[3] for e in group) / 1e9)
+            for i, (_, img, fut, _, _) in enumerate(group):
                 h, w, _ = img.shape
                 fut.set_result(out[i, :h, :w, :])
+            delivered_ns = time.perf_counter_ns()
+            self.stats.record_deliver((delivered_ns - done_ns) / 1e9)
+            if tracing.enabled():  # the spans, from the counters' own stamps
+                for name, a, z in (("batcher.linger", head_ns, taken_ns),
+                                   ("batcher.pad_stack", taken_ns, stacked_ns),
+                                   ("batcher.deliver", done_ns, delivered_ns)):
+                    tracing.record(name, a, z, batch=b, n=n)
+                for _, _, _, submit_ns, req in group:
+                    tracing.record("batcher.queued", submit_ns, taken_ns, batch=b, req=req)
         except Exception as e:  # noqa: BLE001 — delivered to each caller
-            for _, _, fut in group:
+            for _, _, fut, _, _ in group:
                 if not fut.done():
                     fut.set_exception(e)

@@ -7,7 +7,12 @@ forwards behind each other.
 Endpoints:
   POST /stylize[?format=jpeg|png]  image bytes in -> stylized image out
   GET  /healthz                    liveness + device + model family
-  GET  /stats                      batching occupancy + latency quantiles
+  GET  /stats                      batching occupancy + latency quantiles, and
+                                   where the batcher's time goes:
+                                   mean_linger_ms, mean_pad_stack_ms,
+                                   mean_forward_ms, mean_deliver_ms (per
+                                   batch), mean_queue_wait_ms (per request,
+                                   submit to being taken into a batch)
 
 Run:  python -m fast_neural_style_transfer_tpu_torch.serve \\
           --model evidence/soak40k_r5/style_transfer_final.pth --port 8765

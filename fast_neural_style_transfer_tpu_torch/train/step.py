@@ -20,6 +20,12 @@ Semantics kept from the JAX step:
 - ``norm_method="onepass"``: one-pass IN statistics in the stylizer (JAX
   ``norm_method="onepass"``).
 
+Under a ``torch.profiler`` session the step records the spans
+``train.loss`` (forward and losses enqueued), ``train.grad`` (the backward,
+and the ranks' all_reduce), ``train.sync`` (the host's read of the loss)
+and ``train.update`` (the optimizer and the logged metrics); see
+``utils.tracing``.
+
 Data parallelism (``data``, the plan's ``DataAxis``): each rank runs the
 step on its slice of the global batch (its rows of ``style_select`` and
 ``batch_mask`` too). The JAX loss is not one mean: style and content are
@@ -60,6 +66,7 @@ from fast_neural_style_transfer_tpu_torch.train.schedule import (
     cosine_lr_schedule,
 )
 from fast_neural_style_transfer_tpu_torch.train.state import TrainState, global_norm
+from fast_neural_style_transfer_tpu_torch.utils import tracing
 from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
 
 ACTIVATION_CLAMP = 3.0
@@ -223,23 +230,28 @@ def make_train_step(
             style_select = torch.nn.functional.one_hot(idx, num_styles).float()
         state.net.train()
         params = list(state.net.parameters())
-        total, metrics = loss_fn(
-            state.net, vgg, batch, style_grams, weight_schedule(applied_step),
-            taps=taps, precision=precision, generator=generator,
-            dropout=dropout, remat=remat, batch_mask=batch_mask,
-            style_select=style_select, norm_method=norm_method, data=data)
-        grads = torch.autograd.grad(total, params)
-        if dp:
-            grads = all_reduce_grads(grads, data)
-            metrics = all_reduce_metrics(metrics, data)
-        finite = bool(torch.isfinite(metrics["loss"]))  # global: alike on every rank
-        if finite:
-            state.optimizer.update(grads)
-            state.step += 1
-        dev = total.device
-        metrics["grad_norm"] = global_norm(grads)
-        metrics["lr"] = torch.tensor(lr_schedule(applied_step), device=dev)
-        metrics["skipped_nonfinite"] = torch.tensor(0.0 if finite else 1.0, device=dev)
+        n = batch.shape[0]
+        with tracing.span("train.loss", n=n):
+            total, metrics = loss_fn(
+                state.net, vgg, batch, style_grams, weight_schedule(applied_step),
+                taps=taps, precision=precision, generator=generator,
+                dropout=dropout, remat=remat, batch_mask=batch_mask,
+                style_select=style_select, norm_method=norm_method, data=data)
+        with tracing.span("train.grad", n=n):
+            grads = torch.autograd.grad(total, params)
+            if dp:
+                grads = all_reduce_grads(grads, data)
+                metrics = all_reduce_metrics(metrics, data)
+        with tracing.span("train.sync", n=n):  # waits for the device
+            finite = bool(torch.isfinite(metrics["loss"]))  # global: alike on every rank
+        with tracing.span("train.update", n=n):
+            if finite:
+                state.optimizer.update(grads)
+                state.step += 1
+            dev = total.device
+            metrics["grad_norm"] = global_norm(grads)
+            metrics["lr"] = torch.tensor(lr_schedule(applied_step), device=dev)
+            metrics["skipped_nonfinite"] = torch.tensor(0.0 if finite else 1.0, device=dev)
         return metrics
 
     return step_fn
