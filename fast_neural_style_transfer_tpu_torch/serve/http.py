@@ -12,7 +12,11 @@ Endpoints:
                                    mean_linger_ms, mean_pad_stack_ms,
                                    mean_forward_ms, mean_deliver_ms (per
                                    batch), mean_queue_wait_ms (per request,
-                                   submit to being taken into a batch)
+                                   submit to being taken into a batch),
+                                   mean_slot_ms (per batch, stacked to its
+                                   forward's start), prepared_ahead_share
+                                   (batches padded and stacked while the
+                                   forward before them ran)
 
 Run:  python -m fast_neural_style_transfer_tpu_torch.serve \\
           --model evidence/soak40k_r5/style_transfer_final.pth --port 8765

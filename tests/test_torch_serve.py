@@ -3,7 +3,9 @@ forward, and one HTTP round trip through a real CPU Stylizer on port 0."""
 
 import io
 import json
+import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -19,6 +21,7 @@ from fast_neural_style_transfer_tpu_torch.serve import (
     QueueFull,
     make_server,
 )
+from fast_neural_style_transfer_tpu_torch.serve import batcher as serve_batcher
 from fast_neural_style_transfer_tpu_torch.serve import http as serve_http
 
 
@@ -107,6 +110,208 @@ def test_forward_error_reaches_every_caller():
                 f.result(timeout=60)
     finally:
         b.close()
+
+
+def _np_pad(img, ph, pw):
+    """The batcher's pad as the single-thread batcher did it: ``np.pad``."""
+    h, w, _ = img.shape
+    mode = "reflect" if (ph - h < h and pw - w < w) else "edge"
+    return np.pad(img, ((0, ph - h), (0, pw - w), (0, 0)), mode=mode)
+
+
+def test_stacked_batch_is_each_request_padded_in_fifo_order():
+    """Reflect-padded where the pad is shorter than the side, edge-padded
+    where it is not; stacked in submit order."""
+    seen = []
+
+    def forward(batch):
+        seen.append(batch.copy())
+        return batch
+
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in ((40, 50), (64, 64), (20, 33), (63, 1))]
+    b = MicroBatcher(forward, max_batch=4, max_wait_ms=2000.0, bucket_multiple=64)
+    try:
+        futs = [b.submit(im) for im in imgs]
+        for im, f in zip(imgs, futs):
+            np.testing.assert_array_equal(f.result(timeout=60), im)
+    finally:
+        b.close()
+    want = np.stack([_np_pad(im, 64, 64) for im in imgs])
+    assert len(seen) == 1
+    np.testing.assert_array_equal(seen[0], want)
+
+
+@pytest.mark.parametrize("bucket", [(64, 64), (512, 512), (64, 128)])
+def test_pad_into_writes_the_bytes_of_np_pad(bucket):
+    """Reflect where both pads are shorter than their sides, else edge,
+    for sides from 1 to the bucket's, corners included."""
+    ph, pw = bucket
+    rng = np.random.default_rng(ph * pw)
+    sides = [(h, w) for h in (1, 2, 3, ph // 2, ph // 2 + 1, ph - 1, ph)
+             for w in (1, 2, pw // 2, pw // 2 + 1, pw - 1, pw)]
+    sides += [(int(rng.integers(1, ph + 1)), int(rng.integers(1, pw + 1))) for _ in range(40)]
+    for h, w in sides:
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)[:, ::-1]  # a strided view
+        out = np.full((ph, pw, 3), 7, np.uint8)
+        serve_batcher._pad_into(out, img)
+        np.testing.assert_array_equal(out, _np_pad(img, ph, pw), err_msg=f"{h}x{w}")
+
+
+def test_pad_runs_on_the_prepare_thread_and_forward_on_the_dispatcher(monkeypatch):
+    pads, forwards = [], []
+    real_pad = serve_batcher._pad_into
+
+    def pad_into(out, img):
+        pads.append(threading.current_thread().name)
+        real_pad(out, img)
+
+    def forward(batch):
+        forwards.append(threading.current_thread().name)
+        return batch
+
+    monkeypatch.setattr(serve_batcher, "_pad_into", pad_into)
+    b = MicroBatcher(forward, max_batch=2, max_wait_ms=0.0, warm_size=8)
+    try:
+        for f in [b.submit(np.zeros((8, 8, 3), np.uint8)) for _ in range(3)]:
+            f.result(timeout=60)
+    finally:
+        b.close()
+    assert pads and set(pads) == {"fnst-microbatcher-prep"}
+    assert len(forwards) >= 3 and set(forwards) == {"fnst-microbatcher"}  # warm-up too
+
+
+def test_requests_spaced_wider_than_the_forward_are_not_prepared_ahead():
+    b = MicroBatcher(lambda x: x, max_batch=4, max_wait_ms=0.0)
+    try:
+        for _ in range(4):
+            delivered = b.stats.deliver_s
+            b.submit(np.zeros((8, 8, 3), np.uint8)).result(timeout=60)
+            deadline = time.monotonic() + 30  # the batch ends after its answers
+            while b.stats.deliver_s == delivered and time.monotonic() < deadline:
+                time.sleep(0.005)
+            time.sleep(0.05)
+        stats = b.stats.snapshot()
+    finally:
+        b.close()
+    assert stats["batches"] == 4 and stats["prepared_ahead_share"] == 0.0
+
+
+def test_requests_that_come_while_the_batch_waits_in_the_slot_join_it():
+    """The batch in the slot stays open: same-bucket requests that come
+    while the forward before it runs are padded into it, in submit order;
+    another bucket's request waits for the next batch."""
+    entered, release = threading.Event(), threading.Event()
+    seen = []
+
+    def forward(batch):
+        seen.append(batch.copy())
+        entered.set()
+        release.wait(timeout=60)
+        return batch
+
+    rng = np.random.default_rng(1)
+    img = lambda h, w: rng.integers(0, 256, (h, w, 3), dtype=np.uint8)  # noqa: E731
+    running, first, late, other = img(16, 16), img(20, 30), [img(40, 50), img(63, 1)], img(70, 70)
+    b = MicroBatcher(forward, max_batch=4, max_wait_ms=0.0, bucket_multiple=64)
+    try:
+        futs = [b.submit(running)]
+        assert entered.wait(timeout=30)
+        futs.append(b.submit(first))
+        deadline = time.monotonic() + 30
+        while b._slot is None and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert b._slot is not None and len(b._slot.group) == 1
+        futs += [b.submit(other)] + [b.submit(im) for im in late]
+        while len(b._slot.group) < 3 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert len(b._slot.group) == 3 and len(b._queue) == 1
+        release.set()
+        for im, f in zip([running, first, other] + late, futs):
+            np.testing.assert_array_equal(f.result(timeout=60), im)
+        while b.stats.snapshot()["batches"] < 3 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        stats = b.stats.snapshot()
+    finally:
+        release.set()
+        b.close()
+    assert [s.shape for s in seen] == [(1, 64, 64, 3), (3, 64, 64, 3), (1, 128, 128, 3)]
+    np.testing.assert_array_equal(seen[1], np.stack([_np_pad(im, 64, 64) for im in [first] + late]))
+    np.testing.assert_array_equal(seen[2][0], _np_pad(other, 128, 128))
+    assert stats["batches"] == 3 and stats["batched_images"] == 5
+    assert stats["prepared_ahead_share"] >= 1 / 3  # the second, at least
+
+
+def test_close_fails_the_prepared_and_the_queued_requests_and_ends_both_threads():
+    entered, release = threading.Event(), threading.Event()
+
+    def forward(batch):
+        entered.set()
+        release.wait(timeout=60)
+        return batch
+
+    b = MicroBatcher(forward, max_batch=1, max_wait_ms=0.0)
+    closer = None
+    try:
+        running = b.submit(np.full((8, 8, 3), 1, np.uint8))
+        assert entered.wait(timeout=30)
+        prepared = b.submit(np.full((8, 8, 3), 2, np.uint8))
+        queued = b.submit(np.full((8, 8, 3), 3, np.uint8))
+        deadline = time.monotonic() + 30  # one batch prepared, one request left queued
+        while b._slot is None and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert b._slot is not None and len(b._queue) == 1
+        closer = threading.Thread(target=b.close)
+        closer.start()
+        for f in (prepared, queued):
+            with pytest.raises(RuntimeError, match="batcher closed"):
+                f.result(timeout=30)
+        assert not running.done()
+        release.set()
+        np.testing.assert_array_equal(running.result(timeout=30), 1)
+        closer.join(timeout=30)
+        assert not closer.is_alive()
+        assert not b._thread.is_alive() and not b._prep_thread.is_alive()
+    finally:
+        release.set()
+        if closer is None:
+            b.close()
+
+
+def test_many_clients_each_get_their_own_answer_under_fast_thread_switches():
+    """More submitting threads than cores, the interpreter switching
+    threads every 10 µs: every request answered once, with its own image,
+    and the counters add up."""
+    def forward(batch):
+        time.sleep(0.001)
+        return batch
+
+    clients, each = 16, 12
+    before = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    b = MicroBatcher(forward, max_batch=4, max_wait_ms=1.0, bucket_multiple=16)
+    try:
+        def client(c):
+            for k in range(each):
+                side = 8 + (c + k) % 24  # two buckets
+                img = np.full((side, side, 3), (c * each + k) % 256, np.uint8)
+                np.testing.assert_array_equal(b.submit(img).result(timeout=60), img)
+            return c
+
+        with ThreadPoolExecutor(clients) as pool:
+            assert sorted(pool.map(client, range(clients))) == list(range(clients))
+        deadline = time.monotonic() + 30
+        while (b.stats.snapshot()["batched_images"] < clients * each
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        stats = b.stats.snapshot()
+    finally:
+        sys.setswitchinterval(before)
+        b.close()
+    assert stats["batched_images"] == clients * each
+    assert stats["errors"] == 0 and stats["batches"] >= clients * each / 4
+    assert 0.0 <= stats["prepared_ahead_share"] <= 1.0
 
 
 def _png_bytes(arr):

@@ -194,16 +194,103 @@ def test_batcher_spans_and_counters():
     assert wait_ms <= stats["mean_queue_wait_ms"] < wait_ms + slack_s * 1e3
     assert stats["mean_queue_wait_ms"] == pytest.approx(
         np.mean([ms(s) for s in queued]), abs=1e-3)
-    # spans and counters read the same stamps: take, stack, forward's end
-    (linger,), (pad,), (deliver,) = (by[n] for n in ("batcher.linger", "batcher.pad_stack",
-                                                     "batcher.deliver"))
+    # spans and counters read the same stamps: take, stack, the forward's
+    # start (the slot's end: the forward starts on the dispatcher, after
+    # the stack) and end (the deliver's start)
+    (linger,), (pad,), (slot,), (deliver,) = (
+        by[n] for n in ("batcher.linger", "batcher.pad_stack", "batcher.slot", "batcher.deliver"))
     assert {s.end_ns for s in queued} == {linger.end_ns} == {pad.start_ns}
-    assert pad.end_ns <= fwd.start_ns and fwd.end_ns <= deliver.start_ns
+    assert slot.attrs == {"batch": 0, "n": 2} and slot.start_ns == pad.end_ns
+    assert pad.end_ns <= slot.end_ns <= fwd.start_ns and fwd.end_ns <= deliver.start_ns
     assert stats["mean_linger_ms"] == pytest.approx(ms(linger), abs=1e-6)
     assert stats["mean_pad_stack_ms"] == pytest.approx(ms(pad), abs=1e-6)
+    assert stats["mean_slot_ms"] == pytest.approx(ms(slot), abs=1e-6)
     assert stats["mean_deliver_ms"] == pytest.approx(ms(deliver), abs=1e-6)
     assert stats["mean_forward_ms"] == pytest.approx(
-        (deliver.start_ns - pad.end_ns) / 1e6, abs=1e-6)
+        (deliver.start_ns - slot.end_ns) / 1e6, abs=1e-6)
+    assert stats["prepared_ahead_share"] == 0.0  # one batch, the dispatcher idle before it
+
+
+def test_next_batch_is_padded_and_stacked_while_the_forward_runs():
+    sleep_s = 0.1
+
+    def forward(batch):
+        time.sleep(sleep_s)
+        return batch
+
+    # a long linger that ends the moment two are on hand: each batch is a pair
+    b = MicroBatcher(forward, max_batch=2, max_wait_ms=2000.0)
+    try:
+        with _cpu_profile():
+            futs = [b.submit(np.full((16, 16, 3), i, np.uint8)) for i in range(4)]
+            for i, f in enumerate(futs):
+                np.testing.assert_array_equal(f.result(timeout=60), i)
+            deadline = time.monotonic() + 30
+            while b.stats.snapshot()["batches"] < 2 and time.monotonic() < deadline:
+                time.sleep(0.01)
+        stats = b.stats.snapshot()
+    finally:
+        b.close()
+    spans = tracing.spans()
+    of = lambda name, batch: [s for s in spans  # noqa: E731
+                              if s.name == name and s.attrs["batch"] == batch]
+    assert sorted(s.attrs["req"] for s in of("batcher.queued", 0)) == [0, 1]
+    assert sorted(s.attrs["req"] for s in of("batcher.queued", 1)) == [2, 3]
+    (fwd0,), (pad1,), (fwd1,) = (of("batcher.forward", 0), of("batcher.pad_stack", 1),
+                                 of("batcher.forward", 1))
+    assert pad1.end_ns < fwd0.end_ns <= fwd1.start_ns
+    assert pad1.thread != fwd0.thread
+    (slot1,) = of("batcher.slot", 1)  # batch 1 waited in the slot through batch 0's forward
+    assert slot1.start_ns == pad1.end_ns < fwd0.end_ns and slot1.end_ns <= fwd1.start_ns
+    assert stats["batches"] == 2 and stats["prepared_ahead_share"] == 0.5
+
+
+def test_a_request_that_joins_the_batch_in_the_slot_leaves_its_own_spans():
+    entered, release = threading.Event(), threading.Event()
+
+    def forward(batch):
+        entered.set()
+        release.wait(timeout=60)
+        return batch
+
+    b = MicroBatcher(forward, max_batch=4, max_wait_ms=0.0)
+    try:
+        with _cpu_profile():
+            futs = [b.submit(np.full((16, 16, 3), 0, np.uint8))]
+            assert entered.wait(timeout=30)
+            futs.append(b.submit(np.full((16, 16, 3), 1, np.uint8)))
+            deadline = time.monotonic() + 30
+            while b._slot is None and time.monotonic() < deadline:
+                time.sleep(0.005)
+            futs.append(b.submit(np.full((16, 16, 3), 2, np.uint8)))
+            while len(b._slot.group) < 2 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            release.set()
+            for i, f in enumerate(futs):
+                np.testing.assert_array_equal(f.result(timeout=60), i)
+            while b.stats.snapshot()["batches"] < 2 and time.monotonic() < deadline:
+                time.sleep(0.01)
+        stats = b.stats.snapshot()
+    finally:
+        release.set()
+        b.close()
+    spans = tracing.spans()
+    of = lambda name: [s for s in spans  # noqa: E731
+                       if s.name == name and s.attrs["batch"] == 1]
+    first, joined = sorted(of("batcher.pad_stack"), key=lambda s: s.start_ns)
+    assert first.attrs["n"] == 1 and joined.attrs["n"] == 1
+    (slot,), (fwd,) = of("batcher.slot"), of("batcher.forward")
+    assert slot.start_ns == first.end_ns < joined.start_ns < joined.end_ns <= slot.end_ns
+    assert fwd.attrs["n"] == 2
+    by_req = {s.attrs["req"]: s for s in of("batcher.queued")}
+    assert sorted(by_req) == [1, 2]
+    assert by_req[1].end_ns == first.start_ns and by_req[2].end_ns == joined.start_ns
+    ms = lambda s: (s.end_ns - s.start_ns) / 1e6  # noqa: E731
+    # the counters sum a batch's pads and its requests' waits
+    pads = [s for s in spans if s.name == "batcher.pad_stack"]
+    assert stats["mean_pad_stack_ms"] == pytest.approx(sum(map(ms, pads)) / 2, abs=1e-6)
+    queued = [s for s in spans if s.name == "batcher.queued"]
+    assert stats["mean_queue_wait_ms"] == pytest.approx(sum(map(ms, queued)) / 3, abs=1e-6)
 
 
 def test_batcher_counters_run_without_a_profiler():
