@@ -26,6 +26,7 @@ from fast_neural_style_transfer_tpu_torch.core.shapes import (
     pad_to_multiple_reflect,
     resolve_device,
 )
+from fast_neural_style_transfer_tpu_torch.infer.stylize import serve_u8
 from fast_neural_style_transfer_tpu_torch.models.adain import (
     ENCODE_TAP,
     adain_with_stats,
@@ -36,7 +37,6 @@ from fast_neural_style_transfer_tpu_torch.models.adain import (
 from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
 from fast_neural_style_transfer_tpu_torch.parallel.mesh import make_mesh_plan, place_on_data_axis
 from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
-from fast_neural_style_transfer_tpu_torch.utils import tracing
 from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
 from fast_neural_style_transfer_tpu_torch.utils.image_io import (
     IMAGENET_MEAN,
@@ -147,25 +147,13 @@ class ArbitraryStylizer:
     @torch.inference_mode()
     def stylize_u8(self, image_u8: np.ndarray, *, alpha: float = 1.0) -> np.ndarray:
         """Raw uint8 (H,W,3)/(N,H,W,3) content in -> stylized uint8 out,
-        with the cached style; padded up to the bucket and cropped back.
-        Spans as ``Stylizer.stylize_u8``'s."""
+        with the cached style, by ``infer.stylize.serve_u8`` (padded up to
+        the bucket and cropped back; its spans)."""
         if self._style is None:
             raise ValueError("no style set: call set_style(_u8) first")
-        image_u8 = np.asarray(image_u8)
-        if image_u8.dtype != np.uint8:
-            raise TypeError(f"stylize_u8 wants uint8, got {image_u8.dtype}")
-        squeeze = image_u8.ndim == 3
-        batch = image_u8[None] if squeeze else image_u8
-        n, hh, ww = batch.shape[:3]
-        with tracing.span("stylize.copy_in", n=n, h=hh, w=ww):
-            x = torch.from_numpy(np.array(batch)).to(self.device)
-        with tracing.span("stylize.launch", n=n, h=hh, w=ww):
-            padded, (h, w) = pad_to_multiple_reflect(x, self.bucket_multiple)
-            outs = [self._u8_roundtrip(c, float(alpha))
-                    for c in place_on_data_axis(self.sharding, padded)]
-        with tracing.span("stylize.copy_out", n=n, h=hh, w=ww):
-            out = torch.cat([o[:, :h, :w, :].cpu() for o in outs]).numpy()
-        return out[0] if squeeze else out
+        return serve_u8(image_u8, self.device, self.bucket_multiple,
+                        lambda x: [self._u8_roundtrip(c, float(alpha))
+                                   for c in place_on_data_axis(self.sharding, x)])
 
 
 def stylize_directory_arbitrary(

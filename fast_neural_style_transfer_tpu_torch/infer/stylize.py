@@ -57,6 +57,32 @@ from fast_neural_style_transfer_tpu_torch.utils.image_io import (
 )
 
 
+def serve_u8(image_u8, device: torch.device, bucket_multiple: int, launch) -> np.ndarray:
+    """The uint8 round trip every stylizer serves by: raw uint8
+    (H,W,3)/(N,H,W,3) in, copied to ``device``, reflect-padded up to a
+    multiple of ``bucket_multiple``; ``launch(padded)`` -> the uint8 NHWC
+    outputs of its chunks, in order; cropped back and copied out (joined on
+    the host only when there are several). Spans
+    (``utils.tracing``): ``stylize.copy_in``, ``stylize.launch`` (pad,
+    network, u8 out enqueued) and ``stylize.copy_out`` (waits for the
+    device)."""
+    image_u8 = np.asarray(image_u8)
+    if image_u8.dtype != np.uint8:
+        raise TypeError(f"stylize_u8 wants uint8, got {image_u8.dtype}")
+    squeeze = image_u8.ndim == 3
+    batch = image_u8[None] if squeeze else image_u8
+    n, hh, ww = batch.shape[:3]
+    with tracing.span("stylize.copy_in", n=n, h=hh, w=ww):
+        x = torch.from_numpy(np.array(batch)).to(device)
+    with tracing.span("stylize.launch", n=n, h=hh, w=ww):
+        padded, (h, w) = pad_to_multiple_reflect(x, bucket_multiple)
+        outs = launch(padded)
+    with tracing.span("stylize.copy_out", n=n, h=hh, w=ww):
+        outs = [o[:, :h, :w, :].cpu() for o in outs]
+        out = (outs[0] if len(outs) == 1 else torch.cat(outs)).numpy()
+    return out[0] if squeeze else out
+
+
 class Stylizer:
     """A stylizer network on one device, with the u8 and network-space APIs.
 
@@ -200,24 +226,10 @@ class Stylizer:
 
     @torch.inference_mode()
     def stylize_u8(self, image_u8: np.ndarray) -> np.ndarray:
-        """Raw uint8 (H,W,3)/(N,H,W,3) in -> stylized uint8 out. Spans
-        (``utils.tracing``): ``stylize.copy_in``, ``stylize.launch`` (pad,
-        network, u8 out enqueued) and ``stylize.copy_out`` (waits for the
-        device)."""
-        image_u8 = np.asarray(image_u8)
-        if image_u8.dtype != np.uint8:
-            raise TypeError(f"stylize_u8 wants uint8, got {image_u8.dtype}")
-        squeeze = image_u8.ndim == 3
-        batch = image_u8[None] if squeeze else image_u8
-        n, hh, ww = batch.shape[:3]
-        with tracing.span("stylize.copy_in", n=n, h=hh, w=ww):
-            x = torch.from_numpy(np.array(batch)).to(self.device)
-        with tracing.span("stylize.launch", n=n, h=hh, w=ww):
-            padded, (h, w) = pad_to_multiple_reflect(x, self.bucket_multiple)
-            outs = self._u8_roundtrip(self._chunks(padded))
-        with tracing.span("stylize.copy_out", n=n, h=hh, w=ww):
-            out = torch.cat([o[:, :h, :w, :].cpu() for o in outs]).numpy()
-        return out[0] if squeeze else out
+        """Raw uint8 (H,W,3)/(N,H,W,3) in -> stylized uint8 out, by
+        ``serve_u8`` (its spans)."""
+        return serve_u8(image_u8, self.device, self.bucket_multiple,
+                        lambda x: self._u8_roundtrip(self._chunks(x)))
 
     @torch.inference_mode()
     def raw_forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,8 @@ Run:  python -m fast_neural_style_transfer_tpu_torch.serve \\
           --model evidence/soak40k_r5/style_transfer_final.pth --port 8765
       python -m fast_neural_style_transfer_tpu_torch.serve \\
           --adain-decoder adain_decoder_final.npz --style painting.jpg --alpha 0.8
+      python -m fast_neural_style_transfer_tpu_torch.serve \\
+          --stytr2 stytr2_checkpoint/ --style painting.jpg
 """
 
 from __future__ import annotations
@@ -206,6 +208,21 @@ def _build_forward(args, device: str) -> tuple:
         sharding = make_mesh_plan(device=device).batch_sharding
         print(sharding.describe(args.max_batch), flush=True)
         device = None
+    if getattr(args, "stytr2", None):
+        if not args.style:
+            raise SystemExit("--stytr2 needs --style <image>")
+        if args.precision == "int8":
+            raise SystemExit("--precision int8 serves the flagship family only")
+        if sharding is not None:
+            raise SystemExit("--data_parallel serves the flagship and adain families only")
+        from fast_neural_style_transfer_tpu_torch.infer.stytr2 import TransformerStylizer
+        from fast_neural_style_transfer_tpu_torch.models.stytr2 import load_stytr2_checkpoint
+        from fast_neural_style_transfer_tpu_torch.utils.image_io import decode_image
+
+        sty = TransformerStylizer(load_stytr2_checkpoint(args.stytr2),
+                                  precision=args.precision, device=device)
+        sty.set_style_u8(decode_image(args.style))
+        return sty.stylize_u8, "stytr2", sty.device
     if args.adain_decoder:
         if not args.style:
             raise SystemExit("--adain-decoder needs --style <image>")
@@ -224,7 +241,7 @@ def _build_forward(args, device: str) -> tuple:
         alpha = args.alpha
         return (lambda b: sty.stylize_u8(b, alpha=alpha)), "adain", sty.device
     if not args.model:
-        raise SystemExit("pass --model <checkpoint>, or --adain-decoder + --style")
+        raise SystemExit("pass --model <checkpoint>, or --adain-decoder or --stytr2 + --style")
     from fast_neural_style_transfer_tpu_torch.infer.stylize import Stylizer
 
     sty = Stylizer.from_checkpoint(
@@ -242,7 +259,9 @@ def main(argv: Optional[list] = None) -> None:
                    help="which trained style of a multi-style checkpoint "
                         "to serve")
     p.add_argument("--adain-decoder", help="AdaIN decoder checkpoint (.npz/.pth)")
-    p.add_argument("--style", help="style image for --adain-decoder")
+    p.add_argument("--stytr2", help="StyTr² checkpoint: a directory of the official "
+                                    "embedding*.pth, transformer*.pth and decoder*.pth")
+    p.add_argument("--style", help="style image for --adain-decoder or --stytr2")
     p.add_argument("--alpha", type=float, default=1.0,
                    help="AdaIN stylization strength")
     p.add_argument("--vgg_weights", default=None,

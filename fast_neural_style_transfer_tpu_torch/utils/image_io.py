@@ -77,12 +77,17 @@ def u8_to_network(x_u8: torch.Tensor) -> torch.Tensor:
     return (u8_to_unit(x_u8) - mean) / std
 
 
+def unit_to_u8(y: torch.Tensor) -> torch.Tensor:
+    """[0, 1]-space tensor -> uint8 (clip, round by +0.5 and truncation),
+    on y's device."""
+    return (torch.clamp(y.float(), 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
 def network_to_u8(y: torch.Tensor) -> torch.Tensor:
-    """Network-space NHWC tensor -> uint8 (de-normalize, clip, round by
-    +0.5 and truncation), on y's device."""
+    """Network-space NHWC tensor -> uint8 (de-normalize, then
+    ``unit_to_u8``), on y's device."""
     mean, std = _mean_std(y.device)
-    y = torch.clamp(y.float() * std + mean, 0.0, 1.0)
-    return (y * 255.0 + 0.5).to(torch.uint8)
+    return unit_to_u8(y.float() * std + mean)
 
 
 def denormalize_image(x: np.ndarray) -> np.ndarray:

@@ -15,6 +15,14 @@ thread that started it; a span opened on that thread is also entered as
 ``record_function(name)``, so it lies in the exported chrome trace on the
 device's clock. Spans of other threads (the batcher's dispatcher) are in
 the buffer only, on the host clock.
+
+``stage(name, device, ...)`` is a span that also carries its stage's device
+time: on a CUDA device two timing events recorded on the current stream at
+its bounds, read by ``device_ms`` once the work is done (after the
+window's synchronize); on the CPU, whose work is done when the host returns,
+the span's own bounds. ``count``, a callable read at both bounds, puts the
+difference under the span's ``ops`` (a stage's attention launches). Like
+``span``, it records nothing and reads no clock without a profiler.
 """
 
 from __future__ import annotations
@@ -24,12 +32,12 @@ import itertools
 import threading
 import time
 from collections import deque
-from typing import Deque, List, NamedTuple, Optional
+from typing import Any, Callable, Deque, List, NamedTuple, Optional
 
 import torch
 import torch.autograd.profiler as _profiler
 
-__all__ = ["Span", "clear", "enabled", "record", "span", "spans"]
+__all__ = ["Span", "clear", "device_ms", "enabled", "record", "span", "spans", "stage"]
 
 BUFFER_SPANS = 1 << 17
 
@@ -42,12 +50,14 @@ class Span(NamedTuple):
     start_ns: int  # time.perf_counter_ns()
     end_ns: int
     attrs: dict
+    device: Any = None  # a stage's (start, end) CUDA events, or HOST
 
 
 _BUFFER: Deque[Span] = deque(maxlen=BUFFER_SPANS)
 _IDS = itertools.count(1)
 _LOCAL = threading.local()
 _NOOP = contextlib.nullcontext()
+HOST = "host"  # a CPU stage: its device time is the span's own
 
 
 def enabled() -> bool:
@@ -93,8 +103,41 @@ class _Open:
             self.native.__exit__(*exc)
         _stack().pop()
         _BUFFER.append(Span(self.name, self.id, self.parent, threading.get_ident(),
-                            self.start, end, self.attrs))
+                            self.start, end, self.attrs, self._device()))
         return False
+
+    def _device(self):
+        return None
+
+
+class _Stage(_Open):
+    __slots__ = ("events", "stream", "count", "count0")
+
+    def __init__(self, name: str, attrs: dict, device: torch.device, count):
+        super().__init__(name, attrs)
+        self.events = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+        self.count = count
+
+    def __enter__(self):
+        super().__enter__()
+        self.count0 = self.count() if self.count is not None else None
+        if self.events is not None:
+            self.events[0].record(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[1].record(self.stream)
+        if self.count is not None:
+            self.attrs["ops"] = self.count() - self.count0
+        return super().__exit__(*exc)
+
+    def _device(self):
+        return HOST if self.events is None else self.events
 
 
 def span(name: str, *, batch=None, req=None, n=None, h=None, w=None):
@@ -103,6 +146,28 @@ def span(name: str, *, batch=None, req=None, n=None, h=None, w=None):
     if not _profiler._is_profiler_enabled:
         return _NOOP
     return _Open(name, _attrs(batch, req, n, h, w))
+
+
+def stage(name: str, device: torch.device, *, count: Optional[Callable[[], int]] = None,
+          n=None, h=None, w=None):
+    """``span`` that also carries the stage's device time on ``device``
+    (the current stream there) and, with ``count``, its difference over the
+    stage as ``ops``; otherwise the shared no-op."""
+    if not _profiler._is_profiler_enabled:
+        return _NOOP
+    return _Stage(name, _attrs(None, None, n, h, w), device, count)
+
+
+def device_ms(s: Span) -> Optional[float]:
+    """A stage span's device time in ms (waiting for its end event), or
+    None for a span that is no stage."""
+    if s.device is None:
+        return None
+    if s.device == HOST:
+        return (s.end_ns - s.start_ns) / 1e6
+    start, end = s.device
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def record(name: str, start_ns: int, end_ns: int, *, batch=None, req=None, n=None, h=None,

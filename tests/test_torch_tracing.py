@@ -336,3 +336,38 @@ def test_train_step_spans_in_order():
                                            "train.update")]
     ends = [(s.start_ns, s.end_ns) for s in tracing.spans()]
     assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+
+
+def test_stytr2_stage_spans_nest_in_the_launch_and_carry_device_time_under_a_profiler():
+    """The four ``stytr2.*`` stage spans lie inside ``stylize.launch`` in
+    order, each with a device time (on the CPU the span's own) and the
+    attention launches of its stage under ``ops``; without a profiler there
+    are none. The counters count either way."""
+    from fast_neural_style_transfer_tpu_torch.infer.stytr2 import TransformerStylizer
+    from fast_neural_style_transfer_tpu_torch.models.stytr2 import StyTr2
+
+    widths = dict(dim_feedforward=64, num_encoder_layers=2, num_decoder_layers=1)
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    sty = TransformerStylizer(StyTr2(**widths).state_dict(), device="cpu")
+    sty.set_style_u8(rng.integers(0, 256, (32, 40, 3), dtype=np.uint8))
+    x = rng.integers(0, 256, (2, 30, 32, 3), dtype=np.uint8)
+    sty.stylize_u8(x)
+    assert tracing.spans() == []
+    with _cpu_profile():
+        sty.stylize_u8(x)
+    assert sty.style_encodes == 1 and sty.attention_launches == 2 + 2 * (2 + 2)
+    spans = tracing.spans()
+    (launch,) = [s for s in spans if s.name == "stylize.launch"]
+    stages = [s for s in spans if s.name.startswith("stytr2.")]
+    assert [s.name for s in stages] == ["stytr2.embed", "stytr2.encode", "stytr2.decode",
+                                        "stytr2.cnn"]
+    for a, b in zip(stages, stages[1:]):
+        assert a.end_ns <= b.start_ns
+    for s in stages:
+        assert s.parent == launch.id and launch.start_ns <= s.start_ns < s.end_ns <= launch.end_ns
+        assert s.attrs["n"] == 2 and (s.attrs["h"], s.attrs["w"]) == (64, 64)
+        assert tracing.device_ms(s) == pytest.approx((s.end_ns - s.start_ns) / 1e6)
+        assert tracing.device_ms(s) > 0
+    assert [s.attrs.get("ops") for s in stages] == [None, 2, 2, None]
+    assert all(tracing.device_ms(s) is None for s in spans if not s.name.startswith("stytr2."))
