@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--phases all]
 
 Drives ``fast_neural_style_transfer_tpu_torch`` only (no JAX). It builds
-the CUDA kernels from ``csrc/`` with nvcc (both sources at once), and holds
+the CUDA kernels from ``csrc/`` with nvcc (every source at once), and holds
 each kernel against its plain PyTorch version at the shapes of the main
 paths (the IN forward's and backward's two kernels each where its planner
 routes: the one-launch kernel at every 256x256 site, the two-launch kernel
@@ -61,7 +61,9 @@ before and read just after:
   training step's wall fed by each transport.
 Last it times the kernels, their plain versions and the library ops, the
 training step (single-style, 4-style and one-pass), and the IN forward and
-backward at three chunk budgets each. Every phase
+backward at three chunk budgets each; then holds the reflect-pad kernel
+bit for bit against its plain version and the F.pad route it replaced at
+every pad site of the serving paths, and times it. Every phase
 prints one JSON line; any failure exits non-zero. The line before the
 last lists the kernels; the last line is ``{"ok": true, "device":
 {...}}``. ``--phases`` runs a subset (the build always runs), for
@@ -175,12 +177,13 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     """nvcc on every source at once, then bind each library."""
-    from fast_neural_style_transfer_tpu_torch.ops import _build, cuda_conv, cuda_norm
+    from fast_neural_style_transfer_tpu_torch.ops import _build, cuda_conv, cuda_norm, cuda_pad
 
     t0 = time.perf_counter()
     _build.load_all(_build.SOURCES)
     cuda_norm._kernels()
     cuda_conv._kernel()
+    cuda_pad._kernel()
     seconds = time.perf_counter() - t0
     for name in _build.SOURCES:
         info = _build.build_info[name]
@@ -506,14 +509,16 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
     return worst
 
 
-def reset_in_counts() -> None:
+def reset_launch_counts() -> None:
     """Set the IN forward's and backward's launch counts, in all, by route,
-    by affine and by mode, to 0."""
+    by affine and by mode, and the reflect pad's, to 0."""
+    from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
         instance_norm_bwd,
         instance_norm_fwd,
     )
 
+    reflect_pad_hw.launches = 0
     for fn in (instance_norm_fwd, instance_norm_bwd):
         fn.launches = 0
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
@@ -691,7 +696,7 @@ def phase_serving() -> dict:
     CLI's batching defaults) on 127.0.0.1:0 answers two bursts of 16
     concurrent requests and 8 sequential ones, then the inference CLI
     stylizes one file. Launch counters are set to 0 just before and read
-    just after. Requests go through http.client: the first urllib burst in
+    just after: 14 IN launches and 13 reflect pads a forward. Requests go through http.client: the first urllib burst in
     a process pays a client-side start-up cost of its own."""
     import torch
     from PIL import Image
@@ -699,6 +704,7 @@ def phase_serving() -> dict:
     from fast_neural_style_transfer_tpu_torch.cli import begin_inference
     from fast_neural_style_transfer_tpu_torch.infer import Stylizer
     from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
     from fast_neural_style_transfer_tpu_torch.serve import make_server
 
@@ -741,7 +747,7 @@ def phase_serving() -> dict:
                 "connect_p50_ms": float(np.median([r[4] for r in replies])),
                 "server_p50_ms_so_far": server_p50}
 
-    reset_in_counts()
+    reset_launch_counts()
     try:
         bursts, burst_info = [], []
         for _ in range(2):
@@ -767,6 +773,7 @@ def phase_serving() -> dict:
         thread.join(timeout=30)
     launches = instance_norm_fwd.launches
     by_route = dict(instance_norm_fwd.launches_by_route)
+    pad_launches = reflect_pad_hw.launches
     forwards = stats["batches"] + 1  # server batches + the CLI's one forward
     result = {
         "http_status": sorted({r[0] for r in burst + seq}),
@@ -777,12 +784,14 @@ def phase_serving() -> dict:
         "batches": stats["batches"], "healthz_device": health["device"],
         "cli_output_size": list(cli_size), "launches": launches,
         "launches_by_route": by_route, "expected_launches": NUM_IN_SITES * forwards,
+        "pad_launches": pad_launches, "expected_pad_launches": STYLIZER_PADS * forwards,
     }
     ok = (all(r[0] == 200 and r[1] == (256, 256) for r in burst + seq)
           and stats["mean_batch_occupancy"] > 1
           and health["device"] == torch.cuda.get_device_name(0)
           and cli_size == (320, 240) and launches == NUM_IN_SITES * forwards
-          and by_route[SITE_ROUTE] == launches)
+          and by_route[SITE_ROUTE] == launches
+          and pad_launches == STYLIZER_PADS * forwards)
     emit("serving", ok=ok, **result)
     if not ok or launches == 0:
         fail("serving phase")
@@ -791,6 +800,10 @@ def phase_serving() -> dict:
 
 TRAIN_STEPS = 10
 TRAIN_BATCH = 20  # the training CLI's default
+# reflect pads a forward: the stylizer's (conv1, conv2, the 10 res-block
+# convs, final_conv) and the AdaIN decoder's (ReLUs and upsamples read through)
+STYLIZER_PADS = 13
+DECODER_PADS = 9
 
 
 def phase_training(seed: int) -> dict:
@@ -799,8 +812,9 @@ def phase_training(seed: int) -> dict:
     width, the seeded random VGG (no ImageNet weights exist here), on 40
     synthetic JPEGs and a synthetic style image. Launch counters are set to
     0 just before and read just after: 14 IN forwards and 14 IN backwards
-    (all on the one-launch kernels) and one conv1_1 dx per step (all on
-    the tap-packed kernel). Every
+    (all on the one-launch kernels), one conv1_1 dx per step (all on
+    the tap-packed kernel) and one reflect-pad launch per step (conv1's pad
+    of the image batch, which needs no gradient). Every
     logged loss must be finite with no
     skipped step, a checkpoint and style_transfer_final.npz must be
     written, and the port's Stylizer must stylize an image on the card with
@@ -811,6 +825,7 @@ def phase_training(seed: int) -> dict:
     from fast_neural_style_transfer_tpu_torch.cli import begin_training
     from fast_neural_style_transfer_tpu_torch.infer import Stylizer
     from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
     from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import (
         conv2d_same_bwd,
         conv2d_same_dx,
@@ -822,7 +837,8 @@ def phase_training(seed: int) -> dict:
 
     counters = {"instance_norm_fwd": instance_norm_fwd,
                 "instance_norm_bwd": instance_norm_bwd,
-                "conv2d_same_dx": conv2d_same_dx, "conv2d_same_bwd": conv2d_same_bwd}
+                "conv2d_same_dx": conv2d_same_dx, "conv2d_same_bwd": conv2d_same_bwd,
+                "reflect_pad": reflect_pad_hw}
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         os.makedirs(data)
@@ -836,7 +852,7 @@ def phase_training(seed: int) -> dict:
             fn.launches = 0
         conv2d_same_dx.launches_by_route = dict.fromkeys(
             conv2d_same_dx.launches_by_route, 0)
-        reset_in_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         final = begin_training.main([
             "--dataset_dir", data, "--style_image", style, "--output_dir", out,
@@ -858,7 +874,10 @@ def phase_training(seed: int) -> dict:
                      for k in ("loss", "content_loss", "style_loss", "tv_loss", "grad_norm"))
     expected = {"instance_norm_fwd": NUM_IN_SITES * TRAIN_STEPS,
                 "instance_norm_bwd": NUM_IN_SITES * TRAIN_STEPS,
-                "conv2d_same_dx": TRAIN_STEPS, "conv2d_same_bwd": 0}
+                "conv2d_same_dx": TRAIN_STEPS, "conv2d_same_bwd": 0,
+                # conv1's pad of the image batch, which needs no gradient;
+                # the pads of activations take autograd's route
+                "reflect_pad": TRAIN_STEPS}
     ok = bool(finite and records and all(r["skipped_nonfinite"] == 0 for r in records)
           and records[-1]["step"] == TRAIN_STEPS
           and any(c.startswith("ckpt_") for c in checkpoints)
@@ -924,7 +943,7 @@ def phase_multi_style(seed: int) -> dict:
             styles.append(os.path.join(tmp, f"style{s}.jpg"))
             Image.fromarray(smooth_image(320, 320, seed=990 + s)).save(styles[-1], quality=95)
         out = os.path.join(tmp, "out")
-        reset_in_counts()
+        reset_launch_counts()
         conv2d_same_dx.launches = 0
         conv2d_same_dx.launches_by_route = dict.fromkeys(conv2d_same_dx.launches_by_route, 0)
         t0 = time.perf_counter()
@@ -965,7 +984,7 @@ def phase_multi_style(seed: int) -> dict:
             want = Stylizer.from_checkpoint(final, style=style, device="cpu").stylize_u8(img)
             for precision in ("f32", "bf16"):
                 card = Stylizer.from_checkpoint(final, style=style, precision=precision)
-                reset_in_counts()
+                reset_launch_counts()
                 got = card.stylize_u8(img)
                 by_affine = dict(instance_norm_fwd.launches_by_affine)
                 du8 = int(np.abs(got.astype(int) - want.astype(int)).max())
@@ -1395,7 +1414,7 @@ def phase_train_times(seed: int) -> dict:
             step(state, vgg, u8, grams, gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_in_counts()
+        reset_launch_counts()
         samples, host = [], []
         for _ in range(10):
             start = torch.cuda.Event(enable_timing=True)
@@ -1850,7 +1869,9 @@ def phase_video(seed: int) -> dict:
     statistics (blend 1), on a seeded VIDEO_FRAMES-frame GIF made here;
     launch counters set to 0 just before and read just after: the reference
     frame's 14 capture launches (one-launch route) and 14 inject launches,
-    then 14 inject launches per batch (the inject kernel), no plain one. Then the frames through
+    then 14 inject launches per batch (the inject kernel), no plain one,
+    and 13 reflect pads a forward (the reference frame's and each
+    batch's). Then the frames through
     VideoStylizer on the card against the port's CPU f32 path: f32 max
     |du8| <= 1 at blend 1 and 0.5, bf16 SSIM >= 0.98 (every frame); the
     flicker of the stabilized against the plain stylizer; the u8 -> u8
@@ -1866,6 +1887,7 @@ def phase_video(seed: int) -> dict:
         write_frames,
     )
     from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
     from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
 
@@ -1874,7 +1896,7 @@ def phase_video(seed: int) -> dict:
         src = os.path.join(tmp, "clip.gif")
         write_frames(_panning_clip(VIDEO_FRAMES, 256, seed + 300), src)
         out = os.path.join(tmp, "out.gif")
-        reset_in_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         summary = video_cli.main(["--model_path", str(CHECKPOINT), "--content", src,
                                   "--output", out, "--precision", "bf16",
@@ -1883,13 +1905,15 @@ def phase_video(seed: int) -> dict:
         seconds = time.perf_counter() - t0
         counts = {"launches": instance_norm_fwd.launches,
                   "by_mode": dict(instance_norm_fwd.launches_by_mode),
-                  "by_route": dict(instance_norm_fwd.launches_by_route)}
+                  "by_route": dict(instance_norm_fwd.launches_by_route),
+                  "reflect_pad": reflect_pad_hw.launches}
         frames = read_frames(src)
         written = read_frames(out)
     batches = -(-VIDEO_FRAMES // VIDEO_BATCH)
     expected = {"capture": NUM_IN_SITES, "inject": NUM_IN_SITES * (batches + 1)}
     ok = (summary["frames"] == VIDEO_FRAMES and written.shape == frames.shape
           and nonzero(counts["by_mode"]) == expected
+          and counts["reflect_pad"] == STYLIZER_PADS * (batches + 1)
           and nonzero(counts["by_route"]) == {SITE_ROUTE: expected["capture"],
                                               "inject": expected["inject"]})
     emit("video_cli", ok=ok, frames=VIDEO_FRAMES, batch=VIDEO_BATCH, size=[256, 256],
@@ -2154,11 +2178,12 @@ def phase_adain(seed: int) -> dict:
     launch counters set to 0 just before and read just after: one IN
     forward a step (adain: (B, C) affine, the one-launch kernel) and one
     conv1_1 dx a step (the encode of the decoder's output, the tap-packed
-    kernel). Then the card's step time at B=8 (f32 and bf16, CUDA events,
+    kernel), and one reflect-pad launch a step (the decoder's first pad,
+    of the AdaIN output, which needs no gradient). Then the card's step time at B=8 (f32 and bf16, CUDA events,
     p50 of 8 after 2 warm-ups), one f32 step card vs CPU (adain_parity),
     ArbitraryStylizer with the trained decoder on the card against the
     CPU f32 path (f32 max |du8| <= 1 at alpha 1 and 0.7, bf16 SSIM >= 0.98;
-    one IN launch a forward, a (C,) affine), the stylize CLI with two
+    one IN launch a forward, a (C,) affine, 9 reflect pads), the stylize CLI with two
     blended styles on the card against --cpu (f32 max |du8| <= 1, one IN
     launch, a (C,) affine), and fnst-serve --adain-decoder
     (adain_serve)."""
@@ -2169,6 +2194,7 @@ def phase_adain(seed: int) -> dict:
     from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
     from fast_neural_style_transfer_tpu_torch.models.adain import load_decoder, make_decoder
     from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, random_params
+    from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
     from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import conv2d_same_dx
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
         instance_norm_bwd,
@@ -2192,7 +2218,7 @@ def phase_adain(seed: int) -> dict:
                                              seed=s0 + i)).save(
                     os.path.join(folders[kind], f"{i:03d}.jpg"), quality=92)
         out = os.path.join(tmp, "out")
-        reset_in_counts()
+        reset_launch_counts()
         conv2d_same_dx.launches = 0
         conv2d_same_dx.launches_by_route = dict.fromkeys(conv2d_same_dx.launches_by_route, 0)
         t0 = time.perf_counter()
@@ -2207,7 +2233,8 @@ def phase_adain(seed: int) -> dict:
                                         "by_mode": dict(instance_norm_fwd.launches_by_mode)},
                   "instance_norm_bwd": {"launches": instance_norm_bwd.launches},
                   "conv2d_same_dx": {"launches": conv2d_same_dx.launches,
-                                     "by_route": dict(conv2d_same_dx.launches_by_route)}}
+                                     "by_route": dict(conv2d_same_dx.launches_by_route)},
+                  "reflect_pad": {"launches": reflect_pad_hw.launches}}
         with open(os.path.join(out, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         fwd = counts["instance_norm_fwd"]
@@ -2217,6 +2244,7 @@ def phase_adain(seed: int) -> dict:
               and counts["instance_norm_bwd"]["launches"] == 0
               and counts["conv2d_same_dx"] == {"launches": ADAIN_STEPS, "by_route": {
                   "tap_packed": ADAIN_STEPS, "tiled": 0}}
+              and counts["reflect_pad"]["launches"] == ADAIN_STEPS
               and records and records[-1]["step"] == ADAIN_STEPS
               and all(r["skipped_nonfinite"] == 0 and np.isfinite(r["loss"])
                       for r in records)
@@ -2262,16 +2290,19 @@ def phase_adain(seed: int) -> dict:
         for precision, alpha in (("f32", 1.0), ("f32", 0.7), ("bf16", 1.0)):
             card = ArbitraryStylizer(dec_sd, random_params(seed), precision=precision
                                      ).set_style_u8(style_u8)
-            reset_in_counts()
+            reset_launch_counts()
             got = card.stylize_u8(img, alpha=alpha)
             by_affine = nonzero(instance_norm_fwd.launches_by_affine)
+            pads = reflect_pad_hw.launches
+            result.setdefault("stylizer_pad_launches", []).append(pads)
             want = cpu.stylize_u8(img, alpha=alpha)
             du8 = int(np.abs(got.astype(int) - want.astype(int)).max())
             score = ssim(got / 255.0, want / 255.0)
-            ok = (by_affine == {"channel": 1}
+            ok = (by_affine == {"channel": 1} and pads == DECODER_PADS
                   and (du8 <= 1 if precision == "f32" else score >= 0.98))
             emit("adain_stylizer_vs_cpu", precision=precision, alpha=alpha,
                  max_abs_du8=du8, ssim=score, launches_by_affine=by_affine,
+                 pad_launches=pads,
                  output_std_u8=float(want.std()),
                  criterion="max|du8|<=1" if precision == "f32" else "ssim>=0.98", ok=ok)
             if not ok:
@@ -2283,7 +2314,7 @@ def phase_adain(seed: int) -> dict:
         outs, by_affine = {}, None
         for flags in ((), ("--cpu",)):
             outs[flags] = os.path.join(tmp, f"stylized{len(flags)}.png")
-            reset_in_counts()
+            reset_launch_counts()
             adain_cli.main(["stylize", "--decoder", final, "--content_image", content_path,
                             "--style_image", style_path,
                             os.path.join(folders["style"], "001.jpg"),
@@ -2604,7 +2635,7 @@ def phase_export(seed: int, adain_decoder=None) -> dict:
             with open(art[graph], "rb") as f:
                 data = f.read()
             want = ref.stylize_u8(img)
-            reset_in_counts()
+            reset_launch_counts()
             with capture_calls(onnx_runtime, "instance_norm") as cap:
                 (out,) = onnx_runtime.run_model(data, {"input_image": x})
             torch.cuda.synchronize()
@@ -2781,7 +2812,9 @@ def phase_int8(seed: int) -> dict:
     Stylizer(precision="int8") on the card against the port's CPU int8 path
     at B=1 and B=8, with dynamic scales and with calibrated static ones (the
     same scales on both devices); the IN forward kernel runs at 14 sites a
-    forward (counts set to 0 just before, read just after) and must match
+    forward (counts set to 0 just before, read just after; the reflect-pad
+    kernel none, since the int8 convs gather their own padded codes, and 13
+    in the float calibration pass) and must match
     its plain version on the inputs the path gave it (``in_vs_plain``).
     Everything else on the path is exact or the same IEEE operation on both
     devices (int8 codes, ``_int_mm``'s int32 products, the dequantize, the
@@ -2809,6 +2842,7 @@ def phase_int8(seed: int) -> dict:
     from fast_neural_style_transfer_tpu_torch.infer import Stylizer
     from fast_neural_style_transfer_tpu_torch.infer import quantized as q
     from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
+    from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
     from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
     from fast_neural_style_transfer_tpu_torch.utils.ssim import ssim
@@ -2820,20 +2854,23 @@ def phase_int8(seed: int) -> dict:
     bf16 = Stylizer(params, precision="bf16")
     dynamic = card.qparams
     sample = np.stack([smooth_image(256, 256, seed=seed + 400 + i) for i in range(8)])
+    reset_launch_counts()
     static = q.calibrate(dynamic, params, u8_to_network(torch.from_numpy(sample).cuda()))
-    result = {"checks": [], "launches": []}
+    result = {"checks": [], "launches": [], "pad_launches": [],
+              "calibrate_pad_launches": reflect_pad_hw.launches}
     worst_in = 0.0
     t0 = time.perf_counter()
     for scales, qp in (("dynamic", dynamic), ("static", static)):
         card.qparams, cpu.qparams = qp, q.to_device(qp, "cpu")
         for n in INT8_BATCHES:
             imgs = np.stack([smooth_image(256, 256, seed=seed + 500 + i) for i in range(n)])
-            reset_in_counts()
+            reset_launch_counts()
             with capture_calls(q, "instance_norm") as cap:
                 got = card.stylize_u8(imgs)
             torch.cuda.synchronize()
             launches = instance_norm_fwd.launches
             by_route = nonzero(instance_norm_fwd.launches_by_route)
+            pad_launches = reflect_pad_hw.launches
             want = cpu.stylize_u8(imgs)
             # the kernel repeats bit for bit: these launches give the path's
             # IN outputs again (they are not the path's, read above). The CPU
@@ -2870,12 +2907,15 @@ def phase_int8(seed: int) -> dict:
                      "min_ssim_vs_f32": min_ssim(got, ref),
                      "cpu_min_ssim_vs_f32": min_ssim(want, ref),
                      "ssim_card_vs_numpy_abs_err": ssim_helper_err,
-                     "in_fwd_launches": launches, "launches_by_route": by_route}
+                     "in_fwd_launches": launches, "launches_by_route": by_route,
+                     "pad_launches": pad_launches}
             ok = bool(got.shape == imgs.shape and check["bit_equal_given_card_in_outputs"]
                       and len(cpu_x) == NUM_IN_SITES and all(conv_bit_equal)
                       and ssim_helper_err <= 1e-9
                       and check["min_ssim_vs_f32"] >= check["cpu_min_ssim_vs_f32"] - 0.02
-                      and launches == NUM_IN_SITES and by_route == {SITE_ROUTE: NUM_IN_SITES})
+                      and launches == NUM_IN_SITES and by_route == {SITE_ROUTE: NUM_IN_SITES}
+                      and pad_launches == 0
+                      and result["calibrate_pad_launches"] == STYLIZER_PADS)
             emit("int8_vs_cpu", seconds=time.perf_counter() - t0, size=[256, 256],
                  criterion="given the card's IN outputs, the 14 IN inputs and the output "
                            "bit-equal; as close to f32 as the CPU path (SSIM within 0.02); "
@@ -2884,13 +2924,14 @@ def phase_int8(seed: int) -> dict:
                 fail(f"int8 card vs CPU ({scales}, B={n})")
             result["checks"].append(check)
             result["launches"].append(launches)
+            result["pad_launches"].append(pad_launches)
     card.qparams = dynamic
 
     # the inference CLI and the server
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "content.jpg")
         Image.fromarray(smooth_image(240, 320, seed=seed + 600)).save(src, quality=95)
-        reset_in_counts()
+        reset_launch_counts()
         begin_inference.main(["--model_path", str(CHECKPOINT), "--content_image", src,
                               "--output_dir", tmp, "--output_name", "out.png",
                               "--precision", "int8"])
@@ -3321,7 +3362,7 @@ def phase_spatial(seed: int) -> dict:
         src = os.path.join(tmp, "content.png")
         Image.fromarray(images[f"{h}x{w}"]).save(src)
         free_card()
-        reset_in_counts()
+        reset_launch_counts()
         launch.kernel_counts = None
         t0 = time.perf_counter()
         begin_inference.main(["--model_path", str(CHECKPOINT), "--content_image", src,
@@ -3413,7 +3454,7 @@ def spatial_step_rank(plan, seed: int, size: int, batch: int) -> dict:
 
         state.optimizer.update = spy
         step, local = make_spatial_train_step(plan, dropout=False), rank_slice(u8, plan.data)
-        reset_in_counts()
+        reset_launch_counts()
         reset_conv_counts()
         m = step(state, vgg, local, grams)
         counts = kernel_counts()
@@ -3527,7 +3568,7 @@ def phase_spatial_train(seed: int) -> dict:
         Image.fromarray(smooth_image(size, size, seed=5999)).save(style, quality=95)
         out = os.path.join(tmp, "out")
         free_card()
-        reset_in_counts()
+        reset_launch_counts()
         launch.kernel_counts = None
         t0 = time.perf_counter()
         final = begin_training.main([
@@ -3591,7 +3632,7 @@ def phase_spatial_adain(seed: int, decoder=None) -> dict:
         base = ["stylize", "--decoder", decoder, "--content_image", content,
                 "--style_image", *styles, "--style_blend", "0.3", "0.7", "--alpha", "0.9"]
         free_card()
-        reset_in_counts()
+        reset_launch_counts()
         launch.kernel_counts = None
         t0 = time.perf_counter()
         adain_cli.main(base + ["--output", os.path.join(tmp, "s.png"),
@@ -3875,7 +3916,7 @@ def dp_rank(plan, seed: int, data_dir: str, style: str, out: str) -> dict:
         imgs = lambda s0: torch.from_numpy(np.stack(  # noqa: E731
             [smooth_image(DP_SIZE, DP_SIZE, seed=s0 + i) for i in range(ADAIN_BATCH)])).to(dev)
         ast_ = create_adain_train_state(dec)
-        reset_in_counts()
+        reset_launch_counts()
         reset_conv_counts()
         handed, opt_step = [], ast_.optimizer.step
         ast_.optimizer.step = lambda: handed.extend(cpu(p.grad for p in dec.parameters())) \
@@ -3891,7 +3932,7 @@ def dp_rank(plan, seed: int, data_dir: str, style: str, out: str) -> dict:
                       total_steps=DP_LOOP_STEPS, batch_size=DP_BATCH,
                       image_size=(DP_SIZE, DP_SIZE), log_every=1, checkpoint_every=10 ** 6,
                       num_workers=2, seed=seed, device=str(dev))
-    reset_in_counts()
+    reset_launch_counts()
     reset_conv_counts()
     res["final"] = train_style_transfer(cfg, plan)
     res["counts"] = kernel_counts()
@@ -4198,7 +4239,7 @@ def phase_data_parallel_serving(seed: int) -> dict:
         rep = Stylizer(params, precision=precision, preserve_color=color,
                        sharding=plan.batch_sharding)
         if precision == "f32" and color == "off":
-            reset_in_counts()
+            reset_launch_counts()
             got = rep.stylize_u8(img)
             main_launches = instance_norm_fwd.launches
         else:
@@ -4474,7 +4515,7 @@ def tooling_pipeline(seed: int, data: str) -> dict:
             batches = pipes[t].device_batches()
             batch = next(batches)
             if t == "f32":
-                reset_in_counts()
+                reset_launch_counts()
                 reset_conv_counts()
             m = parity_step(state, vgg, batch, grams)
             metrics[t] = {k: float(m[k]) for k in ("loss", "grad_norm")}
@@ -4710,10 +4751,95 @@ def phase_tooling(seed: int, reference_repo=None) -> dict:
             "drill": drill_launches, "quickstart": qs_launches}
 
 
+# (C, H, W, pad, relu, upsample) of every reflect pad of the serving paths:
+# the stylizer at 512^2 and 256^2 (conv1, conv2, the res blocks, final_conv)
+# and the AdaIN decoder at 512^2 (AdaIN and StyTr²)
+PAD_SITES = [(3, 512, 512, 4, False, 1), (64, 256, 256, 1, False, 1),
+             (256, 128, 128, 1, False, 1), (32, 512, 512, 4, False, 1),
+             (3, 256, 256, 4, False, 1), (64, 128, 128, 1, False, 1),
+             (256, 64, 64, 1, False, 1), (32, 256, 256, 4, False, 1),
+             (512, 64, 64, 1, False, 1), (256, 64, 64, 1, True, 2),
+             (256, 128, 128, 1, True, 1), (128, 128, 128, 1, True, 2),
+             (128, 256, 256, 1, True, 1), (64, 256, 256, 1, True, 2),
+             (64, 512, 512, 1, True, 1)]
+# the shapes the kernel table times, at B=8 bf16
+PAD_TIMED = [(256, 128, 128, 1, False, 1), (32, 512, 512, 4, False, 1),
+             (3, 512, 512, 4, False, 1), (64, 256, 256, 1, True, 2)]
+
+
+def phase_reflect_pad(seed: int) -> dict:
+    """The reflect-pad kernel at every pad site of the serving paths (bf16
+    at B=1 and 8, f32 at B=1) against its plain version and against the
+    route it replaced (ReLU, nearest x2 upsample and F.pad, each its own
+    pass), bit for bit, with -0 in the input; then at PAD_TIMED (B=8,
+    bf16) the kernel's device time (CUDA-graph replay, back to back, so an
+    input under the 50 MB L2 is warm) beside its bound (read x once, write
+    y once at HBM speed), the plain version's time and the replaced
+    route's."""
+    import torch
+    import torch.nn.functional as F
+
+    from fast_neural_style_transfer_tpu_torch.ops import conv, cuda_pad
+
+    def replaced(x, pad, relu, up):
+        if relu:
+            x = torch.relu(x)
+        if up != 1:
+            x = F.interpolate(x, scale_factor=up, mode="nearest")
+            x = x.contiguous(memory_format=torch.channels_last)
+        x = F.pad(x, (pad, pad, pad, pad), mode="reflect")
+        return x.contiguous(memory_format=torch.channels_last)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bad, err = [], 0.0
+    with torch.inference_mode():
+        for c, h, w, pad, relu, up in PAD_SITES:
+            for n, dtype in ((1, torch.bfloat16), (8, torch.bfloat16), (1, torch.float32)):
+                x = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
+                x[..., ::5] = -0.0
+                x = x.permute(0, 3, 1, 2)
+                before = conv.reflect_pad_hw.launches
+                y = conv.reflect_pad_hw(x, pad, relu=relu, upsample=up)
+                launched = conv.reflect_pad_hw.launches - before
+                torch.cuda.synchronize()
+                case = [c, h, w, pad, relu, up, n, str(dtype)]
+                for name, want in (("plain", cuda_pad.reflect_pad_reference(
+                        x, pad, relu=relu, upsample=up)), ("replaced", replaced(x, pad, relu, up))):
+                    if launched != 1 or not torch.equal(bits(y), bits(want)):
+                        bad.append(case + [name])
+                    if y.shape == want.shape:
+                        err = max(err, float((y.float() - want.float()).abs().max()))
+        times = []
+        for c, h, w, pad, relu, up in PAD_TIMED:
+            x = torch.randn((8, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+            x = x.permute(0, 3, 1, 2)
+            y = cuda_pad.reflect_pad(x, pad, relu=relu, upsample=up)
+            moved = (x.numel() + y.numel()) * x.element_size()
+            times.append({
+                "shape": [8, c, h, w], "pad": pad, "relu": relu, "upsample": up,
+                "plan": cuda_pad.plan_pad(8, c, h, w, 2, pad, up, x.data_ptr())._asdict(),
+                "ms": graph_ms(lambda: cuda_pad.reflect_pad(x, pad, relu=relu, upsample=up)),
+                "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "plain_ms": graph_ms(lambda: cuda_pad.reflect_pad_reference(
+                    x, pad, relu=relu, upsample=up)),
+                "replaced_ms": graph_ms(lambda: replaced(x, pad, relu, up)),
+                "library_ms": graph_ms(lambda: F.pad(x, (pad,) * 4, mode="reflect").contiguous(
+                    memory_format=torch.channels_last)),
+            })
+            times[-1]["roofline_pct"] = 100 * times[-1]["bound_ms"] / times[-1]["ms"]
+    ok = not bad
+    emit("reflect_pad", ok=ok, sites=len(PAD_SITES), mismatches=bad, max_abs_err=err,
+         times=times)
+    if not ok:
+        fail("reflect_pad phase")
+    return {"times": times, "max_abs_err": err}
+
+
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
           "multi_style", "video", "adain", "export", "int8", "spatial", "spatial_train",
           "spatial_adain", "data_parallel", "data_space", "data_parallel_serving", "tooling",
-          "times", "train_times", "spatial_times", "in_fwd_budgets", "in_bwd_budgets")
+          "times", "train_times", "spatial_times", "in_fwd_budgets", "in_bwd_budgets",
+          "reflect_pad")
 # recorded findings, run on request only
 EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity", "spatial_profile",
                 "data_parallel_cards")
@@ -4808,6 +4934,7 @@ def main() -> int:
         run("in_fwd_budgets", phase_in_fwd_budgets, args.seed)
     if "in_bwd_budgets" in phases:
         run("in_bwd_budgets", phase_in_bwd_budgets, args.seed)
+    pads = run("reflect_pad", phase_reflect_pad, args.seed) if "reflect_pad" in phases else None
     emit("done", seconds=time.perf_counter() - t0, phases=list(phases),
          phase_seconds=seconds)
     if phases == PHASES:
@@ -4981,6 +5108,32 @@ def main() -> int:
             kernels[k]["launches_tooling"] = {
                 path: tooling[path].get(fn, 0)
                 for path in ("pipeline", "parity", "drill", "quickstart")}
+        kernels.append({
+            "name": "reflect_pad",
+            "route": "cuda",
+            "source": src + "reflect_pad.cu",
+            "replaces": None,  # jnp.pad, lowered by XLA
+            # the serving phase's forwards (13 a forward); conv1's pad of
+            # the image batch in each training step; the video CLI's
+            # forwards; the AdaIN training steps (the decoder's first pad)
+            # and the AdaIN stylizer's forwards (9 each); the int8 path
+            # (none: its convs gather their own codes) and its calibration
+            "launches": served["pad_launches"],
+            "launches_training": trained["launches"]["reflect_pad"],
+            "launches_video": video["counts"]["reflect_pad"],
+            "launches_adain": {"training": adain["counts"]["reflect_pad"]["launches"],
+                               "stylizer": sum(adain["stylizer_pad_launches"])},
+            "launches_int8": {"forwards": sum(int8["pad_launches"]),
+                              "calibrate": int8["calibrate_pad_launches"]},
+            # against the plain version and the replaced route at every
+            # serving pad site (phase_reflect_pad)
+            "max_abs_err": pads["max_abs_err"],
+            # B=8 bf16 at PAD_TIMED: the kernel, its bound, the plain version,
+            # the route it replaced and F.pad(...).contiguous
+            **{k: [t[k] for t in pads["times"]]
+               for k in ("ms", "bound_ms", "plain_ms", "replaced_ms", "library_ms")},
+            "bound_by": "bytes",
+        })
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}), flush=True)

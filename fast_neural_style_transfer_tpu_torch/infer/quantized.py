@@ -45,7 +45,6 @@ Whether int8 is faster than bf16 on the card is measured in
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Dict, Mapping, Sequence
 
 import numpy as np
@@ -56,6 +55,7 @@ from fast_neural_style_transfer_tpu_torch.models.transformer import (
     require_single_style,
 )
 from fast_neural_style_transfer_tpu_torch.ops.conv import conv_transpose2d, reflect_conv2d
+from fast_neural_style_transfer_tpu_torch.ops.cuda_pad import source_index
 from fast_neural_style_transfer_tpu_torch.ops.norm import instance_norm
 
 _EPS = 1e-12
@@ -168,23 +168,14 @@ def _quantize_act(x: torch.Tensor, static_scale=None):
     return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
 
 
-@functools.lru_cache(maxsize=64)
-def _reflect_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
-    """Source rows of an n-row axis reflect-padded by ``pad`` on each side."""
-    if pad >= n:
-        raise ValueError(f"reflect padding {pad} needs more than {pad} rows, got {n}")
-    j = np.arange(-pad, n + pad)
-    j = np.abs(j)
-    j = np.where(j >= n, 2 * (n - 1) - j, j)
-    return torch.from_numpy(j).to(device)
-
-
 def _reflect_pad(xq: torch.Tensor, pad: int) -> torch.Tensor:
     """NCHW int8 codes -> NHWC, reflect-padded by ``pad`` (an index gather)."""
     _, _, h, w = xq.shape
+    if pad >= min(h, w):
+        raise ValueError(f"reflect padding {pad} needs sides above it, got {h}x{w}")
     return (xq.permute(0, 2, 3, 1)
-            .index_select(1, _reflect_index(h, pad, xq.device))
-            .index_select(2, _reflect_index(w, pad, xq.device)))
+            .index_select(1, source_index(h, pad, device=xq.device))
+            .index_select(2, source_index(w, pad, device=xq.device)))
 
 
 def _zero_insert(xq: torch.Tensor) -> torch.Tensor:

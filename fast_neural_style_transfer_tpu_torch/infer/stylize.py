@@ -73,7 +73,10 @@ def serve_u8(image_u8, device: torch.device, bucket_multiple: int, launch) -> np
     batch = image_u8[None] if squeeze else image_u8
     n, hh, ww = batch.shape[:3]
     with tracing.span("stylize.copy_in", n=n, h=hh, w=ww):
-        x = torch.from_numpy(np.array(batch)).to(device)
+        # straight from the caller's buffer (copied only if it is not C
+        # contiguous or not writable): the copy to the device completes
+        # before this returns, so the buffer is free again afterwards
+        x = torch.from_numpy(np.require(batch, requirements=("C", "W"))).to(device)
     with tracing.span("stylize.launch", n=n, h=hh, w=ww):
         padded, (h, w) = pad_to_multiple_reflect(x, bucket_multiple)
         outs = launch(padded)

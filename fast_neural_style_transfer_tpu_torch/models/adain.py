@@ -30,7 +30,6 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
@@ -149,14 +148,11 @@ class AdaINDecoder(nn.Sequential):
                 precision: Precision = Precision.f32()) -> torch.Tensor:
         x = feat.permute(0, 3, 1, 2).to(precision.compute_dtype)
         x = x.contiguous(memory_format=torch.channels_last)
-        last = len(_DECODER_CFG) - 1
+        # each conv's ReLU, and the nearest x2 upsample after it, are read
+        # through by the next conv's reflect pad (one pass on the card)
         for i, ((_, up), conv) in enumerate(zip(_DECODER_CFG, self.convs())):
-            if up:  # nearest x2
-                x = F.interpolate(x, scale_factor=2, mode="nearest")
-                x = x.contiguous(memory_format=torch.channels_last)
-            x = reflect_conv2d(x, conv.weight, conv.bias)
-            if i != last:
-                x = torch.relu(x)
+            x = reflect_conv2d(x, conv.weight, conv.bias, relu=i > 0,
+                               upsample=2 if up else 1)
         return x.permute(0, 2, 3, 1)
 
 

@@ -4,9 +4,11 @@ Each ``csrc/*.cu`` file exports plain ``extern "C"`` functions, so the
 shared library needs no PyTorch headers and builds in seconds. The library
 goes to ``build/kernels/`` at the repository root, named by a hash of the
 sources and flags, and is built on first use. A failed build raises.
-Different sources build in parallel when loaded from several threads
-(``load_all``); one source is built once per process. ``on_card`` calls
-an entry point on the card that holds its tensors.
+The first ``load`` of a process loads every source of ``SOURCES`` at once
+(``load_all``: their nvcc runs start together), so a path that needs two
+kernels waits for the slowest build, not for their sum; one source is
+built once per process. ``on_card`` calls an entry point on the card that
+holds its tensors.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every source of the package, for building ahead (parallel.mesh.launch)
-SOURCES = ("instance_norm", "conv_same_bwd")
+SOURCES = ("instance_norm", "conv_same_bwd", "reflect_pad")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,7 +77,15 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; one CDLL per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; one CDLL per process.
+    A source of ``SOURCES`` not loaded yet loads every one of them at once."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    return load_all(SOURCES if name in SOURCES else (name,))[name]
+
+
+def _load_one(name: str) -> ctypes.CDLL:
     with _lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
@@ -89,7 +99,7 @@ def load(name: str) -> ctypes.CDLL:
 def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
     """Load several sources, their nvcc runs started together."""
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        return dict(zip(names, pool.map(load, names)))
+        return dict(zip(names, pool.map(_load_one, names)))
 
 
 def on_card(device: torch.device, fn: Callable, *args) -> int:

@@ -4,6 +4,9 @@ Tensors are (N, C, H, W) in ``torch.channels_last`` memory format, weights
 in PyTorch's layouts (Conv2d OIHW, ConvTranspose2d IOHW). XLA lowered these
 ops for the JAX package, so here they go to cuDNN (or the CPU's convs):
 
+- ``reflect_pad_hw``: ReflectionPad2d, with an optional ReLU and nearest x2
+  upsample before it, staged by the hand-written kernel of
+  ``ops/cuda_pad.py`` where no gradient is needed;
 - ``reflect_conv2d``: ReflectionPad2d(k // 2) + valid Conv2d;
 - ``conv_transpose2d``: ConvTranspose2d(stride, padding, output_padding);
 - ``conv2d_same``: zero-padded Conv2d(padding=k // 2), VGG's convs. With
@@ -26,14 +29,39 @@ import torch
 import torch.nn.functional as F
 
 from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import Conv2dSameSmallCinFn
+from fast_neural_style_transfer_tpu_torch.ops.cuda_pad import reflect_pad, reflect_pad_reference
 
 
-def reflect_pad_hw(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Reflect-pad H and W by ``pad`` on each side, keeping channels_last."""
-    if pad == 0:
+def reflect_pad_hw(x: torch.Tensor, pad: int, *, relu: bool = False,
+                   upsample: int = 1) -> torch.Tensor:
+    """Reflect-pad H and W by ``pad`` on each side, keeping channels_last:
+    ``pad_reflect(up(relu(x)))``, with ``relu`` a ReLU first and
+    ``upsample`` 2 a nearest x2 upsample after it.
+
+    A tensor that needs a gradient takes ``torch.relu``, ``F.interpolate``
+    and ``F.pad`` under autograd; otherwise a CUDA tensor launches the
+    kernel (``ops/cuda_pad.py``; it raises on what the kernel does not
+    take) and a CPU tensor takes its plain version. All three give the same
+    bits. ``reflect_pad_hw.launches`` counts the kernel's launches."""
+    if pad == 0 and not relu and upsample == 1:
         return x
-    x = F.pad(x, (pad, pad, pad, pad), mode="reflect")
-    return x.contiguous(memory_format=torch.channels_last)
+    if x.requires_grad and torch.is_grad_enabled():
+        if relu:
+            x = torch.relu(x)
+        if upsample != 1:
+            x = F.interpolate(x, scale_factor=upsample, mode="nearest")
+            x = x.contiguous(memory_format=torch.channels_last)
+        x = F.pad(x, (pad, pad, pad, pad), mode="reflect")
+        return x.contiguous(memory_format=torch.channels_last)
+    if x.is_cpu:
+        return reflect_pad_reference(x, pad, relu=relu, upsample=upsample)
+    y = reflect_pad(x, pad, relu=relu, upsample=upsample)
+    reflect_pad_hw.launches += 1
+    return y
+
+
+# calls that launched the reflect-pad kernel
+reflect_pad_hw.launches = 0
 
 
 def reflect_conv2d(
@@ -42,11 +70,14 @@ def reflect_conv2d(
     bias: Optional[torch.Tensor],
     *,
     stride: int = 1,
+    relu: bool = False,
+    upsample: int = 1,
 ) -> torch.Tensor:
-    """Reflection-padded conv: pad = k // 2 on both sides, then a VALID conv.
+    """Reflection-padded conv: pad = k // 2 on both sides, then a VALID conv,
+    of ``up(relu(x))`` (``reflect_pad_hw``'s ``relu`` and ``upsample``).
     Weight and bias are cast to x's dtype."""
     k = weight.shape[-1]
-    x = reflect_pad_hw(x, k // 2)
+    x = reflect_pad_hw(x, k // 2, relu=relu, upsample=upsample)
     bias = None if bias is None else bias.to(x.dtype)
     return F.conv2d(x, weight.to(x.dtype), bias, stride=stride)
 
