@@ -159,7 +159,7 @@ def _stylize_one(args, device, plan=None) -> str:
     import numpy as np
     import torch
 
-    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype, exact_f32
     from fast_neural_style_transfer_tpu_torch.core.shapes import (
         pad_to_multiple_reflect,
         resolve_device,
@@ -169,7 +169,6 @@ def _stylize_one(args, device, plan=None) -> str:
         stylize_arbitrary,
     )
     from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
-    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
     from fast_neural_style_transfer_tpu_torch.utils import load_image, save_image
     from fast_neural_style_transfer_tpu_torch.utils.color import (
         luminance_transfer,
@@ -245,7 +244,7 @@ def _export(args, device: str) -> list:
                              "the strength")
     import torch
 
-    from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision, exact_f32
     from fast_neural_style_transfer_tpu_torch.core.shapes import (
         pad_to_multiple_reflect,
         resolve_device,
@@ -253,7 +252,6 @@ def _export(args, device: str) -> list:
     from fast_neural_style_transfer_tpu_torch.export.onnx_adain import export_adain_onnx
     from fast_neural_style_transfer_tpu_torch.models.adain import blended_style_stats
     from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
-    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
     from fast_neural_style_transfer_tpu_torch.utils import load_image
 
     vgg_params = resolve_params(args.vgg_weights)

@@ -129,11 +129,10 @@ def _spatial_rank(plan, opts: dict, style, size) -> str:
     stylized, the output gathered; rank 0 writes the file."""
     import torch
 
-    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype, exact_f32
     from fast_neural_style_transfer_tpu_torch.infer.spatial import stylize_spatial
     from fast_neural_style_transfer_tpu_torch.infer.stylize import load_style_params
     from fast_neural_style_transfer_tpu_torch.models.transformer import TransformerNet
-    from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
     from fast_neural_style_transfer_tpu_torch.utils import load_image, save_image
 
     prec = canonical_compute_dtype(opts["precision"])

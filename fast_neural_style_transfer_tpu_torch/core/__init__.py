@@ -1,6 +1,7 @@
 from fast_neural_style_transfer_tpu_torch.core.dtypes import (
     Precision,
     canonical_compute_dtype,
+    exact_f32,
 )
 from fast_neural_style_transfer_tpu_torch.core.shapes import (
     bucket_hw,
@@ -12,6 +13,7 @@ from fast_neural_style_transfer_tpu_torch.core.shapes import (
 __all__ = [
     "Precision",
     "canonical_compute_dtype",
+    "exact_f32",
     "bucket_hw",
     "pad_to_multiple_reflect",
     "resolve_device",

@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import torch
 
-from fast_neural_style_transfer_tpu_torch.core import Precision, resolve_device
+from fast_neural_style_transfer_tpu_torch.core import Precision, exact_f32, resolve_device
 from fast_neural_style_transfer_tpu_torch.examples import parse_args
 from fast_neural_style_transfer_tpu_torch.infer import Stylizer
 from fast_neural_style_transfer_tpu_torch.losses import LossTaps, style_targets_from_features
@@ -30,7 +30,7 @@ from fast_neural_style_transfer_tpu_torch.models import (
 from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
 from fast_neural_style_transfer_tpu_torch.train.schedule import LossWeightSchedule
 from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
-from fast_neural_style_transfer_tpu_torch.train.step import exact_f32, make_train_step
+from fast_neural_style_transfer_tpu_torch.train.step import make_train_step
 from fast_neural_style_transfer_tpu_torch.utils import save_image
 
 NUM_STYLES = 2

@@ -13,7 +13,7 @@ import sys
 import numpy as np
 import torch
 
-from fast_neural_style_transfer_tpu_torch.core import Precision, resolve_device
+from fast_neural_style_transfer_tpu_torch.core import Precision, exact_f32, resolve_device
 from fast_neural_style_transfer_tpu_torch.examples import parse_args
 from fast_neural_style_transfer_tpu_torch.export import export_onnx, save_torch_checkpoint
 from fast_neural_style_transfer_tpu_torch.infer import Stylizer
@@ -22,7 +22,7 @@ from fast_neural_style_transfer_tpu_torch.models import TransformerNet
 from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
 from fast_neural_style_transfer_tpu_torch.train.schedule import LossWeightSchedule
 from fast_neural_style_transfer_tpu_torch.train.state import create_train_state
-from fast_neural_style_transfer_tpu_torch.train.step import exact_f32, make_train_step
+from fast_neural_style_transfer_tpu_torch.train.step import make_train_step
 from fast_neural_style_transfer_tpu_torch.utils import save_image
 
 

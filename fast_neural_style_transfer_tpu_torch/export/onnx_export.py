@@ -21,7 +21,7 @@ import numpy as np
 
 from fast_neural_style_transfer_tpu_torch.export import onnx_writer as ow
 from fast_neural_style_transfer_tpu_torch.export.torch_convert import to_torch_state_dict
-from fast_neural_style_transfer_tpu_torch.models.transformer import NUM_RES_BLOCKS
+from fast_neural_style_transfer_tpu_torch.models.transformer import layer_walk
 
 INPUT_NAME = "input_image"
 OUTPUT_NAME = "output_image"
@@ -108,17 +108,21 @@ def build_onnx_model(
     the default is the reference's static export."""
     g = _GraphBuilder(to_torch_state_dict(state_dict))
 
-    h = g.relu(g.inorm(g.reflect_conv(INPUT_NAME, "conv1.conv", 9, 2), "norm1"))
-    h = g.relu(g.inorm(g.reflect_conv(h, "conv2.conv", 3, 2), "norm2"))
-    for i in range(NUM_RES_BLOCKS):
-        y = g.relu(g.inorm(g.reflect_conv(h, f"res_blocks.{i}.conv1.conv", 3, 1),
-                           f"res_blocks.{i}.in1"))
-        y = g.inorm(g.reflect_conv(y, f"res_blocks.{i}.conv2.conv", 3, 1),
-                    f"res_blocks.{i}.in2")
-        h = g.add(h, y)
-    h = g.relu(g.inorm(g.conv_transpose(h, "up1.upsample_conv", 3), "norm3"))
-    h = g.relu(g.inorm(g.conv_transpose(h, "up2.upsample_conv", 3), "norm4"))
-    g.reflect_conv(h, "final_conv.conv", 9, 1, out=OUTPUT_NAME)
+    def conv(name, h, stride):
+        prefix = name + ".conv"
+        k = g.weights[prefix + ".weight"].shape[-1]
+        return g.reflect_conv(h, prefix, k, stride,
+                              out=OUTPUT_NAME if name == "final_conv" else "")
+
+    def up(name, h):
+        prefix = name + ".upsample_conv"
+        return g.conv_transpose(h, prefix, g.weights[prefix + ".weight"].shape[-1])
+
+    def inorm(name, h, relu):
+        h = g.inorm(h, name)
+        return g.relu(h) if relu else h
+
+    layer_walk(INPUT_NAME, conv=conv, up=up, inorm=inorm, add=g.add)
 
     # The output's H and W equal the input's only for multiples of 4 (each
     # stride-2 encoder conv ceils, the decoder doubles twice): symbolic dims

@@ -25,12 +25,14 @@ from torch import nn
 
 from fast_neural_style_transfer_tpu_torch.models.transformer import (
     TransformerNet,
+    layer_walk,
     require_single_style,
 )
 
 
 class PlainStylizer(nn.Module):
-    """The stylizer's eval forward in plain torch ops, NCHW in and out."""
+    """The stylizer's eval forward in plain torch ops, NCHW in and out: its
+    ``layer_walk`` over the weights of ``self.net``."""
 
     def __init__(self, state_dict):
         super().__init__()
@@ -39,33 +41,26 @@ class PlainStylizer(nn.Module):
         self.net.load_state_dict(state_dict, strict=True)
         self.net.eval().requires_grad_(False)
 
-    @staticmethod
-    def _conv(x, layer, stride: int = 1):
-        c = layer.conv
-        k = c.weight.shape[-1]
-        return F.conv2d(F.pad(x, [k // 2] * 4, mode="reflect"), c.weight, c.bias,
-                        stride=stride)
-
-    @staticmethod
-    def _up(x, layer):
-        c = layer.upsample_conv
-        return F.conv_transpose2d(x, c.weight, c.bias, stride=2, padding=1,
-                                  output_padding=1)
-
-    @staticmethod
-    def _inorm(x, norm):
-        return F.instance_norm(x, weight=norm.weight, bias=norm.bias, eps=1e-5)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n = self.net
-        h = F.relu(self._inorm(self._conv(x, n.conv1, 2), n.norm1))
-        h = F.relu(self._inorm(self._conv(h, n.conv2, 2), n.norm2))
-        for blk in n.res_blocks:
-            y = F.relu(self._inorm(self._conv(h, blk.conv1), blk.in1))
-            h = h + self._inorm(self._conv(y, blk.conv2), blk.in2)
-        h = F.relu(self._inorm(self._up(h, n.up1), n.norm3))
-        h = F.relu(self._inorm(self._up(h, n.up2), n.norm4))
-        return self._conv(h, n.final_conv)
+        layers = self.net.layers
+
+        def conv(name, h, stride):
+            c = layers[name]
+            k = c.weight.shape[-1]
+            return F.conv2d(F.pad(h, [k // 2] * 4, mode="reflect"), c.weight, c.bias,
+                            stride=stride)
+
+        def up(name, h):
+            c = layers[name]
+            return F.conv_transpose2d(h, c.weight, c.bias, stride=2, padding=1,
+                                      output_padding=1)
+
+        def inorm(name, h, relu):
+            n = layers[name]
+            h = F.instance_norm(h, weight=n.weight, bias=n.bias, eps=1e-5)
+            return F.relu(h) if relu else h
+
+        return layer_walk(x, conv=conv, up=up, inorm=inorm)
 
 
 def export_torchscript(state_dict, path: str, *, example_hw: int = 256) -> str:

@@ -20,7 +20,7 @@ from typing import Any, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype, exact_f32
 from fast_neural_style_transfer_tpu_torch.core.shapes import (
     indexed_device,
     pad_to_multiple_reflect,
@@ -36,7 +36,6 @@ from fast_neural_style_transfer_tpu_torch.models.adain import (
 )
 from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, resolve_params
 from fast_neural_style_transfer_tpu_torch.parallel.mesh import make_mesh_plan, place_on_data_axis
-from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
 from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
 from fast_neural_style_transfer_tpu_torch.utils.image_io import (
     IMAGENET_MEAN,

@@ -45,13 +45,14 @@ Whether int8 is faster than bf16 on the card is measured in
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from fast_neural_style_transfer_tpu_torch.models.transformer import (
     NUM_RES_BLOCKS,
+    layer_walk,
     require_single_style,
 )
 from fast_neural_style_transfer_tpu_torch.ops.conv import conv_transpose2d, reflect_conv2d
@@ -94,11 +95,6 @@ def _get(tree: Mapping[str, Any], name: str) -> Dict[str, Any]:
     return tree[name]
 
 
-def _norm_leaves(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
-    return {n: {"gamma": sd[n + ".weight"].detach().float(),
-                "beta": sd[n + ".bias"].detach().float()} for n in _NORMS}
-
-
 def _div127(t: torch.Tensor) -> torch.Tensor:
     """t / 127 rounded once, as on the CPU, on every device: with a Python
     number as the divisor CUDA multiplies by its float reciprocal instead,
@@ -138,7 +134,9 @@ def quantize_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     list, ...), each conv also holding ``wmat`` (``_quantize_weight``), on
     the state_dict's device."""
     require_single_style(state_dict, "quantize_params")
-    leaves: Dict[str, Any] = _norm_leaves(state_dict)
+    leaves: Dict[str, Any] = {n: {"gamma": state_dict[n + ".weight"].detach().float(),
+                                  "beta": state_dict[n + ".bias"].detach().float()}
+                              for n in _NORMS}
     for name, prefix, transposed in _CONVS:
         q = _quantize_weight(state_dict[prefix + ".weight"], transposed)
         q["b"] = state_dict[prefix + ".bias"].detach().float()
@@ -244,35 +242,8 @@ def _qconv_transpose(qp, x: torch.Tensor, *, scale=None) -> torch.Tensor:
     return _int8_conv(_zero_insert(xq), qp, sx, 3, 1)
 
 
-def _walk_forward(tree: Mapping[str, Any], h: torch.Tensor, *, conv: Callable,
-                  up: Callable, inorm: Callable, add: Callable = torch.add
-                  ) -> torch.Tensor:
-    """The stylizer's eval-mode layer topology, once, for the int8 forward
-    and the float calibration pass alike, so a static ``act_scale`` cannot
-    attach to the wrong conv. ``conv(name, p, v, stride)``, ``up(name, p,
-    v)``, ``inorm(v, p, relu)``, ``add(a, b)`` (the residual); activations
-    NCHW channels_last."""
-    h = inorm(conv("conv1", tree["conv1"], h, 2), tree["norm1"], relu=True)
-    h = inorm(conv("conv2", tree["conv2"], h, 2), tree["norm2"], relu=True)
-    for i, rb in enumerate(tree["res_blocks"]):
-        y = inorm(conv(f"res_blocks.{i}.conv1", rb["conv1"], h, 1), rb["in1"], relu=True)
-        y = inorm(conv(f"res_blocks.{i}.conv2", rb["conv2"], y, 1), rb["in2"], relu=False)
-        h = add(h, y)
-    h = inorm(up("up1", tree["up1"], h), tree["norm3"], relu=True)
-    h = inorm(up("up2", tree["up2"], h), tree["norm4"], relu=True)
-    return conv("final_conv", tree["final_conv"], h, 1)
-
-
 def _nchw(x) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
-
-
-def _zip_trees(trees: Sequence[Mapping[str, Any]]) -> Dict[str, Any]:
-    """One tree whose nodes are lists: every replica's node, in order."""
-    out: Dict[str, Any] = {k: [t[k] for t in trees] for k in trees[0] if k != "res_blocks"}
-    out["res_blocks"] = [{c: [t["res_blocks"][i][c] for t in trees] for c in block}
-                         for i, block in enumerate(trees[0]["res_blocks"])]
-    return out
 
 
 def _shared_scales(ps, vs) -> list:
@@ -302,18 +273,22 @@ def apply_int8_replicas(qtrees: Sequence[Mapping[str, Any]], xs: Sequence[torch.
         raise ValueError(f"unknown norm_method {norm_method!r}")
     onepass = norm_method == "onepass"
 
-    def conv(name, ps, vs, stride):
+    def conv(name, vs, stride):
+        ps = [_get(t, name) for t in qtrees]
         return [_qreflect_conv(p, v, stride=stride, scale=s)
                 for p, v, s in zip(ps, vs, _shared_scales(ps, vs))]
 
-    def up(name, ps, vs):
+    def up(name, vs):
+        ps = [_get(t, name) for t in qtrees]
         return [_qconv_transpose(p, v, scale=s) for p, v, s in zip(ps, vs, _shared_scales(ps, vs))]
 
-    out = _walk_forward(
-        _zip_trees(qtrees), [_nchw(x) for x in xs], conv=conv, up=up,
-        inorm=lambda vs, ps, relu: [instance_norm(v, p["gamma"], p["beta"], relu=relu,
-                                                  onepass=onepass) for v, p in zip(vs, ps)],
-        add=lambda a, b: [x + y for x, y in zip(a, b)])
+    def inorm(name, vs, relu):
+        ps = [_get(t, name) for t in qtrees]
+        return [instance_norm(v, p["gamma"], p["beta"], relu=relu, onepass=onepass)
+                for v, p in zip(vs, ps)]
+
+    out = layer_walk([_nchw(x) for x in xs], conv=conv, up=up, inorm=inorm,
+                     add=lambda a, b: [x + y for x, y in zip(a, b)])
     return [o.permute(0, 2, 3, 1).to(x.dtype) for o, x in zip(out, xs)]
 
 
@@ -332,33 +307,34 @@ def calibrate(qparams: Mapping[str, Any], state_dict: Mapping[str, torch.Tensor]
     float forward of ``state_dict`` on ``sample`` (a representative NHWC
     network-space batch) records each conv input's max |x|, and that conv
     gets ``act_scale = max(max |x|, 1e-12) * margin / 127`` (float32). Runs
-    on the device of ``qparams``, through the same ``_walk_forward`` as
-    ``apply_int8``."""
+    on the device of ``qparams``, through the same ``layer_walk`` as
+    ``apply_int8``, so a static ``act_scale`` cannot attach to the wrong
+    conv."""
     dev = qparams["conv1"]["wq"].device
-    leaves: Dict[str, Any] = {n: {k: v.to(dev) for k, v in p.items()}
-                              for n, p in _norm_leaves(state_dict).items()}
-    for name, prefix, _ in _CONVS:
-        leaves[name] = {"w": state_dict[prefix + ".weight"].detach().float().to(dev),
-                        "b": state_dict[prefix + ".bias"].detach().float().to(dev)}
+    sd = {k: v.detach().float().to(dev) for k, v in state_dict.items()}
     maxes: Dict[str, float] = {}
 
     def record(name, v):
         maxes[name] = float(v.abs().max())
         return v
 
+    def conv(name, v, stride):
+        return reflect_conv2d(record(name, v), sd[name + ".conv.weight"],
+                              sd[name + ".conv.bias"], stride=stride)
+
+    def up(name, v):
+        return conv_transpose2d(record(name, v), sd[name + ".upsample_conv.weight"],
+                                sd[name + ".upsample_conv.bias"], stride=2, padding=1,
+                                output_padding=1)
+
     x = torch.as_tensor(np.asarray(sample, np.float32) if not torch.is_tensor(sample)
                         else sample).to(dev)
-    _walk_forward(
-        _tree(leaves), _nchw(x),
-        conv=lambda name, p, v, stride: reflect_conv2d(record(name, v), p["w"], p["b"],
-                                                       stride=stride),
-        up=lambda name, p, v: conv_transpose2d(record(name, v), p["w"], p["b"], stride=2,
-                                               padding=1, output_padding=1),
-        inorm=lambda v, p, relu: instance_norm(v, p["gamma"], p["beta"], relu=relu))
+    layer_walk(_nchw(x), conv=conv, up=up,
+               inorm=lambda name, v, relu: instance_norm(v, sd[name + ".weight"],
+                                                         sd[name + ".bias"], relu=relu))
     out = {n: dict(v) for n, v in qparams.items() if n != "res_blocks"}
     out["res_blocks"] = [{c: dict(p) for c, p in rb.items()} for rb in qparams["res_blocks"]]
     for name in _CONV_ORDER:
         _get(out, name)["act_scale"] = torch.tensor(
             max(maxes[name], _EPS) * margin / 127.0, dtype=torch.float32, device=dev)
     return out
-

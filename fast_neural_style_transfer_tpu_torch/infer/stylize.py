@@ -23,7 +23,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype, exact_f32
 from fast_neural_style_transfer_tpu_torch.core.shapes import (
     indexed_device,
     pad_to_multiple_reflect,
@@ -97,8 +97,7 @@ class Stylizer:
     ``precision``: "f32" or "bf16" compute; parameters stay float32 and IN
     statistics are float32. On the card, "f32" means real float32: the
     constructor turns TF32 off for cuDNN convolutions and for matmuls
-    (``torch.backends.cudnn.allow_tf32`` and
-    ``torch.backends.cuda.matmul.allow_tf32``, process-wide settings).
+    (``core/dtypes.py::exact_f32``, process-wide settings).
     "int8": the conv weights are quantized once, here (after any
     ``bake_style``), and every forward runs ``infer/quantized.py::
     apply_int8_replicas`` (the batch as one chunk, or its chunks on the
@@ -154,10 +153,7 @@ class Stylizer:
             net = TransformerNet()
             net.load_state_dict(params, strict=True)
             self.net = net.eval().to(self.device, memory_format=torch.channels_last)
-        if (self.device.type == "cuda"
-                and self.precision.compute_dtype == torch.float32):
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        exact_f32(self.device, self.precision)
         # the net (or quantized tree) on each other device of the plan
         own = self.qparams if self.qparams is not None else self.net
         self._replicas: Dict[torch.device, Any] = {

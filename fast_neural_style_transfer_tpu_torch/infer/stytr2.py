@@ -25,7 +25,7 @@ from typing import Any, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype, exact_f32
 from fast_neural_style_transfer_tpu_torch.core.shapes import (
     indexed_device,
     pad_to_multiple_reflect,
@@ -33,7 +33,6 @@ from fast_neural_style_transfer_tpu_torch.core.shapes import (
 )
 from fast_neural_style_transfer_tpu_torch.models.stytr2 import PATCH, make_stytr2
 from fast_neural_style_transfer_tpu_torch.infer.stylize import serve_u8
-from fast_neural_style_transfer_tpu_torch.train.step import exact_f32
 from fast_neural_style_transfer_tpu_torch.utils import tracing
 from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_unit, unit_to_u8
 

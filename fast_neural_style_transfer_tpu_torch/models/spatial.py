@@ -1,7 +1,7 @@
 """Height-sharded model forwards (the JAX package's ``models/spatial.py``).
 
-Mirrors of ``TransformerNet.forward`` and ``VGG19Features.forward`` built
-from ``ops/sharded.py``: a halo exchange per layer makes the convs exact
+The stylizer's ``layer_walk`` and VGG19's ``tap_walk`` with the layer ops of
+``ops/sharded.py``: a halo exchange per layer makes the convs exact
 and instance norm takes its statistics over the whole image, so outputs
 equal the unsharded forwards' to rounding (``tests/test_torch_spatial*.py``
 hold them against the JAX package's).
@@ -16,13 +16,17 @@ the unsharded image.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
-from fast_neural_style_transfer_tpu_torch.models.transformer import DROPOUT_RATE
+from fast_neural_style_transfer_tpu_torch.models.transformer import (
+    channel_dropout,
+    layer_walk,
+)
 from fast_neural_style_transfer_tpu_torch.models.vgg import tap_walk
 from fast_neural_style_transfer_tpu_torch.ops import sharded as sh
 
@@ -37,9 +41,10 @@ def transformer_forward_sharded(
     dropout: bool = True,
     extent: Optional[int] = None,
 ) -> torch.Tensor:
-    """The sharded mirror of a single-style ``TransformerNet``'s forward on
-    this rank's NHWC slab ``x``; NHWC out, x's dtype. Dropout runs in
-    training mode with ``dropout``, its masks from ``generator``.
+    """A single-style ``TransformerNet``'s forward on this rank's NHWC slab
+    ``x``: its ``layer_walk`` with halo-exchanging ops; NHWC out, x's dtype.
+    Dropout runs in training mode with ``dropout``, its masks from
+    ``generator``.
 
     ``extent`` (global active H at input scale, a multiple of 4): rows below
     it compute as the unsharded forward on an extent-tall input. Reflect
@@ -51,58 +56,44 @@ def transformer_forward_sharded(
     conv's none. None (training, aligned serving) is the plain path."""
     if getattr(net, "num_styles", 1) > 1:
         raise ValueError("the sharded forward is single-style (bake_style first)")
-    in_dtype = x.dtype
     dt = precision.compute_dtype
-    h = x.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=torch.channels_last)
+    layers = net.layers
     e = extent  # global active H at the current scale
 
-    def conv(layer, v, stride=1):
-        c = layer.conv
+    # conv and up pin at the input scale, then move e to the output scale,
+    # which the instance norm after them masks with
+    def conv(name, v, stride):
+        nonlocal e
+        c = layers[name]
         if e is not None:
             pad = c.weight.shape[-1] // 2
             pin = pad if stride == 1 else pad - stride + 1
             if pin > 0:
                 v = sh.pin_reflect_rows(v, e, pin, axis)
+            e //= stride
         return sh.reflect_conv2d_sharded(v, c.weight, c.bias, stride=stride,
                                          axis=axis).to(dt)
 
-    def up(layer, v):
-        c = layer.upsample_conv
+    def up(name, v):
+        nonlocal e
+        c = layers[name]
         if e is not None:
             # transpose-conv padding is zeros: the one input row past the
             # extent that active outputs read must be zero, not slab padding
             v = sh.set_global_row(v, e, torch.zeros_like(v[:, :, :1]), axis)
+            e *= 2
         return sh.conv_transpose2d_sharded(v, c.weight, c.bias, axis=axis).to(dt)
 
-    def inorm(v, norm, relu):
-        return sh.instance_norm_sharded(v, norm.weight, norm.bias, relu=relu,
+    def inorm(name, v, relu):
+        n = layers[name]
+        return sh.instance_norm_sharded(v, n.weight, n.bias, relu=relu,
                                         axis=axis, extent=e)
 
-    # pins happen inside conv/up at the input scale, so e advances between
-    # the conv and its instance norm (whose mask needs the output scale)
-    h = conv(net.conv1, h, 2)
-    e = None if e is None else e // 2
-    h = inorm(h, net.norm1, True)
-    h = conv(net.conv2, h, 2)
-    e = None if e is None else e // 2
-    h = inorm(h, net.norm2, True)
-    drop = net.training and dropout
-    for block in net.res_blocks:
-        y = inorm(conv(block.conv1, h), block.in1, True)
-        if drop:
-            u = torch.rand((y.shape[0], y.shape[1], 1, 1), generator=generator,
-                           device=y.device)
-            y = torch.where(u < 1.0 - DROPOUT_RATE, y / (1.0 - DROPOUT_RATE),
-                            torch.zeros((), dtype=y.dtype, device=y.device)).to(y.dtype)
-        y = inorm(conv(block.conv2, y), block.in2, False)
-        h = h + y
-    h = up(net.up1, h)
-    e = None if e is None else e * 2
-    h = inorm(h, net.norm3, True)
-    h = up(net.up2, h)
-    e = None if e is None else e * 2
-    h = inorm(h, net.norm4, True)
-    return conv(net.final_conv, h).permute(0, 2, 3, 1).to(in_dtype)
+    h = layer_walk(  # the NCHW input is the walk's alone, freed once conv1 has read it
+        x.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=torch.channels_last),
+        conv=conv, up=up, inorm=inorm, drop=partial(
+            channel_dropout, generator=generator) if net.training and dropout else None)
+    return h.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def vgg_features_sharded(

@@ -11,6 +11,9 @@ reference ``.pth`` loads with ``load_state_dict(strict=True)``:
               up2.upsample_conv ConvTranspose 64->32  k3 s2 p1 op1 | norm4 | ReLU
               final_conv.conv   ReflectConv 32->3 k9 s1, no activation
 
+``layer_walk`` holds that sequence once; every forward of the stylizer
+(this one, sharded, int8, ONNX, TorchScript) calls it with its own ops.
+
 ``forward`` takes and returns NHWC, like the JAX package's
 ``TransformerNet.apply``. In training mode (``net.train()``) each res block
 drops whole channels per sample with rate 0.1 (``Dropout2d``), the masks
@@ -45,7 +48,9 @@ plain forward bit for bit. This path is inference only.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Union
+import operator
+from functools import partial
+from typing import Callable, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,15 +71,11 @@ NUM_IN_SITES = 4 + 2 * NUM_RES_BLOCKS
 
 
 class ConvLayer(nn.Module):
-    """Reflection pad (k // 2) + Conv2d; the weights live in ``.conv``."""
+    """A reflect conv's weights, in ``.conv``; ``layer_walk`` holds its stride."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, k: int):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, k, stride=stride)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return reflect_conv2d(x, self.conv.weight, self.conv.bias,
-                              stride=self.conv.stride[0])
+        self.conv = nn.Conv2d(cin, cout, k)
 
 
 class UpsampleConv(nn.Module):
@@ -84,11 +85,6 @@ class UpsampleConv(nn.Module):
         super().__init__()
         self.upsample_conv = nn.ConvTranspose2d(
             cin, cout, 3, stride=2, padding=1, output_padding=1)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.upsample_conv
-        return conv_transpose2d(x, c.weight, c.bias, stride=2, padding=1,
-                                output_padding=1)
 
 
 class InstanceNorm(nn.Module):
@@ -153,15 +149,40 @@ class ResidualBlock(nn.Module):
         self.conv2 = ConvLayer(c, c, 3)
         self.in2 = InstanceNorm(c, num_styles)
 
-    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
-                **norm) -> torch.Tensor:
-        """``keep``: an (N, C, 1, 1) bool Dropout2d mask, or None; ``norm``:
-        ``InstanceNorm``'s ``style_weights``, ``onepass`` and ``stats``."""
-        y = self.in1(self.conv1(x), relu=True, **norm)
-        if keep is not None:
-            y = torch.where(keep, y / (1.0 - DROPOUT_RATE),
-                            torch.zeros((), dtype=y.dtype, device=y.device)).to(y.dtype)
-        return x + self.in2(self.conv2(y), **norm)
+
+_BLOCKS = tuple(tuple(f"res_blocks.{i}.{m}" for m in ("conv1", "in1", "conv2", "in2"))
+                for i in range(NUM_RES_BLOCKS))
+
+
+def layer_walk(h, *, conv: Callable, up: Callable, inorm: Callable,
+               add: Callable = operator.add, drop: Optional[Callable] = None):
+    """The stylizer's layer sequence with its ops supplied, as ``tap_walk``
+    is VGG19's: ``conv(name, h, stride)`` a reflect conv, ``up(name, h)`` the
+    x2 ConvTranspose2d, ``inorm(name, h, relu)`` an IN site (a ReLU after
+    all but each block's ``in2``), ``add(a, b)`` the residual, ``drop(h)``
+    (optional) channel dropout after each block's ``in1``. Names are the
+    layers' state_dict prefixes (``conv1``, ``norm1``, ``res_blocks.{i}.conv1``,
+    ``res_blocks.{i}.in1``, ..., ``final_conv``), in registration order; ``h``
+    is whatever the ops take (a tensor, replicas' tensors, an ONNX name)."""
+    h = inorm("norm1", conv("conv1", h, 2), True)
+    h = inorm("norm2", conv("conv2", h, 2), True)
+    for conv1, in1, conv2, in2 in _BLOCKS:
+        y = inorm(in1, conv(conv1, h, 1), True)
+        if drop is not None:
+            y = drop(y)
+        h = add(h, inorm(in2, conv(conv2, y, 1), False))
+    del y  # else the last block's activation lives on through the decoder
+    h = inorm("norm3", up("up1", h), True)
+    h = inorm("norm4", up("up2", h), True)
+    return conv("final_conv", h, 1)
+
+
+def channel_dropout(y: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``Dropout2d``: the (N, C, 1, 1) mask drawn from ``generator`` (None:
+    y's device's default)."""
+    u = torch.rand((y.shape[0], y.shape[1], 1, 1), generator=generator, device=y.device)
+    return torch.where(u < 1.0 - DROPOUT_RATE, y / (1.0 - DROPOUT_RATE),
+                       torch.zeros((), dtype=y.dtype, device=y.device)).to(y.dtype)
 
 
 class TransformerNet(nn.Module):
@@ -169,7 +190,11 @@ class TransformerNet(nn.Module):
     ``num_styles`` S; registration order follows the reference (conv1,
     norm1, conv2, norm2, res_blocks, up1, norm3, up2, norm4, final_conv), so
     ``state_dict()`` keys come out in the reference's order and
-    ``parameters()`` in the order torch Adam's state ids index."""
+    ``parameters()`` in the order torch Adam's state ids index.
+
+    ``layers``: each ``layer_walk`` name -> the submodule holding its
+    ``weight`` and ``bias``, resolved once so the forward parses no name (the
+    submodules themselves: deepcopy, ``.to`` and load_state_dict keep it)."""
 
     def __init__(self, num_styles: int = 1):
         super().__init__()
@@ -177,9 +202,9 @@ class TransformerNet(nn.Module):
             raise ValueError(f"num_styles must be >= 1, got {num_styles}")
         self.num_styles = num_styles
         s = num_styles
-        self.conv1 = ConvLayer(3, 64, 9, stride=2)
+        self.conv1 = ConvLayer(3, 64, 9)
         self.norm1 = InstanceNorm(64, s)
-        self.conv2 = ConvLayer(64, 256, 3, stride=2)
+        self.conv2 = ConvLayer(64, 256, 3)
         self.norm2 = InstanceNorm(256, s)
         self.res_blocks = nn.ModuleList(
             ResidualBlock(256, s) for _ in range(NUM_RES_BLOCKS))
@@ -188,6 +213,11 @@ class TransformerNet(nn.Module):
         self.up2 = UpsampleConv(64, 32)
         self.norm4 = InstanceNorm(32, s)
         self.final_conv = ConvLayer(32, 3, 9)
+        self.layers = {
+            name: m.conv if isinstance(m, ConvLayer)
+            else m.upsample_conv if isinstance(m, UpsampleConv) else m
+            for name, m in self.named_modules()
+            if isinstance(m, (ConvLayer, UpsampleConv, InstanceNorm))}
 
     def forward(self, x: torch.Tensor,
                 precision: Precision = Precision.f32(), *,
@@ -239,24 +269,28 @@ class TransformerNet(nn.Module):
         if multi:
             style_weights = torch.as_tensor(style_weights, dtype=torch.float32,
                                             device=x.device)
-        norm = {"style_weights": style_weights, "onepass": norm_method == "onepass",
-                "stats": stats}
-        in_dtype = x.dtype
-        h = x.permute(0, 3, 1, 2).to(precision.compute_dtype)
-        h = h.contiguous(memory_format=torch.channels_last)
-        h = self.norm1(self.conv1(h), relu=True, **norm)
-        h = self.norm2(self.conv2(h), relu=True, **norm)
-        drop = self.training and dropout
-        for block in self.res_blocks:
-            keep = None
-            if drop:
-                u = torch.rand((h.shape[0], h.shape[1], 1, 1), generator=generator,
-                               device=h.device)
-                keep = u < 1.0 - DROPOUT_RATE
-            h = block(h, keep, **norm)
-        h = self.norm3(self.up1(h), relu=True, **norm)
-        h = self.norm4(self.up2(h), relu=True, **norm)
-        out = self.final_conv(h).permute(0, 2, 3, 1).to(in_dtype)
+        onepass = norm_method == "onepass"
+        layers = self.layers
+
+        def conv(name, v, stride):
+            c = layers[name]
+            return reflect_conv2d(v, c.weight, c.bias, stride=stride)
+
+        def up(name, v):
+            c = layers[name]
+            return conv_transpose2d(v, c.weight, c.bias, stride=2, padding=1,
+                                    output_padding=1)
+
+        def inorm(name, v, relu):
+            return layers[name](v, relu, style_weights, onepass, stats)
+
+        # the NCHW input is the walk's alone, freed once conv1 has read it
+        h = layer_walk(
+            x.permute(0, 3, 1, 2).to(precision.compute_dtype).contiguous(
+                memory_format=torch.channels_last),
+            conv=conv, up=up, inorm=inorm, drop=partial(
+                channel_dropout, generator=generator) if self.training and dropout else None)
+        out = h.permute(0, 2, 3, 1).to(x.dtype)
         if return_stats:
             return out, stats.captured
         return out

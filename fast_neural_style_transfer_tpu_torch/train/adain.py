@@ -43,7 +43,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision, canonical_compute_dtype
+from fast_neural_style_transfer_tpu_torch.core.dtypes import (
+    Precision,
+    canonical_compute_dtype,
+    exact_f32,
+)
 from fast_neural_style_transfer_tpu_torch.models.adain import (
     STYLE_TAPS,
     AdaINDecoder,
@@ -54,7 +58,6 @@ from fast_neural_style_transfer_tpu_torch.train.state import global_norm
 from fast_neural_style_transfer_tpu_torch.train.step import (
     all_reduce_grads,
     all_reduce_metrics,
-    exact_f32,
     normalize_u8_batch,
 )
 

@@ -46,7 +46,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype
+from fast_neural_style_transfer_tpu_torch.core.dtypes import canonical_compute_dtype, exact_f32
 from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
 from fast_neural_style_transfer_tpu_torch.data import ImageFolderDataset, InputPipeline
 from fast_neural_style_transfer_tpu_torch.losses import LossTaps, style_targets_from_features
@@ -67,7 +67,6 @@ from fast_neural_style_transfer_tpu_torch.train.state import (
 )
 from fast_neural_style_transfer_tpu_torch.train.spatial_step import make_spatial_train_step
 from fast_neural_style_transfer_tpu_torch.train.step import (
-    exact_f32,
     make_eval_forward,
     make_train_step,
 )

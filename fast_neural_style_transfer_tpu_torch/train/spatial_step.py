@@ -38,7 +38,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision, exact_f32
 from fast_neural_style_transfer_tpu_torch.losses import LossTaps
 from fast_neural_style_transfer_tpu_torch.models.spatial import (
     transformer_forward_sharded,
@@ -53,7 +53,6 @@ from fast_neural_style_transfer_tpu_torch.train.state import TrainState, global_
 from fast_neural_style_transfer_tpu_torch.train.step import (
     ACTIVATION_CLAMP,
     all_reduce_grads,
-    exact_f32,
     normalize_u8_batch,
 )
 

@@ -43,8 +43,7 @@ key over the global batch.
 On the card the stylizer's 14 instance norms run the IN forward and
 backward kernels and VGG conv1_1's input gradient the conv backward kernel.
 In float32, TF32 is turned off for convolutions and matmuls
-(``torch.backends.cudnn.allow_tf32``, ``torch.backends.cuda.matmul.
-allow_tf32``, process-wide), so f32 means f32.
+(``core/dtypes.py::exact_f32``, process-wide), so f32 means f32.
 """
 
 from __future__ import annotations
@@ -54,7 +53,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision, exact_f32
 from fast_neural_style_transfer_tpu_torch.losses import (
     LossTaps,
     content_loss,
@@ -70,13 +69,6 @@ from fast_neural_style_transfer_tpu_torch.utils import tracing
 from fast_neural_style_transfer_tpu_torch.utils.image_io import u8_to_network
 
 ACTIVATION_CLAMP = 3.0
-
-
-def exact_f32(device: torch.device, precision: Precision) -> None:
-    """Turn TF32 off on the card when the compute dtype is float32."""
-    if device.type == "cuda" and precision.compute_dtype == torch.float32:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def normalize_u8_batch(batch: torch.Tensor) -> torch.Tensor:

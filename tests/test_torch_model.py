@@ -27,6 +27,7 @@ from fast_neural_style_transfer_tpu_torch.models import (
     TransformerNet,
     params_from_jax,
 )
+from fast_neural_style_transfer_tpu_torch.models.transformer import layer_walk
 
 
 @pytest.fixture(autouse=True)
@@ -117,3 +118,43 @@ def test_multi_style_params_load(jax_params):
     with torch.inference_mode():
         got = net(torch.from_numpy(x), style_weights=torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("styles", [1, 2])
+def test_layer_walk_visits_the_reference_layers(styles):
+    """``layer_walk`` over a TransformerNet's ``layers``: every parameter
+    prefix of its state_dict once, in the reference's registration order;
+    the reflect convs' strides 2, 2, then 1; a ReLU after every IN site
+    but each residual block's in2; dropout after each in1, the residual
+    add after each in2."""
+    net = TransformerNet(num_styles=styles)
+    keys = list(net.state_dict())
+    events = []
+
+    def visit(kind, name, arg=None):
+        events.append((kind, name, arg))
+        return name
+
+    out = layer_walk(
+        "x",
+        conv=lambda name, h, stride: visit("conv", name, stride),
+        up=lambda name, h: visit("up", name),
+        inorm=lambda name, h, relu: visit("inorm", name, relu),
+        add=lambda a, b: visit("add", b),
+        drop=lambda h: visit("drop", h))
+    assert out == "final_conv"
+    names = [name for kind, name, _ in events if kind in ("conv", "up", "inorm")]
+    assert [k for n in names for k in keys if k.startswith(n + ".")] == keys
+    for n in names:
+        assert net.layers[n].weight is net.get_parameter(
+            next(k for k in keys if k.startswith(n + ".")))
+    strides = [s for kind, _, s in events if kind == "conv"]
+    assert strides == [2, 2] + [1] * 11  # conv1, conv2, 10 in the blocks, final_conv
+    relu_off = [n for kind, n, relu in events if kind == "inorm" and not relu]
+    assert relu_off == [f"res_blocks.{i}.in2" for i in range(5)]
+    assert sum(kind == "inorm" for kind, _, _ in events) == NUM_IN_SITES
+    after = {a[:2]: b[:2] for a, b in zip(events, events[1:])}
+    for i in range(5):
+        in1, in2 = f"res_blocks.{i}.in1", f"res_blocks.{i}.in2"
+        assert after[("inorm", in1)] == ("drop", in1)
+        assert after[("inorm", in2)] == ("add", in2)
