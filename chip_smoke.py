@@ -510,21 +510,16 @@ def phase_conv_bwd_vs_plain(seed: int) -> float:
 
 
 def reset_launch_counts() -> None:
-    """Set the IN forward's and backward's launch counts, in all, by route,
-    by affine and by mode, and the reflect pad's, to 0."""
-    from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
-    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import (
-        instance_norm_bwd,
-        instance_norm_fwd,
-    )
+    """Set every kernel wrapper's launch counts (``ops/_build.py::COUNTED``:
+    the IN forward's and backward's, the conv backward's and the reflect
+    pad's), in all, by route, by affine and by mode, to 0."""
+    from fast_neural_style_transfer_tpu_torch.ops import conv, cuda_norm  # noqa: F401 (they count)
+    from fast_neural_style_transfer_tpu_torch.ops._build import COUNTED
 
-    reflect_pad_hw.launches = 0
-    for fn in (instance_norm_fwd, instance_norm_bwd):
-        fn.launches = 0
-        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
-        fn.launches_by_affine = dict.fromkeys(fn.launches_by_affine, 0)
-    for fn in (instance_norm_fwd, instance_norm_bwd):
-        fn.launches_by_mode = dict.fromkeys(fn.launches_by_mode, 0)
+    for fn in COUNTED:
+        for name, value in list(vars(fn).items()):
+            if name.startswith("launches"):
+                setattr(fn, name, dict.fromkeys(value, 0) if isinstance(value, dict) else 0)
 
 
 def nonzero(counts: dict) -> dict:
@@ -691,12 +686,41 @@ def phase_trained_weights() -> None:
                 fail(f"trained-weights check failed ({precision}, {h}x{w})")
 
 
+def replay_kernels(sty, x) -> dict:
+    """One forward of ``sty`` at ``x``'s key, which it has captured, under
+    torch.profiler: the ``in_fwd_*`` and reflect-pad kernels in the device
+    trace, against those the launch counters it moved say (an IN launch is
+    two kernels on the two-launch route, one on the others)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
+
+    replays = sty.graph_replays
+    routes, pads = dict(instance_norm_fwd.launches_by_route), reflect_pad_hw.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sty.stylize_u8(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    moved = {r: n - routes[r] for r, n in instance_norm_fwd.launches_by_route.items()}
+    return {"replayed": sty.graph_replays - replays,
+            "traced_in_fwd": sum(bool(re.search(r"\bin_fwd_", n)) for n in names),
+            "counted_in_fwd": moved["one_launch"] + 2 * moved["two_launch"] + moved["inject"],
+            "traced_pads": sum(bool(re.search(r"\bpad_(pixels|gather)\b", n)) for n in names),
+            "counted_pads": reflect_pad_hw.launches - pads}
+
+
 def phase_serving() -> dict:
     """The main path: the port's server (bf16, the trained checkpoint, the
     CLI's batching defaults) on 127.0.0.1:0 answers two bursts of 16
     concurrent requests and 8 sequential ones, then the inference CLI
     stylizes one file. Launch counters are set to 0 just before and read
-    just after: 14 IN launches and 13 reflect pads a forward. Requests go through http.client: the first urllib burst in
+    just after: 14 IN launches and 13 reflect pads a forward, the server's
+    forwards replaying the CUDA graphs its warm-up captured. Then one more
+    replay under torch.profiler: its ``in_fwd_*`` and pad kernels in the
+    device trace are those its counters add. Requests go through http.client: the first urllib burst in
     a process pays a client-side start-up cost of its own."""
     import torch
     from PIL import Image
@@ -775,6 +799,9 @@ def phase_serving() -> dict:
     by_route = dict(instance_norm_fwd.launches_by_route)
     pad_launches = reflect_pad_hw.launches
     forwards = stats["batches"] + 1  # server batches + the CLI's one forward
+    graphs = {"captures": sty.graph_captures, "replays": sty.graph_replays,
+              "replay_kernels": replay_kernels(sty, np.zeros((1, 256, 256, 3), np.uint8))}
+    rk = graphs["replay_kernels"]
     result = {
         "http_status": sorted({r[0] for r in burst + seq}),
         "burst1": burst_info[0], "burst2": burst_info[1],
@@ -785,13 +812,17 @@ def phase_serving() -> dict:
         "cli_output_size": list(cli_size), "launches": launches,
         "launches_by_route": by_route, "expected_launches": NUM_IN_SITES * forwards,
         "pad_launches": pad_launches, "expected_pad_launches": STYLIZER_PADS * forwards,
+        "graphs": graphs,
     }
     ok = (all(r[0] == 200 and r[1] == (256, 256) for r in burst + seq)
           and stats["mean_batch_occupancy"] > 1
           and health["device"] == torch.cuda.get_device_name(0)
           and cli_size == (320, 240) and launches == NUM_IN_SITES * forwards
           and by_route[SITE_ROUTE] == launches
-          and pad_launches == STYLIZER_PADS * forwards)
+          and pad_launches == STYLIZER_PADS * forwards
+          and graphs["replays"] > 0 and rk["replayed"] == 1
+          and rk["traced_in_fwd"] == rk["counted_in_fwd"] == NUM_IN_SITES
+          and rk["traced_pads"] == rk["counted_pads"] == STYLIZER_PADS)
     emit("serving", ok=ok, **result)
     if not ok or launches == 0:
         fail("serving phase")

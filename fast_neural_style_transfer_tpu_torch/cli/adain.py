@@ -174,7 +174,7 @@ def _stylize_one(args, device, plan=None) -> str:
         luminance_transfer,
         match_color,
     )
-    from fast_neural_style_transfer_tpu_torch.utils.image_io import IMAGENET_MEAN, IMAGENET_STD
+    from fast_neural_style_transfer_tpu_torch.utils.image_io import mean_std
 
     out_path = args.output or "adain_stylized.jpg"
     dev = resolve_device(device)
@@ -216,8 +216,7 @@ def _stylize_one(args, device, plan=None) -> str:
                                     precision=prec)[:, :h, :w, :].float()
     with torch.inference_mode():
         if args.preserve_color == "luma":
-            mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
-            std = torch.as_tensor(IMAGENET_STD, device=dev)
+            mean, std = mean_std(dev)
             out01 = luminance_transfer(out * std + mean, content_orig * std + mean)
             out = (out01 - mean) / std
     save_image(out.cpu().numpy(), out_path)

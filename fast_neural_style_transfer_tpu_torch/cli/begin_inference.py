@@ -146,13 +146,9 @@ def _spatial_rank(plan, opts: dict, style, size) -> str:
     if plan.space.index == 0:
         if opts["preserve_color"] == "luma":
             from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
-            from fast_neural_style_transfer_tpu_torch.utils.image_io import (
-                IMAGENET_MEAN,
-                IMAGENET_STD,
-            )
+            from fast_neural_style_transfer_tpu_torch.utils.image_io import mean_std
 
-            mean = torch.as_tensor(IMAGENET_MEAN, device=out.device)
-            std = torch.as_tensor(IMAGENET_STD, device=out.device)
+            mean, std = mean_std(out.device)
             out01 = luminance_transfer(out * std + mean, x * std + mean)
             out = (out01 - mean) / std
         save_image(out.cpu().numpy(), path)

@@ -26,6 +26,7 @@ from fast_neural_style_transfer_tpu_torch.core.shapes import (
     pad_to_multiple_reflect,
     resolve_device,
 )
+from fast_neural_style_transfer_tpu_torch.infer.graphs import ForwardGraphs, GraphCounts, engages
 from fast_neural_style_transfer_tpu_torch.infer.stylize import serve_u8
 from fast_neural_style_transfer_tpu_torch.models.adain import (
     ENCODE_TAP,
@@ -38,15 +39,14 @@ from fast_neural_style_transfer_tpu_torch.models.vgg_weights import make_vgg, re
 from fast_neural_style_transfer_tpu_torch.parallel.mesh import make_mesh_plan, place_on_data_axis
 from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
 from fast_neural_style_transfer_tpu_torch.utils.image_io import (
-    IMAGENET_MEAN,
-    IMAGENET_STD,
+    mean_std,
     network_to_u8,
     normalize_image,
     u8_to_network,
 )
 
 
-class ArbitraryStylizer:
+class ArbitraryStylizer(GraphCounts):
     """Decoder + frozen VGG with a cached style; serves uint8 batches.
 
     ``decoder_params``: ``AdaINDecoder``'s state_dict (``load_decoder``,
@@ -59,6 +59,10 @@ class ArbitraryStylizer:
     ``sharding``: a ``ReplicaPlan``, whose first device is ``device``: a
     replica on each of its devices, and a batch whose leading dim divides
     its degree split over them.
+
+    ``stylize_u8`` replays a CUDA graph per (rows, height, width, alpha)
+    where ``infer/graphs.py::engages`` (as ``infer.stylize.Stylizer``);
+    ``set_style`` drops the graphs, which read the cached style.
     """
 
     def __init__(
@@ -99,6 +103,8 @@ class ArbitraryStylizer:
                                      make_vgg(vgg_params, d))
         self._style: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._styles: dict = {}  # the cached style on every device of the plan
+        if engages(self.device, sharding=sharding):
+            self._graphs = ForwardGraphs()
 
     @torch.inference_mode()
     def set_style(self, style, style_weights=None) -> "ArbitraryStylizer":
@@ -110,6 +116,8 @@ class ArbitraryStylizer:
         self._style = blended_style_stats(self.vgg, styles, style_weights,
                                           precision=self.precision)
         self._styles = {d: tuple(t.to(d) for t in self._style) for d in self._replicas}
+        if self._graphs is not None:
+            self._graphs.clear()
         return self
 
     def set_style_u8(self, style_u8, style_weights=None) -> "ArbitraryStylizer":
@@ -137,8 +145,7 @@ class ArbitraryStylizer:
             t = (alpha * t.float() + (1.0 - alpha) * c_feat.float()).to(c_feat.dtype)
         y = decoder(t, self.precision)
         if self.preserve_color == "luma":
-            mean = torch.as_tensor(IMAGENET_MEAN, device=y.device)
-            std = torch.as_tensor(IMAGENET_STD, device=y.device)
+            mean, std = mean_std(y.device)
             y01 = luminance_transfer(y.float() * std + mean, x * std + mean)
             y = (y01 - mean) / std
         return network_to_u8(y)
@@ -150,9 +157,11 @@ class ArbitraryStylizer:
         the bucket and cropped back; its spans)."""
         if self._style is None:
             raise ValueError("no style set: call set_style(_u8) first")
+        alpha = float(alpha)
         return serve_u8(image_u8, self.device, self.bucket_multiple,
-                        lambda x: [self._u8_roundtrip(c, float(alpha))
-                                   for c in place_on_data_axis(self.sharding, x)])
+                        lambda x: [self._u8_roundtrip(c, alpha)
+                                   for c in place_on_data_axis(self.sharding, x)],
+                        self._graphs, (alpha,))
 
 
 def stylize_directory_arbitrary(

@@ -15,6 +15,7 @@ other batch runs on the first device (``parallel.place_on_data_axis``).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -29,6 +30,7 @@ from fast_neural_style_transfer_tpu_torch.core.shapes import (
     pad_to_multiple_reflect,
     resolve_device,
 )
+from fast_neural_style_transfer_tpu_torch.infer.graphs import ForwardGraphs, GraphCounts, engages
 from fast_neural_style_transfer_tpu_torch.infer.quantized import (
     apply_int8_replicas,
     quantize_params,
@@ -45,10 +47,9 @@ from fast_neural_style_transfer_tpu_torch.parallel.mesh import make_mesh_plan, p
 from fast_neural_style_transfer_tpu_torch.utils import tracing
 from fast_neural_style_transfer_tpu_torch.utils.color import luminance_transfer
 from fast_neural_style_transfer_tpu_torch.utils.image_io import (
-    IMAGENET_MEAN,
-    IMAGENET_STD,
     decode_image,
     denormalize_image,
+    mean_std,
     network_to_u8,
     resize_image,
     scan_image_files,
@@ -57,7 +58,8 @@ from fast_neural_style_transfer_tpu_torch.utils.image_io import (
 )
 
 
-def serve_u8(image_u8, device: torch.device, bucket_multiple: int, launch) -> np.ndarray:
+def serve_u8(image_u8, device: torch.device, bucket_multiple: int, launch,
+             graphs: Optional[ForwardGraphs] = None, key: tuple = ()) -> np.ndarray:
     """The uint8 round trip every stylizer serves by: raw uint8
     (H,W,3)/(N,H,W,3) in, copied to ``device``, reflect-padded up to a
     multiple of ``bucket_multiple``; ``launch(padded)`` -> the uint8 NHWC
@@ -65,28 +67,52 @@ def serve_u8(image_u8, device: torch.device, bucket_multiple: int, launch) -> np
     the host only when there are several). Spans
     (``utils.tracing``): ``stylize.copy_in``, ``stylize.launch`` (pad,
     network, u8 out enqueued) and ``stylize.copy_out`` (waits for the
-    device)."""
+    device).
+
+    ``graphs`` (``infer/graphs.py``): the device program from the pad to
+    the u8 out is a CUDA graph per (rows, height, width) + ``key``. A key's
+    first call runs eagerly; its second runs eagerly, then is captured (a
+    one-time cost of about one more enqueue and the graph's instantiation,
+    paid by that call; the graphs' shared pool holds about one more
+    forward's working set); a captured key copies into its static input
+    and replays, inside ``stylize.launch``, as a ``stylize.replay`` span."""
     image_u8 = np.asarray(image_u8)
     if image_u8.dtype != np.uint8:
         raise TypeError(f"stylize_u8 wants uint8, got {image_u8.dtype}")
     squeeze = image_u8.ndim == 3
     batch = image_u8[None] if squeeze else image_u8
     n, hh, ww = batch.shape[:3]
-    with tracing.span("stylize.copy_in", n=n, h=hh, w=ww):
-        # straight from the caller's buffer (copied only if it is not C
-        # contiguous or not writable): the copy to the device completes
-        # before this returns, so the buffer is free again afterwards
-        x = torch.from_numpy(np.require(batch, requirements=("C", "W"))).to(device)
-    with tracing.span("stylize.launch", n=n, h=hh, w=ww):
-        padded, (h, w) = pad_to_multiple_reflect(x, bucket_multiple)
-        outs = launch(padded)
-    with tracing.span("stylize.copy_out", n=n, h=hh, w=ww):
-        outs = [o[:, :h, :w, :].cpu() for o in outs]
-        out = (outs[0] if len(outs) == 1 else torch.cat(outs)).numpy()
+    key = (n, hh, ww) + tuple(key)
+
+    def program(x):
+        return launch(pad_to_multiple_reflect(x, bucket_multiple)[0])
+
+    with graphs.lock if graphs is not None else contextlib.nullcontext():
+        graph = graphs.get(key) if graphs is not None else None
+        with tracing.span("stylize.copy_in", n=n, h=hh, w=ww):
+            # straight from the caller's buffer (copied only if it is not C
+            # contiguous or not writable): the copy to the device completes
+            # before this returns, so the buffer is free again afterwards
+            src = torch.from_numpy(np.require(batch, requirements=("C", "W")))
+            if graph is not None:
+                x = graph.x.copy_(src)
+            else:  # a tensor of its own where it may become a static input
+                x = src.to(device, copy=graphs is not None)
+        with tracing.span("stylize.launch", n=n, h=hh, w=ww):
+            if graph is None:
+                outs = program(x)
+            else:
+                with tracing.span("stylize.replay", n=n, h=hh, w=ww):
+                    outs = graphs.replay(graph)
+        with tracing.span("stylize.copy_out", n=n, h=hh, w=ww):
+            outs = [o[:, :hh, :ww, :].cpu() for o in outs]
+            out = (outs[0] if len(outs) == 1 else torch.cat(outs)).numpy()
+        if graph is None and graphs is not None and graphs.admits(key):
+            graphs.capture(key, x, program)
     return out[0] if squeeze else out
 
 
-class Stylizer:
+class Stylizer(GraphCounts):
     """A stylizer network on one device, with the u8 and network-space APIs.
 
     ``params``: a single-style reference-layout state_dict (``load_params``,
@@ -117,6 +143,14 @@ class Stylizer:
     requantization amplifies: on the card two chunks of a B=8 batch moved
     int8 outputs by up to 18 levels (16 with every scale held equal) and
     f32 by one (``chip_smoke.py``, phase ``data_parallel_serving``).
+
+    ``stylize_u8`` on a card, unsharded (or a one-device plan) and not
+    int8 replays a CUDA graph of its device program per (rows, height,
+    width) (``infer/graphs.py``): a key that comes back costs one capture,
+    about one more enqueue and the graph's instantiation, on its second
+    call, and the graphs' shared pool holds about one more forward's
+    working set. ``graph_captures``, ``graph_replays`` and
+    ``graph_evictions`` count them. Every other path runs eagerly.
     """
 
     def __init__(
@@ -160,6 +194,8 @@ class Stylizer:
             d: to_device(own, d) if self.qparams is not None else copy.deepcopy(own).to(d)
             for d in (sharding.devices if sharding is not None else ())
             if d != self.device}
+        if engages(self.device, sharding=sharding, int8=self.qparams is not None):
+            self._graphs = ForwardGraphs()
 
     # -- constructors -------------------------------------------------------
 
@@ -199,8 +235,7 @@ class Stylizer:
             return [network_to_u8(y) for y in ys]
         out = []
         for y, x_u8 in zip(ys, chunks):
-            mean = torch.as_tensor(IMAGENET_MEAN, device=y.device)
-            std = torch.as_tensor(IMAGENET_STD, device=y.device)
+            mean, std = mean_std(y.device)
             y01 = luminance_transfer(torch.clamp(y * std + mean, 0.0, 1.0),
                                      u8_to_unit(x_u8))
             out.append(torch.clamp(torch.round(y01 * 255.0), 0, 255).to(torch.uint8))
@@ -226,9 +261,9 @@ class Stylizer:
     @torch.inference_mode()
     def stylize_u8(self, image_u8: np.ndarray) -> np.ndarray:
         """Raw uint8 (H,W,3)/(N,H,W,3) in -> stylized uint8 out, by
-        ``serve_u8`` (its spans)."""
+        ``serve_u8`` (its spans; replayed as a graph where one is kept)."""
         return serve_u8(image_u8, self.device, self.bucket_multiple,
-                        lambda x: self._u8_roundtrip(self._chunks(x)))
+                        lambda x: self._u8_roundtrip(self._chunks(x)), self._graphs)
 
     @torch.inference_mode()
     def raw_forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ The first ``load`` of a process loads every source of ``SOURCES`` at once
 (``load_all``: their nvcc runs start together), so a path that needs two
 kernels waits for the slowest build, not for their sum; one source is
 built once per process. ``on_card`` calls an entry point on the card that
-holds its tensors.
+holds its tensors. ``counted`` gives a kernel wrapper its launch counters
+and lists it in ``COUNTED``, where every reader of them finds it.
 """
 
 from __future__ import annotations
@@ -109,3 +110,17 @@ def on_card(device: torch.device, fn: Callable, *args) -> int:
     device, whichever card the pointers are on."""
     with torch.cuda.device(device):
         return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+# every kernel wrapper with launch counters, as ``counted`` made them
+COUNTED: list = []
+
+
+def counted(fn: Callable, **by: Sequence[str]) -> None:
+    """Give the kernel wrapper ``fn`` its launch counters, all 0:
+    ``fn.launches`` and, for each ``by`` name, a dict
+    ``fn.launches_by_<name>`` over its keys. ``COUNTED`` lists ``fn``."""
+    fn.launches = 0
+    for name, keys in by.items():
+        setattr(fn, f"launches_by_{name}", dict.fromkeys(keys, 0))
+    COUNTED.append(fn)

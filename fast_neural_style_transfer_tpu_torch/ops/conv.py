@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from fast_neural_style_transfer_tpu_torch.ops import _build
 from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import Conv2dSameSmallCinFn
 from fast_neural_style_transfer_tpu_torch.ops.cuda_pad import reflect_pad, reflect_pad_reference
 
@@ -61,7 +62,7 @@ def reflect_pad_hw(x: torch.Tensor, pad: int, *, relu: bool = False,
 
 
 # calls that launched the reflect-pad kernel
-reflect_pad_hw.launches = 0
+_build.counted(reflect_pad_hw)
 
 
 def reflect_conv2d(

@@ -343,9 +343,8 @@ def conv2d_same_bwd(
 
 
 # calls that launched a kernel: dx-only in all and by route; full mode
-conv2d_same_dx.launches = 0
-conv2d_same_dx.launches_by_route = {"tap_packed": 0, "tiled": 0}
-conv2d_same_bwd.launches = 0
+_build.counted(conv2d_same_dx, route=("tap_packed", "tiled"))
+_build.counted(conv2d_same_bwd)
 
 
 class Conv2dSameSmallCinFn(torch.autograd.Function):

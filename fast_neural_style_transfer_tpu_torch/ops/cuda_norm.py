@@ -378,11 +378,9 @@ def _launch_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 # "inject": reference moments; the sharded forward's two passes, "stats":
 # the statistics-only route, and "sharded_apply": the inject kernel with the
 # global moments)
-instance_norm_fwd.launches = 0
-instance_norm_fwd.launches_by_route = {"one_launch": 0, "two_launch": 0, "inject": 0}
-instance_norm_fwd.launches_by_affine = {"channel": 0, "sample": 0}
-instance_norm_fwd.launches_by_mode = {"plain": 0, "capture": 0, "inject": 0,
-                                      "stats": 0, "sharded_apply": 0}
+_build.counted(instance_norm_fwd, route=("one_launch", "two_launch", "inject"),
+               affine=("channel", "sample"),
+               mode=("plain", "capture", "inject", "stats", "sharded_apply"))
 
 
 def _ref_rows(ref: torch.Tensor, n: int, c: int, name: str) -> Tuple[torch.Tensor, int]:
@@ -706,10 +704,8 @@ def _count_bwd(route: str, mode: str, gstride: int) -> None:
 # calls that launched a backward kernel: in all, by route, by affine and by
 # mode ("plain"; the sharded backward's two passes, "bwd_sums" and
 # "bwd_apply", both on the two-launch kernel's passes)
-instance_norm_bwd.launches = 0
-instance_norm_bwd.launches_by_route = {"one_launch": 0, "two_launch": 0}
-instance_norm_bwd.launches_by_affine = {"channel": 0, "sample": 0}
-instance_norm_bwd.launches_by_mode = {"plain": 0, "bwd_sums": 0, "bwd_apply": 0}
+_build.counted(instance_norm_bwd, route=("one_launch", "two_launch"),
+               affine=("channel", "sample"), mode=("plain", "bwd_sums", "bwd_apply"))
 
 
 class InstanceNormFn(torch.autograd.Function):

@@ -404,20 +404,12 @@ def _rank_device(device: str, backend: str, local_rank: int) -> torch.device:
 def kernel_counts() -> dict:
     """This process's kernel launch counts (the wrappers' ``launches``
     counters, in all and by route, affine and mode), for the kernels whose
-    modules it loaded."""
-    import sys
+    modules it loaded (``ops/_build.py::COUNTED``)."""
+    from fast_neural_style_transfer_tpu_torch.ops._build import COUNTED
 
-    out = {}
-    norm = sys.modules.get("fast_neural_style_transfer_tpu_torch.ops.cuda_norm")
-    conv = sys.modules.get("fast_neural_style_transfer_tpu_torch.ops.cuda_conv")
-    fns = ([norm.instance_norm_fwd, norm.instance_norm_bwd] if norm else []) + (
-        [conv.conv2d_same_dx] if conv else [])
-    for fn in fns:
-        out[fn.__name__] = {"launches": fn.launches, **{
-            key: dict(getattr(fn, key)) for key in
-            ("launches_by_route", "launches_by_affine", "launches_by_mode")
-            if hasattr(fn, key)}}
-    return out
+    return {fn.__name__: {name: dict(v) if isinstance(v, dict) else v
+                          for name, v in vars(fn).items() if name.startswith("launches")}
+            for fn in COUNTED}
 
 
 def _rank_main(rank: int, nprocs: int, spatial: int, fn, args, backend: str,

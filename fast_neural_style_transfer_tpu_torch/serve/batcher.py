@@ -215,11 +215,13 @@ class MicroBatcher:
         be held in the slot beside them, and one in the forward.
 
         ``warm_size`` > 0: before taking requests, the dispatcher thread
-        runs one forward of a warm_size x warm_size batch at every batch
+        runs two forwards of a warm_size x warm_size batch at every batch
         size 1..max_batch, and ``ready`` is set when it is done. PyTorch
         keeps cuDNN handles and execution plans per thread, so only the
-        thread that serves can warm them. The prepare thread takes no
-        request before ``ready``."""
+        thread that serves can warm them; a stylizer that keeps a CUDA
+        graph per input key captures it on the key's second call
+        (``infer/graphs.py``). The prepare thread takes no request before
+        ``ready``."""
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self._forward = forward
@@ -400,7 +402,8 @@ class MicroBatcher:
         try:
             size = self._warm_size
             for b in range(1, self.max_batch + 1):
-                self._forward(np.zeros((b, size, size, 3), np.uint8))
+                for _ in range(2):
+                    self._forward(np.zeros((b, size, size, 3), np.uint8))
         except Exception as e:  # noqa: BLE001 — reported by the owner
             self.warm_error = e
         finally:

@@ -10,6 +10,9 @@
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import torch
 
 # NTSC YIQ <-> RGB (the classic luminance/chrominance split)
@@ -27,6 +30,15 @@ _YIQ2RGB = (
 )
 
 
+@functools.lru_cache(maxsize=None)
+def _yiq(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(RGB -> YIQ, YIQ -> RGB) on ``device``, made once per device: a CUDA
+    graph's capture refuses the host-to-device copy that makes them."""
+    with torch.inference_mode(False):  # plain tensors, usable by autograd too
+        return tuple(torch.tensor(m, dtype=torch.float32, device=device)
+                     for m in (_RGB2YIQ, _YIQ2RGB))
+
+
 def luminance_transfer(stylized: torch.Tensor, content: torch.Tensor) -> torch.Tensor:
     """Stylized luminance + content chrominance, NHWC in and out, dtype
     preserved. The luminance channel is shifted to the content's mean/std
@@ -35,8 +47,7 @@ def luminance_transfer(stylized: torch.Tensor, content: torch.Tensor) -> torch.T
         raise ValueError(
             f"stylized {tuple(stylized.shape)} and content "
             f"{tuple(content.shape)} must match for luminance transfer")
-    rgb2yiq = torch.tensor(_RGB2YIQ, dtype=torch.float32, device=stylized.device)
-    yiq2rgb = torch.tensor(_YIQ2RGB, dtype=torch.float32, device=stylized.device)
+    rgb2yiq, yiq2rgb = _yiq(stylized.device)
     s = stylized.float() @ rgb2yiq.T
     c = content.float() @ rgb2yiq.T
     y_s, y_c = s[..., :1], c[..., :1]

@@ -10,6 +10,7 @@ tensor lies on (the on-device leg of the uint8 transport path).
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import List, Optional, Tuple
 
@@ -58,9 +59,13 @@ def normalize_image(img_u8: np.ndarray) -> np.ndarray:
     return (x - IMAGENET_MEAN) / IMAGENET_STD
 
 
-def _mean_std(device) -> Tuple[torch.Tensor, torch.Tensor]:
-    return (torch.as_tensor(IMAGENET_MEAN, device=device),
-            torch.as_tensor(IMAGENET_STD, device=device))
+@functools.lru_cache(maxsize=None)
+def mean_std(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet mean and std on ``device``, made once per device: a
+    CUDA graph's capture refuses the host-to-device copy that makes them."""
+    with torch.inference_mode(False):  # plain tensors, usable by autograd too
+        return (torch.as_tensor(IMAGENET_MEAN, device=device),
+                torch.as_tensor(IMAGENET_STD, device=device))
 
 
 def u8_to_unit(x_u8: torch.Tensor) -> torch.Tensor:
@@ -73,7 +78,7 @@ def u8_to_unit(x_u8: torch.Tensor) -> torch.Tensor:
 
 def u8_to_network(x_u8: torch.Tensor) -> torch.Tensor:
     """uint8 NHWC tensor -> float32 network space, on x's device."""
-    mean, std = _mean_std(x_u8.device)
+    mean, std = mean_std(x_u8.device)
     return (u8_to_unit(x_u8) - mean) / std
 
 
@@ -86,7 +91,7 @@ def unit_to_u8(y: torch.Tensor) -> torch.Tensor:
 def network_to_u8(y: torch.Tensor) -> torch.Tensor:
     """Network-space NHWC tensor -> uint8 (de-normalize, then
     ``unit_to_u8``), on y's device."""
-    mean, std = _mean_std(y.device)
+    mean, std = mean_std(y.device)
     return unit_to_u8(y.float() * std + mean)
 
 

@@ -309,7 +309,8 @@ def _he_decoder(sd, prefix=""):
 
 def _stylizers():
     """(name, stylize_u8, reflect pads a forward) of the three serving
-    stylizers at bf16, seeded."""
+    stylizers at bf16, seeded, each on its eager path (no CUDA graphs: a
+    replay would not take a monkeypatched pad)."""
     from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
     from fast_neural_style_transfer_tpu_torch.infer.stylize import Stylizer
     from fast_neural_style_transfer_tpu_torch.infer.stytr2 import TransformerStylizer
@@ -322,6 +323,7 @@ def _stylizers():
     ada = ArbitraryStylizer(_he_decoder(AdaINDecoder().state_dict()), random_params(0),
                             precision="bf16", device="cuda")
     ada.set_style_u8(_u8_batch(1, 256, 1)[0])
+    net._graphs = ada._graphs = None
     sty = TransformerStylizer(_he_decoder(StyTr2().state_dict(), "decoder."),
                               precision="bf16", device="cuda")
     sty.set_style_u8(_u8_batch(1, 256, 2)[0])

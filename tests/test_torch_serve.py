@@ -480,7 +480,7 @@ def test_warm_up_runs_every_batch_size_on_the_dispatcher_thread():
     b = MicroBatcher(forward, max_batch=3, warm_size=16)
     try:
         assert b.ready.wait(timeout=30) and b.warm_error is None
-        assert [c[0] for c in calls] == [(n, 16, 16, 3) for n in (1, 2, 3)]
+        assert [c[0] for c in calls] == [(n, 16, 16, 3) for n in (1, 2, 3) for _ in range(2)]
         assert {c[1] for c in calls} == {"fnst-microbatcher"}
         out = b.submit(np.ones((8, 8, 3), np.uint8)).result(timeout=30)
         assert out.shape == (8, 8, 3) and calls[-1][1] == "fnst-microbatcher"
