@@ -63,7 +63,11 @@ Last it times the kernels, their plain versions and the library ops, the
 training step (single-style, 4-style and one-pass), and the IN forward and
 backward at three chunk budgets each; then holds the reflect-pad kernel
 bit for bit against its plain version and the F.pad route it replaced at
-every pad site of the serving paths, and times it. Every phase
+every pad site of the serving paths, and times it; then holds AdaAttN's
+moment-attention kernel against the float32 composition at its three
+sites' 512x512 shapes and its edge cases, counts its launches on a bf16
+AdaAttN stylizer's served batches (3 a batch), and times it beside its
+bound, its plain version and the bf16 bmm composition. Every phase
 prints one JSON line; any failure exits non-zero. The line before the
 last lists the kernels; the last line is ``{"ok": true, "device":
 {...}}``. ``--phases`` runs a subset (the build always runs), for
@@ -177,13 +181,20 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     """nvcc on every source at once, then bind each library."""
-    from fast_neural_style_transfer_tpu_torch.ops import _build, cuda_conv, cuda_norm, cuda_pad
+    from fast_neural_style_transfer_tpu_torch.ops import (
+        _build,
+        cuda_conv,
+        cuda_moment_attention,
+        cuda_norm,
+        cuda_pad,
+    )
 
     t0 = time.perf_counter()
     _build.load_all(_build.SOURCES)
     cuda_norm._kernels()
     cuda_conv._kernel()
     cuda_pad._kernel()
+    cuda_moment_attention._kernel()
     seconds = time.perf_counter() - t0
     for name in _build.SOURCES:
         info = _build.build_info[name]
@@ -4866,11 +4877,149 @@ def phase_reflect_pad(seed: int) -> dict:
     return {"times": times, "max_abs_err": err}
 
 
+# the moment-attention kernel's three sites in a 512^2 AdaAttN forward with a
+# 512^2 style, at B=8: (B, queries, style positions, key width, value width)
+MOMENT_SITES = [(8, 16384, 4096, 448, 256), (8, 4096, 4096, 960, 512),
+                (8, 1024, 1024, 1472, 512)]
+# beside them: no multiple of the 64-row tiles, one ragged key tile at the
+# narrowest widths, and |M| >> S (values offset by mu = 100)
+MOMENT_EDGES = [((2, 1000, 1000, 448, 256), 0.0), ((3, 200, 70, 192, 128), 0.0),
+                ((2, 1024, 1024, 960, 512), 100.0)]
+
+
+def moment_operands(b, nq, nk, dqk, dv, mu, gen):
+    """bf16 operands on the card as tests/test_torch_adaattn.py draws them:
+    logits of std ~4, values N(mu + a channel offset, 1), c the last dv
+    channels of a key buffer (read in place, row stride dqk)."""
+    import torch
+
+    a = (4.0 / dqk ** 0.5) ** 0.5
+    q = (torch.randn(b, nq, dqk, generator=gen, device="cuda") * a).bfloat16()
+    key = torch.randn(b, nq, dqk, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn(nk, dqk, generator=gen, device="cuda") * a).bfloat16()
+    v = (torch.randn(nk, dv, generator=gen, device="cuda") + mu
+         + torch.randn(1, dv, generator=gen, device="cuda")).bfloat16()
+    return q, k, v, key[..., dqk - dv:]
+
+
+def moment_composition(q, k, v, c, dtype, block: int = 4096):
+    """AdaAttN's attention as the official code writes it (bmm, softmax,
+    bmm, the epilogue) on the unshifted values, in blocks of queries:
+    float32 from the bf16 operands (what the kernel is held to), or bf16
+    throughout (the library's time)."""
+    import torch
+
+    kt, v1 = k.to(dtype).t(), v.to(dtype)
+    v2 = v1.square()
+    out = []
+    for i in range(0, q.shape[1], block):
+        a = torch.softmax(q[:, i:i + block].to(dtype) @ kt, -1)
+        m = a @ v1
+        s = torch.sqrt(torch.relu(a @ v2 - m.square()))
+        out.append(s * c[:, i:i + block].to(dtype) + m)
+    return torch.cat(out, 1)
+
+
+def phase_moment_attention(seed: int) -> dict:
+    """AdaAttN's moment-attention kernel (``csrc/moment_attention.cu``): one
+    launch at each site of MOMENT_SITES and MOMENT_EDGES against the float32
+    composition of the same bf16 operands, at tests/test_torch_adaattn.py's
+    tolerances (mean error within 0.4 % of the mean |output|, 99.9th
+    percentile within 5 %, worst within 60 %: bf16 weights, values and
+    output, and a square root where the variance is near 0); then a bf16
+    ``AttentionalStylizer`` serving 512^2-bucket requests through
+    ``MicroBatcher``, its launch counter set to 0 just before: 3 launches a
+    batch, as the stylizer's own ``attention_launches``; then at each site
+    the kernel's device time beside its bound (operations at the bf16 peak
+    or bytes at HBM speed, the larger: q, c and the output once, k and the
+    values once a batch), the plain version's (float32) and the library's
+    (the bf16 bmm / softmax / bmm composition)."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.infer.adaattn import AttentionalStylizer
+    from fast_neural_style_transfer_tpu_torch.models.adaattn import AdaAttN
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import random_params
+    from fast_neural_style_transfer_tpu_torch.ops import cuda_moment_attention as cma
+    from fast_neural_style_transfer_tpu_torch.serve.batcher import MicroBatcher
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    checks, bad, err = [], [], 0.0
+    with torch.inference_mode():
+        for shape, mu in [(s, 0.0) for s in MOMENT_SITES] + MOMENT_EDGES:
+            q, k, v, c = moment_operands(*shape, mu, gen)
+            mv = cma.prepare_values(v.float(), torch.bfloat16)
+            before = cma.moment_attention.launches
+            got = cma.moment_attention(q, k, mv, c)
+            launched = cma.moment_attention.launches - before
+            want = moment_composition(q, k, v, c, torch.float32)
+            d = (got.float() - want).abs()
+            scale = want.abs().mean().item()
+            row = {"shape": list(shape), "mu": mu, "launches": launched,
+                   "mean_err": d.mean().item(), "mean_abs": scale,
+                   "p999_err": torch.quantile(d.flatten()[:1 << 24], 0.999).item(),
+                   "max_err": d.max().item()}
+            checks.append(row)
+            err = max(err, row["max_err"])
+            if (launched != 1 or row["mean_err"] >= 0.004 * scale
+                    or row["p999_err"] >= 0.05 * max(scale, 1.0)
+                    or row["max_err"] >= 0.6 * max(scale, 1.0)):
+                bad.append(row)
+            del q, k, v, c, mv, got, want, d
+
+    torch.manual_seed(seed)
+    sty = AttentionalStylizer(AdaAttN().state_dict(), random_params(seed), precision="bf16",
+                              device="cuda")
+    sty.set_style_u8(smooth_image(512, 512, seed))
+    sty.stylize_u8(smooth_image(512, 512, seed + 1)[None])  # cuDNN's plans, off the count
+    batcher = MicroBatcher(sty.stylize_u8, max_batch=8, max_wait_ms=5.0, bucket_multiple=64)
+    rng = np.random.default_rng(seed)
+    images = [smooth_image(int(h), int(w), seed + 2 + i)
+              for i, (h, w) in enumerate(rng.integers(449, 513, (24, 2)))]
+    cma.moment_attention.launches = 0
+    before = sty.attention_launches
+    try:
+        outs = [f.result(timeout=600) for f in [batcher.submit(im) for im in images]]
+    finally:
+        batcher.close()
+    served = {"requests": len(images), "batches": batcher.stats.batches,
+              "launches": cma.moment_attention.launches,
+              "attention_launches": sty.attention_launches - before,
+              "shapes_ok": all(o.shape == im.shape for o, im in zip(outs, images))}
+    if not (served["shapes_ok"] and served["launches"] == 3 * served["batches"]
+            == served["attention_launches"]):
+        bad.append({"serving": served})
+    del sty
+
+    times = []
+    with torch.inference_mode():
+        for b, nq, nk, dqk, dv in MOMENT_SITES:
+            q, k, v, c = moment_operands(b, nq, nk, dqk, dv, 0.0, gen)
+            mv = cma.prepare_values(v.float(), torch.bfloat16)
+            flops = 2.0 * b * nq * nk * (dqk + 2 * dv)
+            moved = (b * nq * (dqk + 2 * dv) + nk * (dqk + dv)) * 2
+            bound_ms, bound_by = bound(moved, flops, "bfloat16")
+            row = {"shape": [b, nq, nk, dqk, dv],
+                   "ms": cuda_ms(lambda: cma.moment_attention(q, k, mv, c), iters=10),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "plain_ms": cuda_ms(lambda: cma.moment_attention_reference(q, k, mv, c),
+                                       iters=3, warmup=1),
+                   "library_ms": cuda_ms(lambda: moment_composition(q, k, v, c, torch.bfloat16),
+                                         iters=3, warmup=1)}
+            row["roofline_pct"] = 100 * bound_ms / row["ms"]
+            times.append(row)
+            del q, k, v, c, mv
+    ok = not bad
+    emit("moment_attention", ok=ok, checks=checks, mismatches=bad, serving=served, times=times)
+    if not ok:
+        fail("moment_attention phase")
+    return {"max_abs_err": err, "serving": served, "times": times}
+
+
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
           "multi_style", "video", "adain", "export", "int8", "spatial", "spatial_train",
           "spatial_adain", "data_parallel", "data_space", "data_parallel_serving", "tooling",
           "times", "train_times", "spatial_times", "in_fwd_budgets", "in_bwd_budgets",
-          "reflect_pad")
+          "reflect_pad", "moment_attention")
 # recorded findings, run on request only
 EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity", "spatial_profile",
                 "data_parallel_cards")
@@ -4966,6 +5115,8 @@ def main() -> int:
     if "in_bwd_budgets" in phases:
         run("in_bwd_budgets", phase_in_bwd_budgets, args.seed)
     pads = run("reflect_pad", phase_reflect_pad, args.seed) if "reflect_pad" in phases else None
+    moments = (run("moment_attention", phase_moment_attention, args.seed)
+               if "moment_attention" in phases else None)
     emit("done", seconds=time.perf_counter() - t0, phases=list(phases),
          phase_seconds=seconds)
     if phases == PHASES:
@@ -5164,6 +5315,21 @@ def main() -> int:
             **{k: [t[k] for t in pads["times"]]
                for k in ("ms", "bound_ms", "plain_ms", "replaced_ms", "library_ms")},
             "bound_by": "bytes",
+        })
+        kernels.append({
+            "name": "moment_attention",
+            "route": "cuda",
+            "source": src + "moment_attention.cu",
+            "replaces": None,  # the JAX package has no AdaAttN
+            # a bf16 AttentionalStylizer's batches through MicroBatcher (3 each)
+            "launches": moments["serving"]["launches"],
+            "batches": moments["serving"]["batches"],
+            "max_abs_err": moments["max_abs_err"],
+            # B=8 at the three sites of a 512^2 forward: the kernel, its bound,
+            # the plain version (float32) and the bf16 bmm composition
+            **{k: [t[k] for t in moments["times"]]
+               for k in ("ms", "bound_ms", "plain_ms", "library_ms")},
+            "bound_by": [t["bound_by"] for t in moments["times"]],
         })
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -4,10 +4,12 @@ Each ``csrc/*.cu`` file exports plain ``extern "C"`` functions, so the
 shared library needs no PyTorch headers and builds in seconds. The library
 goes to ``build/kernels/`` at the repository root, named by a hash of the
 sources and flags, and is built on first use. A failed build raises.
-The first ``load`` of a process loads every source of ``SOURCES`` at once
-(``load_all``: their nvcc runs start together), so a path that needs two
-kernels waits for the slowest build, not for their sum; one source is
-built once per process. ``on_card`` calls an entry point on the card that
+The first ``load`` of a process of a source of ``TOGETHER`` (the stylizers'
+and training's kernels) loads all of them at once (``load_all``: their nvcc
+runs start together), so a path that needs two kernels waits for the
+slowest build, not for their sum; another source (AdaAttN's moment
+attention) is built alone, by the path that needs it. One source is built
+once per process. ``on_card`` calls an entry point on the card that
 holds its tensors. ``counted`` gives a kernel wrapper its launch counters
 and lists it in ``COUNTED``, where every reader of them finds it.
 """
@@ -27,8 +29,10 @@ from typing import Callable, Dict, Sequence
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# every source of the package, for building ahead (parallel.mesh.launch)
-SOURCES = ("instance_norm", "conv_same_bwd", "reflect_pad")
+# the sources the stylizers, the AdaIN paths and training load together
+TOGETHER = ("instance_norm", "conv_same_bwd", "reflect_pad")
+# every source of the package
+SOURCES = TOGETHER + ("moment_attention",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -79,11 +83,11 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one CDLL per process.
-    A source of ``SOURCES`` not loaded yet loads every one of them at once."""
+    A source of ``TOGETHER`` not loaded yet loads every one of them at once."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    return load_all(SOURCES if name in SOURCES else (name,))[name]
+    return load_all(TOGETHER if name in TOGETHER else (name,))[name]
 
 
 def _load_one(name: str) -> ctypes.CDLL:

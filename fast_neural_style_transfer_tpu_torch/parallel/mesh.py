@@ -440,11 +440,12 @@ def _rank_main(rank: int, nprocs: int, spatial: int, fn, args, backend: str,
 
 
 def prebuild_kernels() -> None:
-    """Build the CUDA sources once, in the calling process, before ranks
-    that would each build them start (``ops/_build.py`` caches by hash)."""
+    """Build the CUDA sources the ranks load once, in the calling process,
+    before ranks that would each build them start (``ops/_build.py``
+    caches by hash)."""
     from fast_neural_style_transfer_tpu_torch.ops import _build
 
-    for name in _build.SOURCES:
+    for name in _build.TOGETHER:
         _build.build(name)
 
 

@@ -24,6 +24,8 @@ Run:  python -m fast_neural_style_transfer_tpu_torch.serve \\
           --adain-decoder adain_decoder_final.npz --style painting.jpg --alpha 0.8
       python -m fast_neural_style_transfer_tpu_torch.serve \\
           --stytr2 stytr2_checkpoint/ --style painting.jpg
+      python -m fast_neural_style_transfer_tpu_torch.serve \\
+          --adaattn adaattn_checkpoint/ --style painting.jpg
 """
 
 from __future__ import annotations
@@ -223,6 +225,26 @@ def _build_forward(args, device: str) -> tuple:
                                   precision=args.precision, device=device)
         sty.set_style_u8(decode_image(args.style))
         return sty.stylize_u8, "stytr2", sty.device
+    if getattr(args, "adaattn", None):
+        if not args.style:
+            raise SystemExit("--adaattn needs --style <image>")
+        if args.precision == "int8":
+            raise SystemExit("--precision int8 serves the flagship family only")
+        if sharding is not None:
+            raise SystemExit("--data_parallel serves the flagship and adain families only")
+        if args.precision == "f32" and torch.device(device or "cuda").type != "cpu":
+            raise SystemExit("--adaattn serves bf16 on a card (the moment-attention kernel "
+                             "has no float32 variant); f32 runs on the CPU")
+        from fast_neural_style_transfer_tpu_torch.infer.adaattn import AttentionalStylizer
+        from fast_neural_style_transfer_tpu_torch.models.adaattn import load_adaattn_checkpoint
+        from fast_neural_style_transfer_tpu_torch.models.vgg_weights import resolve_params
+        from fast_neural_style_transfer_tpu_torch.utils.image_io import decode_image
+
+        sty = AttentionalStylizer(load_adaattn_checkpoint(args.adaattn),
+                                  resolve_params(args.vgg_weights),
+                                  precision=args.precision, device=device)
+        sty.set_style_u8(decode_image(args.style))
+        return sty.stylize_u8, "adaattn", sty.device
     if args.adain_decoder:
         if not args.style:
             raise SystemExit("--adain-decoder needs --style <image>")
@@ -241,7 +263,8 @@ def _build_forward(args, device: str) -> tuple:
         alpha = args.alpha
         return (lambda b: sty.stylize_u8(b, alpha=alpha)), "adain", sty.device
     if not args.model:
-        raise SystemExit("pass --model <checkpoint>, or --adain-decoder or --stytr2 + --style")
+        raise SystemExit("pass --model <checkpoint>, or --adain-decoder, --stytr2 or "
+                         "--adaattn + --style")
     from fast_neural_style_transfer_tpu_torch.infer.stylize import Stylizer
 
     sty = Stylizer.from_checkpoint(
@@ -261,11 +284,14 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--adain-decoder", help="AdaIN decoder checkpoint (.npz/.pth)")
     p.add_argument("--stytr2", help="StyTr² checkpoint: a directory of the official "
                                     "embedding*.pth, transformer*.pth and decoder*.pth")
-    p.add_argument("--style", help="style image for --adain-decoder or --stytr2")
+    p.add_argument("--adaattn", help="AdaAttN checkpoint: a directory of the official "
+                                     "*net_adaattn_3.pth, *net_transformer.pth and "
+                                     "*net_decoder.pth")
+    p.add_argument("--style", help="style image for --adain-decoder, --stytr2 or --adaattn")
     p.add_argument("--alpha", type=float, default=1.0,
                    help="AdaIN stylization strength")
     p.add_argument("--vgg_weights", default=None,
-                   help="VGG19 weights (.npz/.pth) for the AdaIN encoder")
+                   help="VGG19 weights (.npz/.pth) for the AdaIN and AdaAttN encoders")
     p.add_argument("--precision", default="bf16", choices=["f32", "bf16", "int8"],
                    help="serving compute dtype (int8: flagship only)")
     p.add_argument("--preserve_color", default="off", choices=["off", "luma"])

@@ -164,13 +164,18 @@ def test_device_constants_are_made_once_per_device():
 def test_every_counted_kernel_wrapper_is_listed():
     """``ops/_build.py::counted`` lists each wrapper whose launches a
     replay has to count again; ``parallel.mesh.kernel_counts`` reads the
-    same list."""
-    from fast_neural_style_transfer_tpu_torch.ops import _build, cuda_conv
+    same list. AdaAttN's kernel lists itself when its module is imported,
+    which nothing else on the other paths does."""
+    from fast_neural_style_transfer_tpu_torch.ops import (  # noqa: F401 (lists the kernel)
+        _build,
+        cuda_conv,
+        cuda_moment_attention,
+    )
     from fast_neural_style_transfer_tpu_torch.parallel.mesh import kernel_counts
 
     names = [fn.__name__ for fn in _build.COUNTED]
     assert sorted(names) == ["conv2d_same_bwd", "conv2d_same_dx", "instance_norm_bwd",
-                             "instance_norm_fwd", "reflect_pad_hw"]
+                             "instance_norm_fwd", "moment_attention", "reflect_pad_hw"]
     counts = kernel_counts()
     assert set(counts) == set(names)
     assert set(counts["instance_norm_fwd"]) == {
