@@ -67,7 +67,11 @@ every pad site of the serving paths, and times it; then holds AdaAttN's
 moment-attention kernel against the float32 composition at its three
 sites' 512x512 shapes and its edge cases, counts its launches on a bf16
 AdaAttN stylizer's served batches (3 a batch), and times it beside its
-bound, its plain version and the bf16 bmm composition. Every phase
+bound, its plain version and the bf16 bmm composition; then holds the
+stylizer's final-conv kernel (32 -> 3, 9x9) against its plain version at
+the serving and CLI shapes, counts its launch in a replayed bf16 forward
+against the device trace, and times it beside its bound, its plain
+version and cuDNN's bf16 conv. Every phase
 prints one JSON line; any failure exits non-zero. The line before the
 last lists the kernels; the last line is ``{"ok": true, "device":
 {...}}``. ``--phases`` runs a subset (the build always runs), for
@@ -184,6 +188,7 @@ def phase_build() -> None:
     from fast_neural_style_transfer_tpu_torch.ops import (
         _build,
         cuda_conv,
+        cuda_conv_rgb,
         cuda_moment_attention,
         cuda_norm,
         cuda_pad,
@@ -194,6 +199,7 @@ def phase_build() -> None:
     cuda_norm._kernels()
     cuda_conv._kernel()
     cuda_pad._kernel()
+    cuda_conv_rgb._kernel()
     cuda_moment_attention._kernel()
     seconds = time.perf_counter() - t0
     for name in _build.SOURCES:
@@ -699,17 +705,19 @@ def phase_trained_weights() -> None:
 
 def replay_kernels(sty, x) -> dict:
     """One forward of ``sty`` at ``x``'s key, which it has captured, under
-    torch.profiler: the ``in_fwd_*`` and reflect-pad kernels in the device
-    trace, against those the launch counters it moved say (an IN launch is
-    two kernels on the two-launch route, one on the others)."""
+    torch.profiler: the ``in_fwd_*``, reflect-pad and final-conv kernels in
+    the device trace, against those the launch counters it moved say (an IN
+    launch is two kernels on the two-launch route, one on the others)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv_rgb import conv_to_rgb
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
 
     replays = sty.graph_replays
     routes, pads = dict(instance_norm_fwd.launches_by_route), reflect_pad_hw.launches
+    rgbs = conv_to_rgb.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sty.stylize_u8(x)
@@ -720,7 +728,9 @@ def replay_kernels(sty, x) -> dict:
             "traced_in_fwd": sum(bool(re.search(r"\bin_fwd_", n)) for n in names),
             "counted_in_fwd": moved["one_launch"] + 2 * moved["two_launch"] + moved["inject"],
             "traced_pads": sum(bool(re.search(r"\bpad_(pixels|gather)\b", n)) for n in names),
-            "counted_pads": reflect_pad_hw.launches - pads}
+            "counted_pads": reflect_pad_hw.launches - pads,
+            "traced_rgb": sum(bool(re.search(r"\bconv_to_rgb_kernel\b", n)) for n in names),
+            "counted_rgb": conv_to_rgb.launches - rgbs}
 
 
 def phase_serving() -> dict:
@@ -728,10 +738,11 @@ def phase_serving() -> dict:
     CLI's batching defaults) on 127.0.0.1:0 answers two bursts of 16
     concurrent requests and 8 sequential ones, then the inference CLI
     stylizes one file. Launch counters are set to 0 just before and read
-    just after: 14 IN launches and 13 reflect pads a forward, the server's
-    forwards replaying the CUDA graphs its warm-up captured. Then one more
-    replay under torch.profiler: its ``in_fwd_*`` and pad kernels in the
-    device trace are those its counters add. Requests go through http.client: the first urllib burst in
+    just after: 14 IN launches, 13 reflect pads and one final conv a
+    forward, the server's forwards replaying the CUDA graphs its warm-up
+    captured. Then one more replay under torch.profiler: its ``in_fwd_*``,
+    pad and final-conv kernels in the device trace are those its counters
+    add. Requests go through http.client: the first urllib burst in
     a process pays a client-side start-up cost of its own."""
     import torch
     from PIL import Image
@@ -740,6 +751,7 @@ def phase_serving() -> dict:
     from fast_neural_style_transfer_tpu_torch.infer import Stylizer
     from fast_neural_style_transfer_tpu_torch.models import NUM_IN_SITES
     from fast_neural_style_transfer_tpu_torch.ops.conv import reflect_pad_hw
+    from fast_neural_style_transfer_tpu_torch.ops.cuda_conv_rgb import conv_to_rgb
     from fast_neural_style_transfer_tpu_torch.ops.cuda_norm import instance_norm_fwd
     from fast_neural_style_transfer_tpu_torch.serve import make_server
 
@@ -809,6 +821,7 @@ def phase_serving() -> dict:
     launches = instance_norm_fwd.launches
     by_route = dict(instance_norm_fwd.launches_by_route)
     pad_launches = reflect_pad_hw.launches
+    rgb_launches = conv_to_rgb.launches
     forwards = stats["batches"] + 1  # server batches + the CLI's one forward
     graphs = {"captures": sty.graph_captures, "replays": sty.graph_replays,
               "replay_kernels": replay_kernels(sty, np.zeros((1, 256, 256, 3), np.uint8))}
@@ -823,6 +836,7 @@ def phase_serving() -> dict:
         "cli_output_size": list(cli_size), "launches": launches,
         "launches_by_route": by_route, "expected_launches": NUM_IN_SITES * forwards,
         "pad_launches": pad_launches, "expected_pad_launches": STYLIZER_PADS * forwards,
+        "rgb_launches": rgb_launches,
         "graphs": graphs,
     }
     ok = (all(r[0] == 200 and r[1] == (256, 256) for r in burst + seq)
@@ -830,10 +844,11 @@ def phase_serving() -> dict:
           and health["device"] == torch.cuda.get_device_name(0)
           and cli_size == (320, 240) and launches == NUM_IN_SITES * forwards
           and by_route[SITE_ROUTE] == launches
-          and pad_launches == STYLIZER_PADS * forwards
+          and pad_launches == STYLIZER_PADS * forwards and rgb_launches == forwards
           and graphs["replays"] > 0 and rk["replayed"] == 1
           and rk["traced_in_fwd"] == rk["counted_in_fwd"] == NUM_IN_SITES
-          and rk["traced_pads"] == rk["counted_pads"] == STYLIZER_PADS)
+          and rk["traced_pads"] == rk["counted_pads"] == STYLIZER_PADS
+          and rk["traced_rgb"] == rk["counted_rgb"] == 1)
     emit("serving", ok=ok, **result)
     if not ok or launches == 0:
         fail("serving phase")
@@ -5015,11 +5030,162 @@ def phase_moment_attention(seed: int) -> dict:
     return {"max_abs_err": err, "serving": served, "times": times}
 
 
+# the final conv's outputs on the main path (N, H, W): the serving batches
+# of 1 to 8 at 256^2 and 512^2 and one inference-CLI size; beside them the
+# smallest sides, a strip boundary, odd and ragged sides, a tall thin image
+RGB_SHAPES = [(n, s, s) for s in (256, 512) for n in range(1, 9)] + [(1, 260, 388),
+                                                                      (2, 260, 388)]
+RGB_EDGES = [(1, 5, 5), (2, 7, 121), (3, 9, 241), (1, 130, 7), (2, 33, 250), (1, 1000, 17)]
+RGB_TIMED = [(8, 512, 512), (1, 256, 256)]
+
+
+def rgb_operands(n, h, w, gen):
+    """bf16 on the card, as the stylizer hands them to the final conv: the
+    reflect-padded post-ReLU activation, a channels_last weight of the
+    default init's scale, a bias."""
+    import torch
+
+    from fast_neural_style_transfer_tpu_torch.ops import cuda_pad
+
+    x = torch.relu(torch.randn((n, h, w, 32), generator=gen, device="cuda")).bfloat16()
+    xp = cuda_pad.reflect_pad(x.permute(0, 3, 1, 2), 4)
+    wt = (torch.randn((3, 32, 9, 9), generator=gen, device="cuda") * 0.02).bfloat16()
+    b = (torch.randn(3, generator=gen, device="cuda") * 0.1).bfloat16()
+    return xp, wt.contiguous(memory_format=torch.channels_last), b
+
+
+def rgb_error(got, want) -> dict:
+    """How far the kernel's bf16 output lies from the plain version's: the
+    largest gap in bf16 rounding steps of the plain value (ulp 2^-7 |v| at
+    most, and 1e-4 near 0), and the share of outputs that differ at all."""
+    d = (got.float() - want.float()).abs()
+    steps = d / (2.0 ** -7 * want.float().abs() + 1e-4)
+    return {"max_abs_err": d.max().item(), "max_steps": steps.max().item(),
+            "differ_share": (d > 0).float().mean().item()}
+
+
+def phase_conv_to_rgb(seed: int) -> dict:
+    """The stylizer's final-conv kernel (``csrc/conv_to_rgb.cu``): one launch
+    at each shape of RGB_SHAPES and RGB_EDGES against its plain version
+    (float32 F.conv2d of the same bf16 operands), every output within one
+    bf16 rounding step of it (1e-4 near 0), with a channels_last and a
+    contiguous weight and without a bias; then a bf16 Stylizer's forward
+    replayed from its CUDA graph under torch.profiler: one launch counted
+    and one ``conv_to_rgb_kernel`` in the device trace, no TF32 kernel; an
+    eager bf16 forward counts one, a float32 forward, a bf16 forward that
+    needs a gradient and a bf16 ArbitraryStylizer forward none; then at
+    RGB_TIMED the kernel's time (CUDA events over 10 launches, and over
+    replays of a CUDA graph of 20, which leaves out the host's launch cost,
+    most of a B=1 256^2 launch) beside its bound (operations at the bf16
+    peak or bytes at HBM speed, the larger: x before the pad, y and the
+    weights once), the plain version's and F.conv2d's in bf16 (the cuDNN
+    route it replaced)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_neural_style_transfer_tpu_torch.core.dtypes import Precision
+    from fast_neural_style_transfer_tpu_torch.infer import Stylizer
+    from fast_neural_style_transfer_tpu_torch.infer.adain import ArbitraryStylizer
+    from fast_neural_style_transfer_tpu_torch.models import TransformerNet
+    from fast_neural_style_transfer_tpu_torch.models.adain import AdaINDecoder
+    from fast_neural_style_transfer_tpu_torch.models.vgg_weights import random_params
+    from fast_neural_style_transfer_tpu_torch.ops import cuda_conv_rgb as rgb
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    checks, bad, err = [], [], 0.0
+    with torch.inference_mode():
+        for i, shape in enumerate(RGB_SHAPES + RGB_EDGES):
+            xp, wt, b = rgb_operands(*shape, gen)
+            variants = [("channels_last", wt, b)]
+            if i == 0 or shape in RGB_EDGES:
+                variants += [("contiguous", wt.contiguous(), b), ("no_bias", wt, None)]
+            for name, w_, b_ in variants:
+                before = rgb.conv_to_rgb.launches
+                got = rgb.conv_to_rgb(xp, w_, b_)
+                launched = rgb.conv_to_rgb.launches - before
+                torch.cuda.synchronize()
+                row = {"shape": list(shape), "weight": name, "launches": launched,
+                       "plan": rgb.plan_rgb(*shape, rgb._sms(xp.device))._asdict(),
+                       **rgb_error(got, rgb.conv_to_rgb_reference(xp, w_, b_))}
+                checks.append(row)
+                err = max(err, row["max_abs_err"])
+                if launched != 1 or tuple(got.shape) != (shape[0], 3, *shape[1:]) or not (
+                        row["max_steps"] <= 1.0) or not got.is_contiguous(
+                        memory_format=torch.channels_last):
+                    bad.append(row)
+            del xp, wt, b, got
+
+    torch.manual_seed(seed)
+    net = TransformerNet()
+    with torch.no_grad():
+        net.final_conv.conv.weight.mul_(5.0)  # a spread output
+    sty = Stylizer(net.state_dict(), precision="bf16")
+    x = np.random.default_rng(seed).integers(0, 256, (2, 256, 256, 3), np.uint8)
+    before = rgb.conv_to_rgb.launches
+    eager = sty.stylize_u8(x)
+    counted = {"eager_bf16": rgb.conv_to_rgb.launches - before}
+    sty.stylize_u8(x)  # the key's second call: captured
+    torch.cuda.synchronize()
+    replays, before = sty.graph_replays, rgb.conv_to_rgb.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        replayed = sty.stylize_u8(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    replay = {"replayed": sty.graph_replays - replays,
+              "counted": rgb.conv_to_rgb.launches - before,
+              "traced": sum(bool(re.search(r"\bconv_to_rgb_kernel\b", n)) for n in names),
+              "traced_tf32": sum("tf32" in n for n in names),
+              "same_output": bool(np.array_equal(eager, replayed))}
+    net_card = TransformerNet().to("cuda", memory_format=torch.channels_last)
+    u = torch.rand((1, 64, 64, 3), generator=gen, device="cuda")
+    before = rgb.conv_to_rgb.launches
+    with torch.no_grad():
+        net_card(u)  # float32
+    net_card(u, precision=Precision.bf16())  # bf16 with the weights' gradients on
+    counted["f32_and_grad"] = rgb.conv_to_rgb.launches - before
+    ada = ArbitraryStylizer(AdaINDecoder().state_dict(), random_params(seed), precision="bf16")
+    ada.set_style_u8(smooth_image(256, 256, seed))
+    before = rgb.conv_to_rgb.launches
+    ada.stylize_u8(x)
+    counted["adain_bf16"] = rgb.conv_to_rgb.launches - before
+    served = {**counted, "replay": replay}
+    if not (counted["eager_bf16"] == 1 and counted["f32_and_grad"] == 0
+            and counted["adain_bf16"] == 0 and replay["replayed"] == 1
+            and replay["counted"] == replay["traced"] == 1 and replay["traced_tf32"] == 0
+            and replay["same_output"]):
+        bad.append({"serving": served})
+    del sty, ada, net_card
+
+    times = []
+    with torch.inference_mode():
+        for n, h, w in RGB_TIMED:
+            xp, wt, b = rgb_operands(n, h, w, gen)
+            flops = 2.0 * n * h * w * 3 * 32 * 81
+            moved = (n * h * w * (32 + 3) + wt.numel() + b.numel()) * 2
+            bound_ms, bound_by = bound(moved, flops, "bfloat16")
+            row = {"shape": [n, h, w],
+                   "plan": rgb.plan_rgb(n, h, w, rgb._sms(xp.device))._asdict(),
+                   "ms": cuda_ms(lambda: rgb.conv_to_rgb(xp, wt, b), iters=10),
+                   "graph_ms": graph_ms(lambda: rgb.conv_to_rgb(xp, wt, b)),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "plain_ms": cuda_ms(lambda: rgb.conv_to_rgb_reference(xp, wt, b), iters=10),
+                   "library_ms": cuda_ms(lambda: F.conv2d(xp, wt, b), iters=10)}
+            row["roofline_pct"] = 100 * bound_ms / row["ms"]
+            times.append(row)
+            del xp, wt, b
+    ok = not bad
+    emit("conv_to_rgb", ok=ok, checks=checks, mismatches=bad, serving=served, times=times)
+    if not ok:
+        fail("conv_to_rgb phase")
+    return {"max_abs_err": err, "serving": served, "times": times}
+
+
 PHASES = ("kernels", "trained_weights", "serving", "training", "train_parity",
           "multi_style", "video", "adain", "export", "int8", "spatial", "spatial_train",
           "spatial_adain", "data_parallel", "data_space", "data_parallel_serving", "tooling",
           "times", "train_times", "spatial_times", "in_fwd_budgets", "in_bwd_budgets",
-          "reflect_pad", "moment_attention")
+          "reflect_pad", "moment_attention", "conv_to_rgb")
 # recorded findings, run on request only
 EXTRA_PHASES = ("int8_sensitivity", "train_parity_sensitivity", "spatial_profile",
                 "data_parallel_cards")
@@ -5117,6 +5283,7 @@ def main() -> int:
     pads = run("reflect_pad", phase_reflect_pad, args.seed) if "reflect_pad" in phases else None
     moments = (run("moment_attention", phase_moment_attention, args.seed)
                if "moment_attention" in phases else None)
+    rgbs = run("conv_to_rgb", phase_conv_to_rgb, args.seed) if "conv_to_rgb" in phases else None
     emit("done", seconds=time.perf_counter() - t0, phases=list(phases),
          phase_seconds=seconds)
     if phases == PHASES:
@@ -5330,6 +5497,22 @@ def main() -> int:
             **{k: [t[k] for t in moments["times"]]
                for k in ("ms", "bound_ms", "plain_ms", "library_ms")},
             "bound_by": [t["bound_by"] for t in moments["times"]],
+        })
+        kernels.append({
+            "name": "conv_to_rgb",
+            "route": "cuda",
+            "source": src + "conv_to_rgb.cu",
+            "replaces": None,  # XLA's conv (the JAX package's reflect_conv2d)
+            # the serving phase's bf16 forwards (1 each), then the phase's
+            # eager and replayed forwards
+            "launches": served["rgb_launches"],
+            "launches_phase": rgbs["serving"],
+            "max_abs_err": rgbs["max_abs_err"],
+            # B=8 512^2 and B=1 256^2: the kernel, its bound, the plain
+            # version (float32) and cuDNN's bf16 F.conv2d
+            **{k: [t[k] for t in rgbs["times"]]
+               for k in ("ms", "bound_ms", "plain_ms", "library_ms")},
+            "bound_by": [t["bound_by"] for t in rgbs["times"]],
         })
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

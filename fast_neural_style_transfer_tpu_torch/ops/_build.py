@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # the sources the stylizers, the AdaIN paths and training load together
-TOGETHER = ("instance_norm", "conv_same_bwd", "reflect_pad")
+TOGETHER = ("instance_norm", "conv_same_bwd", "reflect_pad", "conv_to_rgb")
 # every source of the package
 SOURCES = TOGETHER + ("moment_attention",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

@@ -7,7 +7,10 @@ ops for the JAX package, so here they go to cuDNN (or the CPU's convs):
 - ``reflect_pad_hw``: ReflectionPad2d, with an optional ReLU and nearest x2
   upsample before it, staged by the hand-written kernel of
   ``ops/cuda_pad.py`` where no gradient is needed;
-- ``reflect_conv2d``: ReflectionPad2d(k // 2) + valid Conv2d;
+- ``reflect_conv2d``: ReflectionPad2d(k // 2) + valid Conv2d; the
+  stylizer's 32 -> 3 9x9 ``final_conv`` in a bf16 forward on a card that
+  needs no gradient runs the hand-written kernel of ``ops/cuda_conv_rgb.py``
+  (``takes_rgb`` decides from the call's operands), every other conv cuDNN;
 - ``conv_transpose2d``: ConvTranspose2d(stride, padding, output_padding);
 - ``conv2d_same``: zero-padded Conv2d(padding=k // 2), VGG's convs. With
   ``small_cin_kernel`` its backward is the hand-written kernel of
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from fast_neural_style_transfer_tpu_torch.ops import _build
 from fast_neural_style_transfer_tpu_torch.ops.cuda_conv import Conv2dSameSmallCinFn
+from fast_neural_style_transfer_tpu_torch.ops.cuda_conv_rgb import conv_to_rgb, takes_rgb
 from fast_neural_style_transfer_tpu_torch.ops.cuda_pad import reflect_pad, reflect_pad_reference
 
 
@@ -76,11 +80,16 @@ def reflect_conv2d(
 ) -> torch.Tensor:
     """Reflection-padded conv: pad = k // 2 on both sides, then a VALID conv,
     of ``up(relu(x))`` (``reflect_pad_hw``'s ``relu`` and ``upsample``).
-    Weight and bias are cast to x's dtype."""
+    Weight and bias are cast to x's dtype. Where ``takes_rgb`` holds, the
+    conv is the kernel's (``conv_to_rgb.launches`` counts it), else cuDNN's."""
     k = weight.shape[-1]
+    rgb = takes_rgb(x, weight, bias, stride=stride, relu=relu, upsample=upsample)
     x = reflect_pad_hw(x, k // 2, relu=relu, upsample=upsample)
+    weight = weight.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
-    return F.conv2d(x, weight.to(x.dtype), bias, stride=stride)
+    if rgb:
+        return conv_to_rgb(x, weight, bias)
+    return F.conv2d(x, weight, bias, stride=stride)
 
 
 def conv_transpose2d(

@@ -174,15 +174,16 @@ def test_every_counted_kernel_wrapper_is_listed():
     from fast_neural_style_transfer_tpu_torch.parallel.mesh import kernel_counts
 
     names = [fn.__name__ for fn in _build.COUNTED]
-    assert sorted(names) == ["conv2d_same_bwd", "conv2d_same_dx", "instance_norm_bwd",
-                             "instance_norm_fwd", "moment_attention", "reflect_pad_hw"]
+    assert sorted(names) == ["conv2d_same_bwd", "conv2d_same_dx", "conv_to_rgb",
+                             "instance_norm_bwd", "instance_norm_fwd", "moment_attention",
+                             "reflect_pad_hw"]
     counts = kernel_counts()
     assert set(counts) == set(names)
     assert set(counts["instance_norm_fwd"]) == {
         "launches", "launches_by_route", "launches_by_affine", "launches_by_mode"}
     assert counts["conv2d_same_dx"]["launches_by_route"] == dict(
         cuda_conv.conv2d_same_dx.launches_by_route)
-    assert set(counts["reflect_pad_hw"]) == {"launches"}
+    assert set(counts["reflect_pad_hw"]) == set(counts["conv_to_rgb"]) == {"launches"}
 
 
 def test_counted_gives_a_wrapper_zeroed_counters(monkeypatch):

@@ -21,7 +21,7 @@ import fast_neural_style_transfer_tpu_torch as port
 from fast_neural_style_transfer_tpu_torch.core.shapes import resolve_device
 from fast_neural_style_transfer_tpu_torch.infer import Stylizer
 from fast_neural_style_transfer_tpu_torch.models import TransformerNet
-from fast_neural_style_transfer_tpu_torch.ops import cuda_conv, cuda_norm
+from fast_neural_style_transfer_tpu_torch.ops import cuda_conv, cuda_conv_rgb, cuda_norm, cuda_pad
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_DIR = pathlib.Path(port.__file__).resolve().parent
@@ -745,6 +745,66 @@ def test_every_c_call_of_the_wrappers_is_guarded():
             entries += 1
             assert id(node) in guarded, f"{path}: {ast.unparse(node)} runs unguarded"
         assert entries == (7 if path.endswith("norm.py") else 3), (path, entries)
+
+
+# (N, H, W) of the stylizer's final-conv outputs on the main path: serving
+# batches at 256^2 and 512^2, an inference-CLI size; and beside them the
+# smallest side, a strip boundary and a ragged width
+_RGB_SHAPES = ([(n, s, s) for s in (256, 512) for n in (1, 2, 5, 8)]
+               + [(1, 260, 388), (1, 5, 5), (2, 9, 121), (1, 33, 250)])
+
+
+@pytest.mark.gpu
+def test_final_conv_kernel_matches_plain_on_card():
+    """The final-conv kernel (``ops/cuda_conv_rgb.py``) against its plain
+    version (float32 F.conv2d of the same bf16 operands): one launch each,
+    every output within one bf16 rounding step of the plain one (2^-7 of
+    its size; 1e-4 near 0: the two sum 2592 exact products in other
+    orders, then round once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode():
+        for n, h, w in _RGB_SHAPES:
+            x = torch.relu(torch.randn((n, h, w, 32), generator=gen, device="cuda")).bfloat16()
+            xp = cuda_pad.reflect_pad(x.permute(0, 3, 1, 2), 4)
+            wt = (torch.randn((3, 32, 9, 9), generator=gen, device="cuda") * 0.02).bfloat16()
+            wt = wt.contiguous(memory_format=torch.channels_last)
+            b = (torch.randn(3, generator=gen, device="cuda") * 0.1).bfloat16()
+            for bias in (b, None):
+                before = cuda_conv_rgb.conv_to_rgb.launches
+                y = cuda_conv_rgb.conv_to_rgb(xp, wt, bias)
+                assert cuda_conv_rgb.conv_to_rgb.launches == before + 1
+                torch.cuda.synchronize()
+                want = cuda_conv_rgb.conv_to_rgb_reference(xp, wt, bias).float()
+                assert y.shape == (n, 3, h, w) and y.is_contiguous(
+                    memory_format=torch.channels_last)
+                gap = (y.float() - want).abs() - (2.0 ** -7 * want.abs() + 1e-4)
+                assert gap.max().item() <= 0, (n, h, w, bias is None)
+
+
+@pytest.mark.gpu
+def test_final_conv_launches_once_a_bf16_forward_replays_included_on_card():
+    """A bf16 Stylizer forward launches the kernel once, eager or replayed
+    from its CUDA graph, and gives the same bytes either way; a float32
+    forward launches it never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.manual_seed(0)
+    params = TransformerNet().state_dict()
+    x = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3), np.uint8)
+    sty = Stylizer(params, precision="bf16", device="cuda")
+    counts, outs = [], []
+    for _ in range(4):  # eager, eager + capture, replay, replay
+        before = cuda_conv_rgb.conv_to_rgb.launches
+        outs.append(sty.stylize_u8(x))
+        counts.append(cuda_conv_rgb.conv_to_rgb.launches - before)
+    assert counts == [1, 1, 1, 1] and sty.graph_replays == 2
+    assert all(np.array_equal(o, outs[0]) for o in outs)
+    f32 = Stylizer(params, precision="f32", device="cuda")
+    before = cuda_conv_rgb.conv_to_rgb.launches
+    f32.stylize_u8(x)
+    assert cuda_conv_rgb.conv_to_rgb.launches == before
 
 
 @pytest.mark.gpu
